@@ -1,0 +1,742 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (`src/repro_torch`) on one NVIDIA GPU.
+
+    python3 chip_smoke.py                       # every phase
+    python3 chip_smoke.py --phases device,kernels --verbose-build
+
+Phases (any failure exits non-zero and prints no result):
+
+1. device  — require CUDA, print the card's name and power limit, build the
+             four CUDA kernels from `src/repro_torch/kernels/csrc/`;
+2. kernels — hold each kernel against its plain PyTorch version on the card
+             at this slice's shapes, and time kernel, plain version and the
+             nearest single PyTorch call (CUDA graphs of back-to-back calls,
+             timed with CUDA events; inputs stay warm in L2);
+3. serve   — an NL2SQL-2 cohort through the fleet runtime: first with the
+             workload's stage tables on "cuda" and on "cpu" (identical
+             results), then served by two full-width Yi-9B engines (random
+             weights from a seed; depth is the only cut): prefill and
+             greedy decode for every stage the planner picks, every
+             kernel's launches counted over that run.
+
+The last two lines of output are the card's `nvidia-smi` line (then a
+`{"kernels": [...]}` JSON line before it) and `{"ok": true, ...}`.
+Needs one card, no network, and no JAX.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import pathlib
+import statistics
+import subprocess
+import sys
+import time
+import traceback
+
+import numpy as np
+
+ROOT = pathlib.Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+# H100 SXM data-sheet peaks (dense): HBM bytes/s, bf16 tensor-core and
+# float32 CUDA-core operations/s.  A card set below 700 W runs below them.
+HBM_BPS = 3.35e12
+BF16_OPS = 989e12
+F32_OPS = 67e12
+
+SEED = 0
+PROMPT = 448
+MAX_NEW = 32
+N_REQUESTS = 16
+ENGINE_LAYERS = {"engine-a": 12, "engine-b": 48}  # yi-9b has 48
+BF16_TOL, F32_TOL = 2e-2, 2e-5
+MODEL_REL_TOL = 5e-2  # bf16 engine vs its float32 CPU copy, relative L2
+
+KERNELS = {
+    "trie_plan": ("src/repro_torch/kernels/csrc/trie_plan.cu",
+                  "src/repro/kernels/trie_plan.py:285"),
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:106"),
+    "decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",
+                         "src/repro/kernels/decode_attention.py:99"),
+    "rms_norm": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
+                 "src/repro/kernels/rmsnorm.py:40"),
+}
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+# ----------------------------------------------------------------------
+# timing
+# ----------------------------------------------------------------------
+def graph_ms(fn, calls: int = 20, reps: int = 7) -> float:
+    """Median device milliseconds of one ``fn()``: ``calls`` back-to-back
+    calls captured in a CUDA graph, replayed ``reps`` times between CUDA
+    events (no host launch cost in the reading)."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(calls):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        g.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / calls)
+    del g
+    return statistics.median(times)
+
+
+def bound(nbytes: float, ops: float, peak_ops: float):
+    """(bound_ms, bound_by): the larger of bytes over HBM rate and
+    operations over the peak rate of their type."""
+    t_bytes, t_ops = nbytes / HBM_BPS * 1e3, ops / peak_ops * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def max_err(out, ref) -> float:
+    return float((out.float() - ref.float()).abs().max()) if out.numel() else 0.0
+
+
+def check_close(name, out, ref, tol):
+    err = max_err(out, ref)
+    ok = bool(((out.float() - ref.float()).abs()
+               <= tol + tol * ref.float().abs()).all())
+    if not ok or not bool(out.float().isfinite().all()):
+        raise AssertionError(f"{name}: max abs err {err:.3g} beyond tol {tol}")
+    return err
+
+
+# ----------------------------------------------------------------------
+# phase 1: device
+# ----------------------------------------------------------------------
+def phase_device(args, rec):
+    import torch
+    from torch.utils.cpp_extension import is_ninja_available
+
+    from repro_torch.kernels import _build
+
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} "
+        f"python {sys.version.split()[0]} ninja {is_ninja_available()}")
+    log(f"device: {torch.cuda.get_device_name(0)} "
+        f"x{torch.cuda.device_count()}")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True)
+    rec["smi"] = smi.stdout.strip().splitlines()[0].strip()
+    log(f"nvidia-smi: {rec['smi']}")
+    t0 = time.perf_counter()
+    _build.extension(verbose=args.verbose_build)
+    log(f"build: {len(_build.SOURCES)} sources for sm_90a in "
+        f"{time.perf_counter() - t0:.1f} s -> {_build.BUILD_DIR}")
+
+
+# ----------------------------------------------------------------------
+# phase 2: kernels against their plain versions
+# ----------------------------------------------------------------------
+def _blocked_column(td, down_engine: int):
+    """1 + the deepest stage position on each node's root path whose engine
+    is down, 0 on a clean path (`repro.core.faults.blocked_depth_table`)."""
+    pm = td.path_models.cpu().numpy()
+    eom = td.engine_of_model.cpu().numpy()
+    dead = (pm >= 0) & (eom[np.maximum(pm, 0)] == down_engine)
+    pos = np.arange(pm.shape[1])[None, :] + 1
+    return np.max(np.where(dead, pos, 0), axis=1).astype(np.float32)
+
+
+def _host_plan(trie, ann, obj, roots, el, delays, engines, bd):
+    """(targets, next models) from the host float64 `select_path`, with the
+    blocked column applied as a per-lane terminal mask."""
+    from repro_torch.core.controller import select_path
+    from repro_torch.core.controller_torch import next_model_for
+
+    tgt, nxt = [], []
+    for i, u in enumerate(roots):
+        t = trie if bd is None else dataclasses.replace(
+            trie, terminal=trie.terminal & (bd <= trie.depth[u]))
+        v = select_path(t, ann, obj, root=int(u), elapsed_lat=float(el[i]),
+                        engine_delays={e: float(delays[i, j])
+                                       for j, e in enumerate(engines)})
+        tgt.append(v)
+        nxt.append(next_model_for(trie, int(u), v))
+    return np.array(tgt), np.array(nxt)
+
+
+def _plan_case(name, lanes, seed):
+    import torch
+
+    from repro_torch.core import presets
+    from repro_torch.core.controller import Objective
+    from repro_torch.core.controller_torch import TrieDevice, trie_engines
+    from repro_torch.core.trie import Trie
+    from repro_torch.core.workload import generate_workload
+
+    tpl = presets.PRESETS[name]()
+    trie = Trie.build(tpl)
+    ann = generate_workload(tpl, {"mathqa_4": 120}.get(name, 300),
+                            seed=0).exact_annotations(trie)
+    td = TrieDevice.build(trie, ann, device="cuda")
+    engines = trie_engines(tpl)
+    rng = np.random.default_rng(seed)
+    roots = rng.integers(0, trie.n_nodes, lanes).astype(np.int32)
+    el = rng.uniform(0, 1.5, lanes).astype(np.float32)
+    delays = rng.uniform(0, 0.5, (lanes, len(engines))).astype(np.float32)
+    term = trie.terminal
+    objs = [Objective("max_acc",
+                      cost_cap=float(np.quantile(ann.cost[term], 0.5)),
+                      lat_cap=float(np.quantile(ann.lat[term], 0.8))),
+            Objective("min_cost",
+                      acc_floor=float(np.quantile(ann.acc[term], 0.4)),
+                      lat_cap=float(np.quantile(ann.lat[term], 0.9)))]
+
+    def cuda(a, dt):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype=dt)).cuda()
+
+    return dict(tpl=tpl, trie=trie, ann=ann, td=td, engines=engines,
+                roots=roots, el=el, delays=delays, objs=objs,
+                t_roots=cuda(roots, np.int32), t_el=cuda(el, np.float32),
+                t_ec=cuda(np.zeros(lanes), np.float32),
+                t_delays=cuda(delays, np.float32))
+
+
+def _plan_args(c, obj, bd_t):
+    from repro_torch.core.controller_torch import _objective_scalars
+
+    td = c["td"]
+    return ((td.terminal, td.depth, td.acc, td.cost, td.lat, td.subtree_size,
+             td.path_models, td.path_counts, td.engine_of_model, c["t_roots"],
+             c["t_el"], c["t_ec"], c["t_delays"], *_objective_scalars(obj)),
+            dict(kind=obj.kind, blocked_depth=bd_t))
+
+
+def _plan_work(c, obj):
+    """(bytes, operations) the replan of these lanes needs: the node
+    columns of the union of the lanes' intervals (6 float columns and the
+    path-counts row), the lane operands and outputs, and per (lane, node
+    in its interval) 2M operations of delay plus about 12 of masks and
+    compares."""
+    trie, M = c["trie"], c["trie"].n_models
+    lo = c["roots"].astype(np.int64)
+    hi = lo + trie.subtree_size[lo]
+    seen = np.zeros(trie.n_nodes, bool)
+    for a, b in zip(lo, hi):
+        seen[a:b] = True
+    B, E = c["delays"].shape
+    nbytes = seen.sum() * (6 * 4 + M * 4) + B * (4 + 4 + 4 * E + 4 + 4 * 2) \
+        + M * 4
+    ops = float((hi - lo).sum()) * (2 * M + 12)
+    return float(nbytes), ops
+
+
+def check_trie_plan(rec):
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.trie_plan import fleet_plan_blocked, trie_plan_cuda
+
+    err = 0.0
+    for name, lanes in (("nl2sql_2", N_REQUESTS), ("mathqa_4", 64)):
+        c = _plan_case(name, lanes, seed=lanes)
+        bd = _blocked_column(c["td"], int(c["td"].engine_of_model[-1]))
+        assert bd.max() > 0
+        for obj in c["objs"]:
+            for blocked in (None, bd):
+                bd_t = None if blocked is None else \
+                    torch.from_numpy(blocked).cuda()
+                a, kw = _plan_args(c, obj, bd_t)
+                got = trie_plan_cuda(*a, **kw)
+                plain = fleet_plan_blocked(*a, **kw)
+                dense = ref.fleet_plan(*a[:7], *a[8:], **kw)
+                host = _host_plan(c["trie"], c["ann"], obj, c["roots"],
+                                  c["el"], c["delays"], c["engines"], blocked)
+                for want, what in ((plain, "plain blocked"),
+                                   (dense, "plain dense")):
+                    for x, y in zip(got, want):
+                        if not torch.equal(x, y):
+                            raise AssertionError(f"trie_plan {name} "
+                                                 f"{obj.kind} != {what}")
+                if not (np.array_equal(got[0].cpu().numpy(), host[0]) and
+                        np.array_equal(got[1].cpu().numpy(), host[1])):
+                    raise AssertionError(f"trie_plan {name} {obj.kind} != "
+                                         f"host select_path")
+                feas = int((got[0] >= 0).sum())
+                log(f"  trie_plan {name} N={c['trie'].n_nodes} B={lanes} "
+                    f"{obj.kind} blocked={blocked is not None}: exact "
+                    f"(feasible lanes {feas})")
+                err = max(err, max_err(got[0], plain[0]))
+        obj = c["objs"][0]
+        a, kw = _plan_args(c, obj, None)
+        ms = graph_ms(lambda: trie_plan_cuda(*a, **kw))
+        plain_ms = graph_ms(lambda: fleet_plan_blocked(*a, **kw))
+        nbytes, ops = _plan_work(c, obj)
+        b_ms, b_by = bound(nbytes, ops, F32_OPS)
+        log(f"  trie_plan {name} B={lanes}: kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by})")
+        rec.setdefault("timing_cases", {})[f"trie_plan {name} B={lanes}"] = \
+            dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+        if name == "nl2sql_2":  # the main path's shape
+            rec["kernels"]["trie_plan"] = dict(
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None, tol=0.0)
+    rec["kernels"]["trie_plan"]["max_abs_err"] = err
+    log(f"trie_plan: exact against plain versions and host, tol 0")
+
+
+def _attn_pairs(Sq, Sk, causal, window):
+    q = np.arange(Sq)[:, None]
+    k = np.arange(Sk)[None, :]
+    m = np.ones((Sq, Sk), bool)
+    if causal:
+        m = k <= q
+        if window > 0:
+            m &= k > q - window
+    return int(m.sum())
+
+
+def check_flash(rec):
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    H, KV, D = 32, 4, 128
+    err = 0.0
+    cases = [(torch.bfloat16, BF16_TOL, 448, True, 0),
+             (torch.bfloat16, BF16_TOL, 448, True, 64),
+             (torch.bfloat16, BF16_TOL, 100, True, 0),
+             (torch.bfloat16, BF16_TOL, 100, True, 64),
+             (torch.float32, F32_TOL, 100, True, 0)]
+    for dt, tol, S, causal, window in cases:
+        q = torch.randn(1, H, S, D, generator=g, device="cuda").to(dt)
+        k = torch.randn(1, KV, S, D, generator=g, device="cuda").to(dt)
+        v = torch.randn(1, KV, S, D, generator=g, device="cuda").to(dt)
+        out = flash_attention(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        want = ref.attention(q, k, v, causal=causal, window=window)
+        e = check_close("flash_attention", out, want, tol)
+        err = max(err, e)
+        log(f"  flash_attention {str(dt)[6:]} S={S} window={window}: "
+            f"max abs err {e:.3g} (tol {tol})")
+        if dt == torch.bfloat16 and S == 448 and window == 0:
+            ms = graph_ms(lambda: flash_attention(q, k, v, causal=True))
+            plain_ms = graph_ms(lambda: ref.attention(q, k, v, causal=True))
+            lib_ms = graph_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True))
+            nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
+            ops = 4.0 * D * H * _attn_pairs(S, S, True, 0)
+            b_ms, b_by = bound(nbytes, ops, BF16_OPS)
+            rec["kernels"]["flash_attention"] = dict(
+                ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib_ms, tol=BF16_TOL)
+            log(f"  flash_attention (1,32,448,128) causal: kernel {ms:.4f} "
+                f"ms, plain {plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms, bound "
+                f"{b_ms:.6f} ms ({b_by})")
+    rec["kernels"]["flash_attention"]["max_abs_err"] = err
+    log(f"flash_attention: ok, max abs err {err:.3g}")
+
+
+def check_decode(rec):
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.decode_attention import decode_attention
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    H, KV, D, S = 32, 4, 128, PROMPT + 64
+    err = 0.0
+    for dt, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, F32_TOL)):
+        q = torch.randn(2, H, D, generator=g, device="cuda").to(dt)
+        kc = torch.randn(2, KV, S, D, generator=g, device="cuda").to(dt)
+        vc = torch.randn(2, KV, S, D, generator=g, device="cuda").to(dt)
+        lens = torch.tensor([PROMPT + 1, 300], dtype=torch.int32,
+                            device="cuda")
+        for window in (0, 128):
+            out = decode_attention(q, kc, vc, lens, window=window)
+            torch.cuda.synchronize()
+            want = ref.decode_attention(q, kc, vc, lens, window=window)
+            e = check_close("decode_attention", out, want, tol)
+            err = max(err, e)
+            log(f"  decode_attention {str(dt)[6:]} S={S} lens=(449,300) "
+                f"window={window}: max abs err {e:.3g} (tol {tol})")
+    q1 = torch.randn(1, H, D, generator=g, device="cuda").bfloat16()
+    k1 = torch.randn(1, KV, S, D, generator=g, device="cuda").bfloat16()
+    v1 = torch.randn(1, KV, S, D, generator=g, device="cuda").bfloat16()
+    L = PROMPT + 1
+    l1 = torch.tensor([L], dtype=torch.int32, device="cuda")
+    mask = (torch.arange(S, device="cuda") < L)[None, None, None, :]
+    ms = graph_ms(lambda: decode_attention(q1, k1, v1, l1))
+    plain_ms = graph_ms(lambda: ref.decode_attention(q1, k1, v1, l1))
+    lib_ms = graph_ms(lambda: F.scaled_dot_product_attention(
+        q1[:, :, None], k1, v1, attn_mask=mask, enable_gqa=True))
+    nbytes = 2 * (2 * q1.numel() + 2 * KV * L * D) + 4
+    ops = 4.0 * H * D * L
+    b_ms, b_by = bound(nbytes, ops, BF16_OPS)
+    rec["kernels"]["decode_attention"] = dict(
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+        bound_by=b_by, library_ms=lib_ms, tol=BF16_TOL)
+    log(f"  decode_attention (1,32,128) cache 512 len 449: kernel {ms:.4f} "
+        f"ms, plain {plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms, bound "
+        f"{b_ms:.6f} ms ({b_by})")
+    log(f"decode_attention: ok, max abs err {err:.3g}")
+
+
+def check_rms_norm(rec):
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.rmsnorm import rms_norm
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    D = 4096
+    err = 0.0
+    for dt, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, F32_TOL)):
+        for rows in (PROMPT, 1):
+            x = (3 * torch.randn(rows, D, generator=g, device="cuda")).to(dt)
+            s = torch.rand(D, generator=g, device="cuda") + 0.5
+            out = rms_norm(x, s)
+            torch.cuda.synchronize()
+            e = check_close("rms_norm", out, ref.rms_norm(x, s), tol)
+            err = max(err, e)
+            log(f"  rms_norm {str(dt)[6:]} ({rows},{D}): max abs err "
+                f"{e:.3g} (tol {tol})")
+            if dt != torch.bfloat16:
+                continue
+            sb = s.to(dt)
+            ms = graph_ms(lambda: rms_norm(x, s))
+            plain_ms = graph_ms(lambda: ref.rms_norm(x, s))
+            lib_ms = graph_ms(lambda: F.rms_norm(x, (D,), sb, 1e-6))
+            b_ms, b_by = bound(2 * 2 * x.numel() + 4 * D, 4.0 * x.numel(),
+                               F32_OPS)
+            case = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                        bound_by=b_by, library_ms=lib_ms, tol=BF16_TOL)
+            rec.setdefault("timing_cases", {})[f"rms_norm ({rows},{D})"] = case
+            if rows == PROMPT:
+                rec["kernels"]["rms_norm"] = case
+            log(f"  rms_norm ({rows},{D}) bf16: kernel {ms:.4f} ms, plain "
+                f"{plain_ms:.4f} ms, F.rms_norm {lib_ms:.4f} ms, bound "
+                f"{b_ms:.6f} ms ({b_by})")
+    rec["kernels"]["rms_norm"]["max_abs_err"] = err
+    log(f"rms_norm: ok, max abs err {err:.3g}")
+
+
+def phase_kernels(args, rec):
+    rec["kernels"] = {}
+    for check in (check_trie_plan, check_flash, check_decode, check_rms_norm):
+        check(rec)
+    log("kernels: " + ", ".join(f"{k} ok (max abs err "
+                                f"{v['max_abs_err']:.3g}, tol {v['tol']})"
+                                for k, v in rec["kernels"].items()))
+
+
+# ----------------------------------------------------------------------
+# phase 3: serve an NL2SQL-2 cohort
+# ----------------------------------------------------------------------
+def _cohort():
+    from repro_torch.core import presets
+    from repro_torch.core.controller import Objective
+    from repro_torch.core.trie import Trie
+    from repro_torch.core.workload import generate_workload
+
+    tpl = presets.nl2sql_2()
+    trie = Trie.build(tpl)
+    wl = generate_workload(tpl, 300, seed=0)
+    ann = wl.exact_annotations(trie)
+    term = trie.terminal
+    obj = Objective("max_acc",
+                    cost_cap=float(np.quantile(ann.cost[term], 0.5)),
+                    lat_cap=float(np.quantile(ann.lat[term], 0.8)))
+    reqs = np.random.default_rng(7).choice(300, N_REQUESTS, replace=False)
+    return tpl, trie, wl, ann, obj, reqs
+
+
+def _same_results(a, b):
+    keys = ("success", "total_cost", "total_lat", "models", "n_stages",
+            "slo_violated", "outcome")
+    return all(getattr(x, k) == getattr(y, k) for x, y in zip(a, b)
+               for k in keys) and len(a) == len(b)
+
+
+def _model_check(model, rec):
+    """The bf16 engine with its kernels against a float32 copy of it on
+    the CPU (plain versions): prefill logits of a ragged 100-token prompt
+    and two decode steps, relative L2 error within MODEL_REL_TOL."""
+    import torch
+
+    from repro_torch.models.transformer import Model
+
+    cfg32 = dataclasses.replace(model.cfg, dtype="float32")
+    cpu = Model(cfg32, device="cpu")
+    with torch.no_grad():
+        for (n, p), (_, q) in zip(cpu.named_parameters(),
+                                  model.named_parameters()):
+            p.copy_(q.float().cpu())
+    toks = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, model.cfg.vocab, (1, 100)))
+    lg, cache = model.prefill(toks.cuda())
+    lc, ccache = cpu.prefill(toks)
+    errs = []
+    for step in range(3):
+        a, b = lg.float().cpu(), lc
+        errs.append(float((a - b).norm() / b.norm()))
+        if not bool(a.isfinite().all()) or errs[-1] > MODEL_REL_TOL:
+            raise AssertionError(f"engine logits off their float32 CPU copy:"
+                                 f" rel err {errs}")
+        if step == 2:
+            break
+        nxt = lg.argmax(-1)
+        lg, cache = model.decode_step(cache, nxt)
+        lc, ccache = cpu.decode_step(ccache, nxt.cpu())
+    rec["model_rel_err"] = errs
+    log(f"  engine-a vs float32 CPU copy (prefill 100 tokens, 2 decode "
+        f"steps): relative L2 err {', '.join(f'{e:.3g}' for e in errs)} "
+        f"(tol {MODEL_REL_TOL})")
+
+
+def _kernel_family(name: str) -> str:
+    """Our four kernels by name, cuBLAS's matmuls (``nvjet``/``gemv``/
+    ``gemm``/``xmma`` kernels), and everything else."""
+    low = name.lower()
+    for key, fam in (("trie_plan", "trie_plan"),
+                     ("flash_kernel", "flash_attention"),
+                     ("decode_kernel", "decode_attention"),
+                     ("rmsnorm", "rms_norm")):
+        if key in low:
+            return fam
+    if any(k in low for k in ("nvjet", "gemv", "gemm", "xmma", "cutlass")):
+        return "matmul (cuBLAS)"
+    return "other (elementwise, rope, copies, argmax)"
+
+
+def _profile_generate(name, eng, rec):
+    """Where one stage invocation's time goes: one `generate` of engine
+    ``name`` under `torch.profiler`, its device kernels summed by family
+    against the profiled wall time (the profiler's own host cost included,
+    so the busy share is a lower bound)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    prompt = np.random.default_rng(SEED).integers(
+        0, eng.model.cfg.vocab, (1, PROMPT))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.generate(prompt, max_new=MAX_NEW)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    fam, by_name = {}, {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            ms = e.time_range.elapsed_us() / 1e3
+            f = _kernel_family(e.name)
+            fam[f] = fam.get(f, 0.0) + ms
+            by_name[e.name] = by_name.get(e.name, 0.0) + ms
+    busy = sum(fam.values())
+    rec.setdefault("profile", {})[name] = dict(
+        wall_ms=wall_ms, device_ms=busy, by_family_ms=fam)
+    log(f"  profile {name}: one generate ({PROMPT} + {MAX_NEW} tokens) "
+        f"wall {wall_ms:.1f} ms, device kernels {busy:.1f} ms, busy share "
+        f"{busy / wall_ms:.3f}")
+    for f, ms in sorted(fam.items(), key=lambda kv: -kv[1]):
+        log(f"    {f}: {ms:.2f} ms ({ms / busy:.3f} of device time)")
+    for n, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+        log(f"      {ms:8.2f} ms  {n[:90]}")
+
+
+def phase_serve(args, rec):
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.fleet import run_fleet
+    from repro_torch.core.runtime import (make_workload_executor, run_cohort,
+                                          summarize)
+    from repro_torch.kernels import _build
+    from repro_torch.models.transformer import Model
+    from repro_torch.serving.engine import ServingEngine
+
+    tpl, trie, wl, ann, obj, reqs = _cohort()
+    execu = make_workload_executor(wl)
+    res_cuda = run_cohort(trie, ann, obj, reqs, execu, engine="fleet",
+                          device="cuda")
+    res_cpu = run_cohort(trie, ann, obj, reqs, execu, engine="fleet",
+                         device="cpu")
+    if not _same_results(res_cuda, res_cpu):
+        raise AssertionError("fleet cohort differs between cuda and cpu")
+    s = summarize(res_cuda)
+    log(f"fleet cohort (stage tables), cuda == cpu on {len(reqs)} requests: "
+        f"accuracy {s['accuracy']:.4f} mean_cost {s['mean_cost']:.6g} "
+        f"mean_lat {s['mean_lat']:.6g} plans "
+        f"{[[tpl.models[m].name for m in r.models] for r in res_cuda]}")
+
+    base = get_config("yi-9b")
+    engines, layers = {}, {}
+    t0 = time.perf_counter()
+    for i, (ename, n_layers) in enumerate(sorted(ENGINE_LAYERS.items())):
+        cfg = dataclasses.replace(base, n_layers=n_layers)
+        gen = torch.Generator(device="cuda").manual_seed(SEED + i)
+        model = Model(cfg, device="cuda").init(gen)
+        spec = next(m for m in tpl.models if m.engine == ename)
+        engines[ename] = ServingEngine(ename, model, price_per_1k=spec.price,
+                                       device="cuda")
+        layers[ename] = n_layers
+        n_par = sum(p.numel() for p in model.parameters())
+        log(f"engine {ename} hosts {spec.name}: yi-9b at full width (d 4096,"
+            f" 32 heads, 4 kv heads, head_dim 128, d_ff 11008, vocab 64000,"
+            f" bf16), {n_layers} of 48 layers, {n_par / 1e9:.2f}B parameters")
+    torch.cuda.synchronize()
+    log(f"reduced: depth only (engine-a 12 layers, engine-b 48); weights "
+        f"random from seed {SEED}; init {time.perf_counter() - t0:.1f} s")
+    _model_check(engines["engine-a"].model, rec)
+    for eng in engines.values():  # warm-up: cuBLAS handles, allocator
+        eng.generate(np.zeros((1, PROMPT), np.int64), max_new=2)
+
+    tel = {e: {"prefill_s": [], "decode_s": [], "tokens": 0} for e in engines}
+    vocab = base.vocab
+
+    def executor(q, depth, model_idx, t_now=0.0):
+        spec = tpl.models[model_idx]
+        eng = engines[spec.engine]
+        prompt = np.random.default_rng((SEED, int(q), int(depth))).integers(
+            0, vocab, (1, PROMPT))
+        out, ttft, dec = eng.generate(prompt, max_new=MAX_NEW)
+        if out.shape != (1, MAX_NEW) or out.min() < 0 or out.max() >= vocab:
+            raise AssertionError(f"bad generation {out.shape}")
+        tel[spec.engine]["prefill_s"].append(ttft)
+        tel[spec.engine]["decode_s"].append(dec)
+        tel[spec.engine]["tokens"] += out.shape[1]
+        success = bool(wl.S[q, depth, model_idx])
+        return success, eng.cost_of(PROMPT, out.shape[1]), ttft + dec
+
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    results, stats = run_fleet(trie, ann, obj, reqs, executor,
+                               device="cuda")
+    wall = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    rec["launches"] = launches
+
+    n_prefill = {e: len(t["prefill_s"]) for e, t in tel.items()}
+    expect = {
+        "trie_plan": stats.rounds,
+        "flash_attention": sum(layers[e] * n for e, n in n_prefill.items()),
+        "decode_attention": sum(layers[e] * n * MAX_NEW
+                                for e, n in n_prefill.items()),
+        "rms_norm": sum((2 * layers[e] + 1) * n * (1 + MAX_NEW)
+                        for e, n in n_prefill.items()),
+    }
+    log(f"launches on the main path: {launches} (expected {expect})")
+    if launches != expect or min(launches.values()) <= 0:
+        raise AssertionError("kernel launches on the main path do not match "
+                             "the stage invocations")
+    s = summarize(results)
+    log(f"served {len(results)} NL2SQL-2 requests in {wall:.2f} s: "
+        + " ".join(f"{k} {v:.6g}" for k, v in s.items()))
+    log(f"plans: {[[tpl.models[m].name for m in r.models] for r in results]}")
+    log(f"fleet rounds {stats.rounds}, replan ms per round "
+        f"{[round(x * 1e3, 3) for x in stats.replan_s_per_round]}, "
+        f"active per round {stats.active_per_round}")
+    for e, t in tel.items():
+        if not t["prefill_s"]:
+            log(f"  {e}: no stage invocations")
+            continue
+        pre = np.median(t["prefill_s"]) * 1e3
+        dec = np.median(t["decode_s"]) * 1e3 / MAX_NEW
+        log(f"  {e} ({layers[e]} layers): {len(t['prefill_s'])} invocations, "
+            f"prefill {PROMPT} tokens median {pre:.2f} ms, decode median "
+            f"{dec:.3f} ms/token ({MAX_NEW} tokens)")
+        rec.setdefault("engines", {})[e] = dict(
+            invocations=len(t["prefill_s"]), prefill_ms=pre,
+            decode_ms_per_token=dec)
+    rec["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    log(f"torch.cuda.max_memory_allocated: "
+        f"{rec['max_memory_allocated_gb']:.2f} GB")
+    if not all(r.n_stages >= 1 for r in results):
+        raise AssertionError("a request was served no stage")
+    if "profile" in args.phases.split(","):
+        for ename, eng in sorted(engines.items()):
+            _profile_generate(ename, eng, rec)
+
+
+# ----------------------------------------------------------------------
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--phases", default="device,kernels,serve",
+                    help="comma-separated subset of device,kernels,serve; "
+                         "add profile to trace one generate per engine "
+                         "after the serve phase")
+    ap.add_argument("--verbose-build", action="store_true",
+                    help="show the compiler's output (ptxas -v included)")
+    args = ap.parse_args(argv)
+    phases = args.phases.split(",")
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; the port's kernels run only on "
+              "the card", file=sys.stderr)
+        return 2
+    import repro_torch  # noqa: F401  (fails outside a checkout of the repo)
+
+    rec = {"kernels": {}}
+    failed = []
+    for name, fn in (("device", phase_device), ("kernels", phase_kernels),
+                     ("serve", phase_serve)):
+        if name not in phases:
+            continue
+        if failed:
+            log(f"phase {name}: skipped after a failure")
+            continue
+        log(f"== phase {name}")
+        t0 = time.perf_counter()
+        try:
+            fn(args, rec)
+        except Exception:  # a phase boundary: report and fail the run
+            traceback.print_exc()
+            failed.append(name)
+        log(f"== phase {name}: {'FAILED' if name in failed else 'ok'} "
+            f"({time.perf_counter() - t0:.1f} s)")
+    if failed:
+        print(f"chip_smoke: failed phases {failed}", file=sys.stderr)
+        return 1
+    if not {"device", "kernels", "serve"} <= set(phases):
+        log("partial run: no result line")
+        return 0
+    kernels = [dict(name=k, route="cuda", source=KERNELS[k][0],
+                    replaces=KERNELS[k][1], launches=rec["launches"][k],
+                    max_abs_err=v["max_abs_err"], ms=v["ms"],
+                    plain_ms=v["plain_ms"], bound_ms=v["bound_ms"],
+                    bound_by=v["bound_by"], library_ms=v["library_ms"])
+               for k, v in rec["kernels"].items()]
+    print(json.dumps({"kernels": kernels}))
+    print(rec["smi"])
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

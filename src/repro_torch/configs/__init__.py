@@ -1,0 +1,30 @@
+"""Architecture config registry: ``get_config("<arch-id>", smoke=...)``.
+
+The port registers only the architectures whose model family it carries
+(dense GQA so far); ids match `repro.configs`.
+"""
+from __future__ import annotations
+
+import dataclasses
+import importlib
+
+from repro_torch.models.config import ArchConfig
+
+_MODULES = {
+    "yi-9b": "yi_9b",
+}
+
+ARCH_IDS = list(_MODULES)
+
+
+def get_config(arch_id: str, smoke: bool = False, **overrides) -> ArchConfig:
+    """The registered CONFIG (or its reduced SMOKE variant) of ``arch_id``,
+    with ``overrides`` applied as dataclass fields."""
+    if arch_id not in _MODULES:
+        raise KeyError(f"unknown or not yet ported arch {arch_id!r}: "
+                       f"the port registers {ARCH_IDS}")
+    mod = importlib.import_module(f"repro_torch.configs.{_MODULES[arch_id]}")
+    cfg = mod.SMOKE if smoke else mod.CONFIG
+    if overrides:
+        cfg = dataclasses.replace(cfg, **overrides)
+    return cfg

@@ -1,0 +1,78 @@
+"""Build and load the CUDA kernels of `csrc/`, and count their launches.
+
+The sources are compiled with nvcc for Hopper (``sm_90a``) by
+`torch.utils.cpp_extension.load` on first use, into ``build/torch_ext/``
+under the repository root; nothing is built at import.  The kernels keep
+a plain C interface (`csrc/*.cu`), and `csrc/bindings.cpp` exposes them
+through pybind11 alone, taking raw device pointers and the stream as
+integers: no source includes PyTorch's headers, which keeps the build to
+seconds instead of minutes.  ninja compiles the five sources in parallel.
+
+``LAUNCHES`` counts the launches of each kernel: every wrapper adds one
+where it launches its kernel and nowhere else, so a run can show that its
+main path went through the kernels (`reset_launches` zeroes the counts).
+"""
+from __future__ import annotations
+
+import pathlib
+
+import torch
+
+CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
+SOURCES = ("bindings.cpp", "trie_plan.cu", "flash_attention.cu",
+           "decode_attention.cu", "rmsnorm.cu")
+BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "torch_ext"
+CUDA_FLAGS = ("-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a")
+
+LAUNCHES = {"trie_plan": 0, "flash_attention": 0, "decode_attention": 0,
+            "rms_norm": 0}
+
+_EXT = None
+
+
+def reset_launches() -> None:
+    """Zero every kernel's launch count."""
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def count_launch(name: str) -> None:
+    """Record one launch of kernel ``name`` (called by its wrapper only)."""
+    LAUNCHES[name] += 1
+
+
+def extension(verbose: bool = False):
+    """The loaded kernel extension, built on the first call.
+
+    ``verbose`` shows the compiler's output, ptxas' register and
+    shared-memory report included.  A build that fails raises."""
+    global _EXT
+    if _EXT is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("the CUDA kernels need a CUDA device")
+        from torch.utils.cpp_extension import load
+
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        flags = list(CUDA_FLAGS) + (["-Xptxas=-v"] if verbose else [])
+        _EXT = load(name="repro_torch_kernels",
+                    sources=[str(CSRC / s) for s in SOURCES],
+                    build_directory=str(BUILD_DIR),
+                    extra_cflags=["-O2", "-std=c++17"],
+                    extra_cuda_cflags=flags, verbose=verbose)
+    return _EXT
+
+
+def stream_of(t: torch.Tensor) -> int:
+    """Handle of the current CUDA stream on ``t``'s device, as an int."""
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def check_cuda(name: str, *tensors: torch.Tensor) -> None:
+    """Raise unless every tensor is contiguous and on one CUDA device."""
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device != dev or dev.type != "cuda":
+            raise ValueError(f"{name}: every operand must lie on one CUDA "
+                             f"device, got {t.device} and {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: operands must be contiguous")

@@ -1,0 +1,83 @@
+// Python bindings of the port's CUDA kernels (pybind11 only: no PyTorch
+// headers, so this file builds in seconds).  Each function takes raw
+// device pointers, sizes and the CUDA stream as integers from the Python
+// wrappers in repro_torch/kernels/, which check devices, dtypes, shapes
+// and contiguity first.  A launch the runtime refuses raises RuntimeError.
+
+#include <pybind11/pybind11.h>
+
+#include <cstdint>
+#include <stdexcept>
+#include <string>
+
+extern "C" {
+int repro_trie_plan(const void*, const void*, const void*, const void*,
+                    const void*, const void*, const void*, const void*,
+                    const void*, const void*, const void*, const void*,
+                    const void*, int, int, int, int, int, float, float, float,
+                    int, void*, void*, void*);
+int repro_flash_attention(const void*, const void*, const void*, void*, int,
+                          int, int, int, int, int, float, int, int, int,
+                          void*);
+int repro_decode_attention(const void*, const void*, const void*, const void*,
+                           void*, int, int, int, int, int, float, int, int,
+                           void*);
+int repro_rms_norm(const void*, const void*, void*, int, int, float, int,
+                   void*);
+const char* repro_error_string(int);
+}
+
+namespace {
+
+using ptr = std::uintptr_t;
+
+void* P(ptr p) { return reinterpret_cast<void*>(p); }
+
+void check(int status, const char* kernel) {
+  if (status != 0) {
+    throw std::runtime_error(std::string(kernel) + " launch failed: " +
+                             repro_error_string(status));
+  }
+}
+
+}  // namespace
+
+PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
+  m.def("trie_plan",
+        [](ptr terminal, ptr depth, ptr acc, ptr cost, ptr lat, ptr blocked,
+           ptr subtree, ptr counts, ptr path_models, ptr eom, ptr prefixes,
+           ptr elapsed_lat, ptr delays, int N, int M, int Dmax, int E, int B,
+           float floor_eff, float cap_eff, float lat_cap, int kind, ptr tgt,
+           ptr nxt, ptr stream) {
+          check(repro_trie_plan(P(terminal), P(depth), P(acc), P(cost), P(lat),
+                                P(blocked), P(subtree), P(counts),
+                                P(path_models), P(eom), P(prefixes),
+                                P(elapsed_lat), P(delays), N, M, Dmax, E, B,
+                                floor_eff, cap_eff, lat_cap, kind, P(tgt),
+                                P(nxt), P(stream)),
+                "trie_plan");
+        });
+  m.def("flash_attention",
+        [](ptr q, ptr k, ptr v, ptr o, int B, int H, int KV, int Sq, int Sk,
+           int D, float scale, int causal, int window, int dtype, ptr stream) {
+          check(repro_flash_attention(P(q), P(k), P(v), P(o), B, H, KV, Sq, Sk,
+                                      D, scale, causal, window, dtype,
+                                      P(stream)),
+                "flash_attention");
+        });
+  m.def("decode_attention",
+        [](ptr q, ptr kc, ptr vc, ptr lens, ptr o, int B, int H, int KV,
+           int S, int D, float scale, int window, int dtype, ptr stream) {
+          check(repro_decode_attention(P(q), P(kc), P(vc), P(lens), P(o), B, H,
+                                       KV, S, D, scale, window, dtype,
+                                       P(stream)),
+                "decode_attention");
+        });
+  m.def("rms_norm",
+        [](ptr x, ptr scale, ptr out, int rows, int D, float eps, int dtype,
+           ptr stream) {
+          check(repro_rms_norm(P(x), P(scale), P(out), rows, D, eps, dtype,
+                               P(stream)),
+                "rms_norm");
+        });
+}

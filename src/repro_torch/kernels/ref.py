@@ -1,0 +1,163 @@
+"""Plain PyTorch versions of the kernels (`repro.kernels.ref` counterpart).
+
+These are the correctness ground truth the CUDA kernels are held against
+on the card, and the path `ops` takes for tensors the caller put on the
+CPU.  Layouts and arithmetic follow `repro.kernels.ref`: bf16 operands are
+widened to float32 before each product (bf16 -> f32 is exact, so this is
+JAX's ``preferred_element_type=float32``), and the softmax probabilities
+are rounded to the value dtype before the PV product.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+NEG_INF = -1e30
+
+
+# ----------------------------------------------------------------------
+# attention
+# ----------------------------------------------------------------------
+def attention(q, k, v, *, causal: bool = True, window: int = 0,
+              q_offset: int = 0, scale: float | None = None):
+    """Grouped-query attention: (B,H,Sq,D) x (B,KV,Sk,D)^2 -> (B,H,Sq,D).
+
+    Query head ``h`` reads kv head ``h // (H // KV)``; ``window > 0`` keeps
+    keys ``qpos - window < kpos <= qpos`` (causal only)."""
+    B, H, Sq, D = q.shape
+    KV, Sk = k.shape[1], k.shape[2]
+    if H % KV:
+        raise ValueError(f"{H} query heads do not group over {KV} kv heads")
+    G = H // KV
+    scale = scale if scale is not None else D ** -0.5
+    qg = q.reshape(B, KV, G, Sq, D).float()
+    logits = torch.einsum("bkgqd,bkTd->bkgqT", qg, k.float()) * scale
+    if causal:
+        qpos = torch.arange(Sq, device=q.device)[:, None] + q_offset
+        kpos = torch.arange(Sk, device=q.device)[None, :]
+        mask = kpos <= qpos
+        if window > 0:
+            mask &= kpos > qpos - window
+        logits = torch.where(mask, logits, NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkgqT,bkTd->bkgqd", probs.to(v.dtype).float(),
+                       v.float())
+    return out.reshape(B, H, Sq, D).to(q.dtype)
+
+
+def decode_attention(q, k_cache, v_cache, cache_len, *, window: int = 0,
+                     scale: float | None = None):
+    """Single-token decode attention over a KV cache: (B,H,D) x
+    (B,KV,S,D)^2 with ``cache_len`` () or (B,) valid lengths -> (B,H,D)."""
+    B, H, D = q.shape
+    KV, S = k_cache.shape[1], k_cache.shape[2]
+    G = H // KV
+    scale = scale if scale is not None else D ** -0.5
+    qg = q.reshape(B, KV, G, D).float()
+    logits = torch.einsum("bkgd,bkTd->bkgT", qg, k_cache.float()) * scale
+    lens = torch.as_tensor(cache_len, device=q.device).reshape(-1)
+    lens = lens.expand(B)
+    pos = torch.arange(S, device=q.device)[None, :]
+    mask = pos < lens[:, None]
+    if window > 0:
+        mask &= pos >= (lens[:, None] - window)
+    logits = torch.where(mask[:, None, None, :], logits, NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkgT,bkTd->bkgd", probs.to(v_cache.dtype).float(),
+                       v_cache.float())
+    return out.reshape(B, H, D).to(q.dtype)
+
+
+# ----------------------------------------------------------------------
+# RMSNorm
+# ----------------------------------------------------------------------
+def rms_norm(x, scale, eps: float = 1e-6):
+    """``x * rsqrt(mean(x^2) + eps) * scale`` in float32, cast back."""
+    xf = x.float()
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
+
+
+# ----------------------------------------------------------------------
+# trie fleet-replan (VineLM controller)
+# ----------------------------------------------------------------------
+_PLAN_BIG = 1e30
+
+
+def effective_scalars(acc_floor, cost_cap):
+    """(floor_eff, cap_eff): the slack-adjusted accuracy floor and cost cap
+    in float32 arithmetic (``acc_floor - 1e-6``, ``cost_cap + 1e-6 *
+    |cost_cap|``), as host floats."""
+    f = np.float32
+    floor_eff = f(acc_floor) - f(1e-6)
+    cap_eff = f(cost_cap) + f(1e-6) * abs(f(cost_cap))
+    return float(floor_eff), float(cap_eff)
+
+
+def _plan_lex_argmin(feas, keys):
+    """Exact lexicographic argmin per row of the (B, N) feasible set
+    (multi-pass narrowing; the final tie-break is the lowest node index,
+    matching np.lexsort's stable order in the host ``select_path``)."""
+    B, n = feas.shape
+    cand = feas
+    for k in keys:
+        kk = torch.where(cand, k, _PLAN_BIG)
+        cand = cand & (kk <= kk.min(dim=1, keepdim=True).values)
+    idx = torch.arange(n, dtype=torch.int32, device=feas.device)
+    best = torch.where(cand, idx, n).min(dim=1).values.to(torch.int32)
+    return torch.where(cand.any(dim=1), best, -1).to(torch.int32)
+
+
+def fleet_plan(terminal, depth, acc, cost, lat, subtree_size, path_models,
+               engine_of_model, prefixes, elapsed_lat, elapsed_cost,
+               engine_delays, acc_floor, cost_cap, lat_cap, *, kind: str,
+               blocked_depth=None):
+    """Dense masked-reduction oracle of the fused trie replan.
+
+    One full min-pass per lexicographic key for every request, with the
+    (B, N, Dmax) per-position delay intermediate materialized — the
+    pre-fusion form of the fleet step (`repro.kernels.ref.fleet_plan`).
+    ``acc_floor``/``cost_cap``/``lat_cap`` are host scalars, taken in
+    float32 as `repro` takes them.  Returns (targets,
+    next_models), both (B,) int32 with -1 = infeasible / stop here.
+
+    ``blocked_depth[v]`` is the engine-availability mask as a node column:
+    a candidate is admissible from prefix ``u`` only when
+    ``blocked_depth[v] <= depth[u]``.
+    """
+    del elapsed_cost  # cost budgets are expectation-based (select_path)
+    dev = acc.device
+    floor_eff, cap_eff = effective_scalars(acc_floor, cost_cap)
+    n = acc.shape[0]
+    idx = torch.arange(n, dtype=torch.int32, device=dev)
+    bd = (torch.zeros_like(depth) if blocked_depth is None
+          else blocked_depth.to(depth.dtype))
+    u = prefixes.long()
+
+    per_model = engine_delays[:, engine_of_model.long()]           # (B, M)
+    pm = path_models.long()                                       # (N, D)
+    vals = torch.where(pm[None] >= 0,
+                       per_model[:, pm.clamp(min=0)], 0.0)        # (B, N, D)
+    delay = vals.sum(dim=2)                                       # (B, N)
+    lo = u[:, None]
+    hi = (u + subtree_size[u].long())[:, None]
+    d_lat = ((lat[None, :] - lat[u][:, None])
+             + (delay - delay.gather(1, u[:, None])))
+    d_cost = cost[None, :] - cost[u][:, None]
+    feas = (terminal[None, :] > 0.5) & (idx[None, :] >= lo) & (idx[None, :] < hi)
+    feas &= bd[None, :] <= depth[u][:, None]
+    feas &= d_lat <= ((float(np.float32(lat_cap)) - elapsed_lat) + 1e-6)[:, None]
+    # relative slack: costs sit at ~1e-3 $ where an absolute 1e-6 would
+    # admit plans the float64 host search rejects
+    feas &= (cost <= cap_eff)[None, :]
+    if kind == "min_cost":
+        feas &= (acc >= floor_eff)[None, :]
+        keys = (d_cost, d_lat, depth[None, :].expand_as(d_lat))
+    else:
+        keys = (-acc[None, :].expand_as(d_lat), d_cost, d_lat)
+    tgt = _plan_lex_argmin(feas, keys)
+    du = depth[u].long()
+    dmax = path_models.shape[1]
+    nxt = path_models[tgt.long().clamp(min=0), du.clamp(max=dmax - 1)]
+    nxt = torch.where((tgt < 0) | (tgt == prefixes), -1, nxt)
+    return tgt, nxt.to(torch.int32)

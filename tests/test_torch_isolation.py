@@ -1,0 +1,102 @@
+"""The port stands alone and never runs on the CPU unasked.
+
+An AST scan shows that no module of `src/repro_torch/`, nor
+`chip_smoke.py`, imports `jax` or `repro`.  With CUDA hidden, every entry
+point raises unless the caller passes ``device="cpu"``, and works with it.
+"""
+import ast
+import dataclasses
+import pathlib
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.core import presets
+from repro_torch.core.controller import Objective
+from repro_torch.core.controller_torch import TrieDevice
+from repro_torch.core.fleet import run_fleet
+from repro_torch.core.runtime import make_workload_executor, run_cohort
+from repro_torch.core.trie import Trie
+from repro_torch.core.workload import generate_workload
+from repro_torch.models.convert import params_from_jax
+from repro_torch.models.transformer import Model
+from repro_torch.serving.engine import ServingEngine
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _imported_roots(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name.split(".")[0], node.lineno
+        elif isinstance(node, ast.ImportFrom) and node.module and \
+                node.level == 0:
+            yield node.module.split(".")[0], node.lineno
+
+
+def _port_files():
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+    return files + [ROOT / "chip_smoke.py"]
+
+
+def test_port_imports_neither_jax_nor_repro():
+    files = _port_files()
+    assert len(files) > 20 and files[-1].exists()
+    bad = [f"{p.relative_to(ROOT)}:{line} imports {mod}"
+           for p in files for mod, line in _imported_roots(p)
+           if mod in FORBIDDEN]
+    assert not bad, bad
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def _small():
+    tpl = presets.nl2sql_2()
+    trie = Trie.build(tpl)
+    wl = generate_workload(tpl, 40, seed=0)
+    return trie, wl, wl.exact_annotations(trie)
+
+
+def test_entry_points_refuse_the_cpu_unasked(no_cuda):
+    trie, wl, ann = _small()
+    obj = Objective("max_acc")
+    execu = make_workload_executor(wl)
+    reqs = np.arange(4)
+    cfg = dataclasses.replace(get_config("yi-9b", smoke=True),
+                              dtype="float32")
+    calls = [
+        lambda: run_cohort(trie, ann, obj, reqs, execu, engine="fleet"),
+        lambda: run_cohort(trie, ann, obj, reqs, execu, engine="scalar"),
+        lambda: run_fleet(trie, ann, obj, reqs, execu),
+        lambda: TrieDevice.build(trie, ann),
+        lambda: Model(cfg),
+        lambda: params_from_jax(cfg, {}),
+        lambda: ServingEngine("e", Model(cfg, device="cpu")),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+
+
+def test_entry_points_run_on_the_cpu_when_asked(no_cuda):
+    trie, wl, ann = _small()
+    obj = Objective("max_acc")
+    res = run_cohort(trie, ann, obj, np.arange(4), make_workload_executor(wl),
+                     engine="fleet", device="cpu")
+    assert len(res) == 4 and all(r.n_stages >= 1 for r in res)
+    td = TrieDevice.build(trie, ann, device="cpu")
+    assert td.device.type == "cpu"
+    cfg = dataclasses.replace(get_config("yi-9b", smoke=True),
+                              dtype="float32")
+    model = Model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    eng = ServingEngine("e", model, device="cpu")
+    out, ttft, dec = eng.generate(np.zeros((1, 8), np.int32), max_new=3)
+    assert out.shape == (1, 3) and ttft > 0 and dec > 0
