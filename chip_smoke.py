@@ -6,21 +6,25 @@
 
 Phases (any failure exits non-zero and prints no result):
 
-1. device  — require CUDA, print the card's name and power limit, build the
-             four CUDA kernels from `src/repro_torch/kernels/csrc/`;
-2. kernels — hold each kernel against its plain PyTorch version on the card
-             at this slice's shapes, and time kernel, plain version and the
-             nearest single PyTorch call (CUDA graphs of back-to-back calls,
-             timed with CUDA events; inputs stay warm in L2);
-3. serve   — an NL2SQL-2 cohort through the fleet runtime: first with the
-             workload's stage tables on "cuda" and on "cpu" (identical
-             results), then served by two full-width Yi-9B engines (random
-             weights from a seed; depth is the only cut): prefill and
-             greedy decode for every stage the planner picks, every
-             kernel's launches counted over that run.
+1. device    — require CUDA, print the card's name and power limit, build
+               the five CUDA kernels from `src/repro_torch/kernels/csrc/`;
+2. kernels   — hold each kernel against its plain PyTorch version on the
+               card at the shapes of both serving paths, and time kernel,
+               plain version and the nearest single PyTorch call (CUDA
+               graphs of back-to-back calls, timed with CUDA events; inputs
+               stay warm in L2);
+3. serve     — an NL2SQL-2 cohort through the fleet runtime: first with the
+               workload's stage tables on "cuda" and on "cpu" (identical
+               results), then served by two full-width Yi-9B engines
+               (random weights from a seed; depth is the only cut): prefill
+               and greedy decode for every stage the planner picks, every
+               kernel's launches counted over that run;
+4. serve-ssm — the same cohort served by a full-width, full-depth
+               Mamba2-1.3B engine (engine-a) and Zamba2-2.7B engine
+               (engine-b), with their launches counted the same way.
 
-The last two lines of output are the card's `nvidia-smi` line (then a
-`{"kernels": [...]}` JSON line before it) and `{"ok": true, ...}`.
+The last three lines of output are the `{"kernels": [...]}` JSON line, the
+card's `nvidia-smi` line and `{"ok": true, ...}`.
 Needs one card, no network, and no JAX.
 """
 from __future__ import annotations
@@ -51,7 +55,15 @@ PROMPT = 448
 MAX_NEW = 32
 N_REQUESTS = 16
 ENGINE_LAYERS = {"engine-a": 12, "engine-b": 48}  # yi-9b has 48
+# the SSM path: every engine at full depth, and the depth of the reduced
+# copy held against float32 on the CPU (zamba2: its shared block twice)
+SSM_ENGINES = {"engine-a": "mamba2-1.3b", "engine-b": "zamba2-2.7b"}
+SSM_CHECK_LAYERS = {"mamba2-1.3b": 6, "zamba2-2.7b": 12}
 BF16_TOL, F32_TOL = 2e-2, 2e-5
+# the SSD scan against its plain version: f32 outputs and the f32 state
+# (the two sum L = cumsum(A dt), which reaches the thousands, in other
+# orders), bf16 outputs within BF16_TOL
+SSD_F32_TOL, SSD_STATE_TOL = 1e-3, 2e-3
 MODEL_REL_TOL = 5e-2  # bf16 engine vs its float32 CPU copy, relative L2
 
 KERNELS = {
@@ -63,7 +75,12 @@ KERNELS = {
                          "src/repro/kernels/decode_attention.py:99"),
     "rms_norm": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
                  "src/repro/kernels/rmsnorm.py:40"),
+    "ssd_scan": ("src/repro_torch/kernels/csrc/ssd_scan.cu",
+                 "src/repro/kernels/ssd_scan.py:91"),
 }
+# (heads, kv heads, head dim, decode window) of the attention in each
+# serving path: zamba2's shared block decodes with its window of 4096
+ATTN_SHAPES = {"yi-9b": (32, 4, 128, 0), "zamba2-2.7b": (32, 32, 80, 4096)}
 
 
 def log(*a):
@@ -320,25 +337,26 @@ def check_flash(rec):
     from repro_torch.kernels.flash_attention import flash_attention
 
     g = torch.Generator(device="cuda").manual_seed(SEED)
-    H, KV, D = 32, 4, 128
     err = 0.0
     cases = [(torch.bfloat16, BF16_TOL, 448, True, 0),
              (torch.bfloat16, BF16_TOL, 448, True, 64),
              (torch.bfloat16, BF16_TOL, 100, True, 0),
              (torch.bfloat16, BF16_TOL, 100, True, 64),
              (torch.float32, F32_TOL, 100, True, 0)]
-    for dt, tol, S, causal, window in cases:
-        q = torch.randn(1, H, S, D, generator=g, device="cuda").to(dt)
-        k = torch.randn(1, KV, S, D, generator=g, device="cuda").to(dt)
-        v = torch.randn(1, KV, S, D, generator=g, device="cuda").to(dt)
-        out = flash_attention(q, k, v, causal=causal, window=window)
-        torch.cuda.synchronize()
-        want = ref.attention(q, k, v, causal=causal, window=window)
-        e = check_close("flash_attention", out, want, tol)
-        err = max(err, e)
-        log(f"  flash_attention {str(dt)[6:]} S={S} window={window}: "
-            f"max abs err {e:.3g} (tol {tol})")
-        if dt == torch.bfloat16 and S == 448 and window == 0:
+    for arch, (H, KV, D, _) in ATTN_SHAPES.items():
+        for dt, tol, S, causal, window in cases:
+            q = torch.randn(1, H, S, D, generator=g, device="cuda").to(dt)
+            k = torch.randn(1, KV, S, D, generator=g, device="cuda").to(dt)
+            v = torch.randn(1, KV, S, D, generator=g, device="cuda").to(dt)
+            out = flash_attention(q, k, v, causal=causal, window=window)
+            torch.cuda.synchronize()
+            want = ref.attention(q, k, v, causal=causal, window=window)
+            e = check_close("flash_attention", out, want, tol)
+            err = max(err, e)
+            log(f"  flash_attention {arch} {str(dt)[6:]} (1,{H},{S},{D}) kv "
+                f"{KV} window={window}: max abs err {e:.3g} (tol {tol})")
+            if dt != torch.bfloat16 or S != PROMPT or window:
+                continue
             ms = graph_ms(lambda: flash_attention(q, k, v, causal=True))
             plain_ms = graph_ms(lambda: ref.attention(q, k, v, causal=True))
             lib_ms = graph_ms(lambda: F.scaled_dot_product_attention(
@@ -346,12 +364,15 @@ def check_flash(rec):
             nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
             ops = 4.0 * D * H * _attn_pairs(S, S, True, 0)
             b_ms, b_by = bound(nbytes, ops, BF16_OPS)
-            rec["kernels"]["flash_attention"] = dict(
-                ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=lib_ms, tol=BF16_TOL)
-            log(f"  flash_attention (1,32,448,128) causal: kernel {ms:.4f} "
-                f"ms, plain {plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms, bound "
-                f"{b_ms:.6f} ms ({b_by})")
+            case = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                        library_ms=lib_ms, tol=BF16_TOL)
+            rec.setdefault("timing_cases", {})[
+                f"flash_attention {arch} (1,{H},{S},{D}) kv {KV}"] = case
+            if arch == "yi-9b":  # the first path's shape heads the table
+                rec["kernels"]["flash_attention"] = case
+            log(f"  flash_attention {arch} (1,{H},{S},{D}) kv {KV} causal: "
+                f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA "
+                f"{lib_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by})")
     rec["kernels"]["flash_attention"]["max_abs_err"] = err
     log(f"flash_attention: ok, max abs err {err:.3g}")
 
@@ -364,41 +385,47 @@ def check_decode(rec):
     from repro_torch.kernels.decode_attention import decode_attention
 
     g = torch.Generator(device="cuda").manual_seed(SEED + 1)
-    H, KV, D, S = 32, 4, 128, PROMPT + 64
+    S, L = PROMPT + 64, PROMPT + 1
     err = 0.0
-    for dt, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, F32_TOL)):
-        q = torch.randn(2, H, D, generator=g, device="cuda").to(dt)
-        kc = torch.randn(2, KV, S, D, generator=g, device="cuda").to(dt)
-        vc = torch.randn(2, KV, S, D, generator=g, device="cuda").to(dt)
-        lens = torch.tensor([PROMPT + 1, 300], dtype=torch.int32,
-                            device="cuda")
-        for window in (0, 128):
-            out = decode_attention(q, kc, vc, lens, window=window)
-            torch.cuda.synchronize()
-            want = ref.decode_attention(q, kc, vc, lens, window=window)
-            e = check_close("decode_attention", out, want, tol)
-            err = max(err, e)
-            log(f"  decode_attention {str(dt)[6:]} S={S} lens=(449,300) "
-                f"window={window}: max abs err {e:.3g} (tol {tol})")
-    q1 = torch.randn(1, H, D, generator=g, device="cuda").bfloat16()
-    k1 = torch.randn(1, KV, S, D, generator=g, device="cuda").bfloat16()
-    v1 = torch.randn(1, KV, S, D, generator=g, device="cuda").bfloat16()
-    L = PROMPT + 1
-    l1 = torch.tensor([L], dtype=torch.int32, device="cuda")
-    mask = (torch.arange(S, device="cuda") < L)[None, None, None, :]
-    ms = graph_ms(lambda: decode_attention(q1, k1, v1, l1))
-    plain_ms = graph_ms(lambda: ref.decode_attention(q1, k1, v1, l1))
-    lib_ms = graph_ms(lambda: F.scaled_dot_product_attention(
-        q1[:, :, None], k1, v1, attn_mask=mask, enable_gqa=True))
-    nbytes = 2 * (2 * q1.numel() + 2 * KV * L * D) + 4
-    ops = 4.0 * H * D * L
-    b_ms, b_by = bound(nbytes, ops, BF16_OPS)
-    rec["kernels"]["decode_attention"] = dict(
-        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-        bound_by=b_by, library_ms=lib_ms, tol=BF16_TOL)
-    log(f"  decode_attention (1,32,128) cache 512 len 449: kernel {ms:.4f} "
-        f"ms, plain {plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms, bound "
-        f"{b_ms:.6f} ms ({b_by})")
+    for arch, (H, KV, D, window) in ATTN_SHAPES.items():
+        for dt, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, F32_TOL)):
+            q = torch.randn(2, H, D, generator=g, device="cuda").to(dt)
+            kc = torch.randn(2, KV, S, D, generator=g, device="cuda").to(dt)
+            vc = torch.randn(2, KV, S, D, generator=g, device="cuda").to(dt)
+            lens = torch.tensor([L, 300], dtype=torch.int32, device="cuda")
+            for w in sorted({0, 128, window}):
+                out = decode_attention(q, kc, vc, lens, window=w)
+                torch.cuda.synchronize()
+                want = ref.decode_attention(q, kc, vc, lens, window=w)
+                e = check_close("decode_attention", out, want, tol)
+                err = max(err, e)
+                log(f"  decode_attention {arch} {str(dt)[6:]} (2,{H},{D}) "
+                    f"kv {KV} S={S} lens=({L},300) window={w}: max abs "
+                    f"err {e:.3g} (tol {tol})")
+        q1 = torch.randn(1, H, D, generator=g, device="cuda").bfloat16()
+        k1 = torch.randn(1, KV, S, D, generator=g, device="cuda").bfloat16()
+        v1 = torch.randn(1, KV, S, D, generator=g, device="cuda").bfloat16()
+        l1 = torch.tensor([L], dtype=torch.int32, device="cuda")
+        mask = (torch.arange(S, device="cuda") < L)[None, None, None, :]
+        ms = graph_ms(lambda: decode_attention(q1, k1, v1, l1, window=window))
+        plain_ms = graph_ms(lambda: ref.decode_attention(q1, k1, v1, l1,
+                                                         window=window))
+        lib_ms = graph_ms(lambda: F.scaled_dot_product_attention(
+            q1[:, :, None], k1, v1, attn_mask=mask, enable_gqa=True))
+        nbytes = 2 * (2 * q1.numel() + 2 * KV * L * D) + 4
+        ops = 4.0 * H * D * L
+        b_ms, b_by = bound(nbytes, ops, BF16_OPS)
+        case = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                    library_ms=lib_ms, tol=BF16_TOL)
+        rec.setdefault("timing_cases", {})[
+            f"decode_attention {arch} (1,{H},{D}) kv {KV} cache {S} len {L} "
+            f"window {window}"] = case
+        if arch == "yi-9b":
+            rec["kernels"]["decode_attention"] = case
+        log(f"  decode_attention {arch} (1,{H},{D}) kv {KV} cache {S} len {L}"
+            f" window {window}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"SDPA {lib_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by})")
+    rec["kernels"]["decode_attention"]["max_abs_err"] = err
     log(f"decode_attention: ok, max abs err {err:.3g}")
 
 
@@ -410,41 +437,141 @@ def check_rms_norm(rec):
     from repro_torch.kernels.rmsnorm import rms_norm
 
     g = torch.Generator(device="cuda").manual_seed(SEED + 2)
-    D = 4096
     err = 0.0
-    for dt, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, F32_TOL)):
-        for rows in (PROMPT, 1):
-            x = (3 * torch.randn(rows, D, generator=g, device="cuda")).to(dt)
-            s = torch.rand(D, generator=g, device="cuda") + 0.5
-            out = rms_norm(x, s)
-            torch.cuda.synchronize()
-            e = check_close("rms_norm", out, ref.rms_norm(x, s), tol)
-            err = max(err, e)
-            log(f"  rms_norm {str(dt)[6:]} ({rows},{D}): max abs err "
-                f"{e:.3g} (tol {tol})")
-            if dt != torch.bfloat16:
-                continue
-            sb = s.to(dt)
-            ms = graph_ms(lambda: rms_norm(x, s))
-            plain_ms = graph_ms(lambda: ref.rms_norm(x, s))
-            lib_ms = graph_ms(lambda: F.rms_norm(x, (D,), sb, 1e-6))
-            b_ms, b_by = bound(2 * 2 * x.numel() + 4 * D, 4.0 * x.numel(),
-                               F32_OPS)
-            case = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                        bound_by=b_by, library_ms=lib_ms, tol=BF16_TOL)
-            rec.setdefault("timing_cases", {})[f"rms_norm ({rows},{D})"] = case
-            if rows == PROMPT:
-                rec["kernels"]["rms_norm"] = case
-            log(f"  rms_norm ({rows},{D}) bf16: kernel {ms:.4f} ms, plain "
-                f"{plain_ms:.4f} ms, F.rms_norm {lib_ms:.4f} ms, bound "
-                f"{b_ms:.6f} ms ({b_by})")
+    # yi-9b rows (4096), the mamba2 / zamba2 block norms (2048, 2560) and
+    # their gated norms (4096, 5120); the yi-9b rows are timed
+    cases = [(dt, tol, rows, D)
+             for dt, tol in ((torch.bfloat16, BF16_TOL),
+                             (torch.float32, F32_TOL))
+             for D in (4096, 2048, 2560, 5120) for rows in (PROMPT, 1)]
+    for dt, tol, rows, D in cases:
+        x = (3 * torch.randn(rows, D, generator=g, device="cuda")).to(dt)
+        s = torch.rand(D, generator=g, device="cuda") + 0.5
+        out = rms_norm(x, s)
+        torch.cuda.synchronize()
+        e = check_close("rms_norm", out, ref.rms_norm(x, s), tol)
+        err = max(err, e)
+        log(f"  rms_norm {str(dt)[6:]} ({rows},{D}): max abs err "
+            f"{e:.3g} (tol {tol})")
+        if dt != torch.bfloat16 or D != 4096:
+            continue
+        sb = s.to(dt)
+        ms = graph_ms(lambda: rms_norm(x, s))
+        plain_ms = graph_ms(lambda: ref.rms_norm(x, s))
+        lib_ms = graph_ms(lambda: F.rms_norm(x, (D,), sb, 1e-6))
+        b_ms, b_by = bound(2 * 2 * x.numel() + 4 * D, 4.0 * x.numel(),
+                           F32_OPS)
+        case = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                    bound_by=b_by, library_ms=lib_ms, tol=BF16_TOL)
+        rec.setdefault("timing_cases", {})[f"rms_norm ({rows},{D})"] = case
+        if rows == PROMPT:
+            rec["kernels"]["rms_norm"] = case
+        log(f"  rms_norm ({rows},{D}) bf16: kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, F.rms_norm {lib_ms:.4f} ms, bound "
+            f"{b_ms:.6f} ms ({b_by})")
     rec["kernels"]["rms_norm"]["max_abs_err"] = err
     log(f"rms_norm: ok, max abs err {err:.3g}")
 
 
+def _ssd_inputs(g, S, Hn, P, N, dt_, state):
+    """SSD operands as the Mamba block makes them: x, B, C of unit-scale
+    activations, dt = softplus of a unit normal, A = -linspace(1, 16) (the
+    ``-exp(A_log)`` of ``init_mamba``), and an optional initial state."""
+    import torch
+    import torch.nn.functional as F
+
+    def rn(*shape):
+        return torch.randn(*shape, generator=g, device="cuda")
+
+    x = (0.5 * rn(1, S, Hn, P)).to(dt_)
+    dt = F.softplus(rn(1, S, Hn))
+    A = -torch.linspace(1.0, 16.0, Hn, device="cuda")
+    Bm, Cm = (0.5 * rn(1, S, N)).to(dt_), (0.5 * rn(1, S, N)).to(dt_)
+    h0 = 0.2 * rn(1, Hn, P, N) if state else None
+    return x, dt, A, Bm, Cm, h0
+
+
+def _ssd_work(S, Hn, P, N, Q):
+    """(bytes, operations) of one scan: x, dt, A, B, C read and y and the
+    final state written once; per chunk of n steps, C.B once for all heads
+    (ngroups = 1) over the n(n+1)/2 causal pairs, and per head the decay
+    weights (~4 operations a pair), M.x (2P a pair) and the two state
+    terms (C.h and the update, 2PN a step each)."""
+    nbytes = 2 * (2 * S * Hn * P + 2 * S * N) + 4 * (S * Hn + Hn + Hn * P * N)
+    ops = 0.0
+    for c0 in range(0, S, Q):
+        n = min(Q, S - c0)
+        pairs = n * (n + 1) / 2
+        ops += pairs * 2 * N + Hn * (pairs * (2 * P + 4) + 4 * n * P * N)
+    return float(nbytes), ops
+
+
+def check_ssd_scan(rec):
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ssd_scan import ssd_scan
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain version in f32
+    g = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    err = 0.0
+    for arch in SSM_ENGINES.values():
+        c = get_config(arch).ssm
+        Hn = c.expand * get_config(arch).d_model // c.head_dim
+        P, N = c.head_dim, c.state_dim
+        # S = 448 is one whole chunk and a ragged one; 100 and 300 are
+        # ragged; every form: no state, an initial state, the final state
+        cases = [(torch.bfloat16, PROMPT, False, True),
+                 (torch.bfloat16, PROMPT, False, False),
+                 (torch.bfloat16, 100, True, True),
+                 (torch.float32, PROMPT, True, True),
+                 (torch.float32, 300, False, True),
+                 (torch.float32, 100, True, False)]
+        for dt_, S, init, final in cases:
+            x, dt, A, Bm, Cm, h0 = _ssd_inputs(g, S, Hn, P, N, dt_, init)
+            got = ssd_scan(x, dt, A, Bm, Cm, chunk=c.chunk, init_state=h0,
+                           return_state=final)
+            torch.cuda.synchronize()
+            want = ref.ssd_scan_chunked(x, dt, A, Bm, Cm, chunk=c.chunk,
+                                        init_state=h0, return_state=final)
+            tol = BF16_TOL if dt_ == torch.bfloat16 else SSD_F32_TOL
+            y, yw = (got[0], want[0]) if final else (got, want)
+            e = check_close("ssd_scan y", y, yw, tol)
+            msg = f"y max abs err {e:.3g} (tol {tol})"
+            if final:
+                es = check_close("ssd_scan state", got[1], want[1],
+                                 SSD_STATE_TOL)
+                msg += f", state {es:.3g} (tol {SSD_STATE_TOL})"
+                e = max(e, es)
+            err = max(err, e)
+            log(f"  ssd_scan {arch} {str(dt_)[6:]} x (1,{S},{Hn},{P}) N {N} "
+                f"chunk {c.chunk} init={init} final={final}: {msg}")
+        # time the form the prefill calls: bf16, S = 448, final state
+        x, dt, A, Bm, Cm, _ = _ssd_inputs(g, PROMPT, Hn, P, N,
+                                          torch.bfloat16, False)
+        ms = graph_ms(lambda: ssd_scan(x, dt, A, Bm, Cm, chunk=c.chunk,
+                                       return_state=True))
+        plain_ms = graph_ms(lambda: ref.ssd_scan_chunked(
+            x, dt, A, Bm, Cm, chunk=c.chunk, return_state=True))
+        b_ms, b_by = bound(*_ssd_work(PROMPT, Hn, P, N, c.chunk), F32_OPS)
+        case = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                    library_ms=None, tol=BF16_TOL)
+        rec.setdefault("timing_cases", {})[
+            f"ssd_scan {arch} x (1,{PROMPT},{Hn},{P}) N {N}"] = case
+        if arch == SSM_ENGINES["engine-a"]:
+            rec["kernels"]["ssd_scan"] = case
+        log(f"  ssd_scan {arch} x (1,{PROMPT},{Hn},{P}) N {N} bf16 with final"
+            f" state: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+            f"{b_ms:.6f} ms ({b_by}), no single PyTorch call")
+    rec["kernels"]["ssd_scan"]["max_abs_err"] = err
+    log(f"ssd_scan: ok, max abs err {err:.3g}")
+
+
 def phase_kernels(args, rec):
     rec["kernels"] = {}
-    for check in (check_trie_plan, check_flash, check_decode, check_rms_norm):
+    for check in (check_trie_plan, check_flash, check_decode, check_rms_norm,
+                  check_ssd_scan):
         check(rec)
     log("kernels: " + ", ".join(f"{k} ok (max abs err "
                                 f"{v['max_abs_err']:.3g}, tol {v['tol']})"
@@ -479,10 +606,10 @@ def _same_results(a, b):
                for k in keys) and len(a) == len(b)
 
 
-def _model_check(model, rec):
-    """The bf16 engine with its kernels against a float32 copy of it on
-    the CPU (plain versions): prefill logits of a ragged 100-token prompt
-    and two decode steps, relative L2 error within MODEL_REL_TOL."""
+def _model_check(model, rec, label, prompt_len):
+    """The bf16 engine ``model`` with its kernels against a float32 copy of
+    it on the CPU (plain versions): prefill logits of a ragged prompt and
+    two decode steps, relative L2 error within MODEL_REL_TOL."""
     import torch
 
     from repro_torch.models.transformer import Model
@@ -494,7 +621,7 @@ def _model_check(model, rec):
                                   model.named_parameters()):
             p.copy_(q.float().cpu())
     toks = torch.from_numpy(np.random.default_rng(SEED).integers(
-        0, model.cfg.vocab, (1, 100)))
+        0, model.cfg.vocab, (1, prompt_len)))
     lg, cache = model.prefill(toks.cuda())
     lc, ccache = cpu.prefill(toks)
     errs = []
@@ -502,27 +629,44 @@ def _model_check(model, rec):
         a, b = lg.float().cpu(), lc
         errs.append(float((a - b).norm() / b.norm()))
         if not bool(a.isfinite().all()) or errs[-1] > MODEL_REL_TOL:
-            raise AssertionError(f"engine logits off their float32 CPU copy:"
+            raise AssertionError(f"{label} logits off their float32 CPU copy:"
                                  f" rel err {errs}")
         if step == 2:
             break
         nxt = lg.argmax(-1)
         lg, cache = model.decode_step(cache, nxt)
         lc, ccache = cpu.decode_step(ccache, nxt.cpu())
-    rec["model_rel_err"] = errs
-    log(f"  engine-a vs float32 CPU copy (prefill 100 tokens, 2 decode "
-        f"steps): relative L2 err {', '.join(f'{e:.3g}' for e in errs)} "
-        f"(tol {MODEL_REL_TOL})")
+    rec.setdefault("model_rel_err", {})[label] = errs
+    log(f"  {label} vs float32 CPU copy (prefill {prompt_len} tokens, 2 "
+        f"decode steps): relative L2 err {', '.join(f'{e:.3g}' for e in errs)}"
+        f" (tol {MODEL_REL_TOL})")
+
+
+def _reduced_copy(model, n_layers):
+    """A model of ``model``'s config at ``n_layers`` holding its first
+    ``n_layers`` layers' weights (and every shared weight), on the card."""
+    import torch
+
+    from repro_torch.models.transformer import Model
+
+    small = Model(dataclasses.replace(model.cfg, n_layers=n_layers),
+                  device="cuda")
+    weights = model.state_dict()
+    with torch.no_grad():
+        for n, p in small.named_parameters():
+            p.copy_(weights[n])
+    return small
 
 
 def _kernel_family(name: str) -> str:
-    """Our four kernels by name, cuBLAS's matmuls (``nvjet``/``gemv``/
+    """Our five kernels by name, cuBLAS's matmuls (``nvjet``/``gemv``/
     ``gemm``/``xmma`` kernels), and everything else."""
     low = name.lower()
     for key, fam in (("trie_plan", "trie_plan"),
                      ("flash_kernel", "flash_attention"),
                      ("decode_kernel", "decode_attention"),
-                     ("rmsnorm", "rms_norm")):
+                     ("rmsnorm", "rms_norm"),
+                     ("ssd_kernel", "ssd_scan")):
         if key in low:
             return fam
     if any(k in low for k in ("nvjet", "gemv", "gemm", "xmma", "cutlass")):
@@ -565,18 +709,132 @@ def _profile_generate(name, eng, rec):
         log(f"      {ms:8.2f} ms  {n[:90]}")
 
 
+def _expected_launches(cfg, invocations: int) -> dict:
+    """Kernel launches of ``invocations`` stage invocations (a prefill and
+    MAX_NEW decode steps each) on an engine of ``cfg``: per prefill, L
+    flash launches (dense) or L SSD scans and L / attn_every flash launches
+    (hybrid: its shared block); per decode step as many decode-attention
+    launches; 2L + 1 RMSNorms per prefill and per step (block norms, or
+    block and gated norms, and the final norm) plus 2 per shared-block
+    application."""
+    L = cfg.n_layers
+    attn = L if cfg.family == "dense" else \
+        L // cfg.hybrid.attn_every if cfg.family == "hybrid" else 0
+    norms = 2 * L + 1 + (2 * attn if cfg.family == "hybrid" else 0)
+    per_run = {"flash_attention": attn, "decode_attention": attn * MAX_NEW,
+               "rms_norm": norms * (1 + MAX_NEW),
+               "ssd_scan": 0 if cfg.family == "dense" else L}
+    return {k: v * invocations for k, v in per_run.items()}
+
+
+def _serve_cohort(path, engines, cohort, rec, args):
+    """Serve the NL2SQL-2 cohort through the fleet runtime on ``engines``
+    (name -> `ServingEngine`), every kernel's launches counted from zero
+    over that run alone and checked exactly against the stage
+    invocations; the readings go to ``rec["paths"][path]``."""
+    import torch
+
+    from repro_torch.core.fleet import run_fleet
+    from repro_torch.core.runtime import summarize
+    from repro_torch.kernels import _build
+
+    tpl, trie, wl, ann, obj, reqs = cohort
+    for eng in engines.values():  # warm-up: cuBLAS handles, allocator
+        eng.generate(np.zeros((1, PROMPT), np.int64), max_new=2)
+    tel = {e: {"prefill_s": [], "decode_s": []} for e in engines}
+
+    def executor(q, depth, model_idx, t_now=0.0):
+        spec = tpl.models[model_idx]
+        eng = engines[spec.engine]
+        vocab = eng.model.cfg.vocab
+        prompt = np.random.default_rng((SEED, int(q), int(depth))).integers(
+            0, vocab, (1, PROMPT))
+        out, ttft, dec = eng.generate(prompt, max_new=MAX_NEW)
+        if out.shape != (1, MAX_NEW) or out.min() < 0 or out.max() >= vocab:
+            raise AssertionError(f"bad generation {out.shape}")
+        tel[spec.engine]["prefill_s"].append(ttft)
+        tel[spec.engine]["decode_s"].append(dec)
+        success = bool(wl.S[q, depth, model_idx])
+        return success, eng.cost_of(PROMPT, out.shape[1]), ttft + dec
+
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    results, stats = run_fleet(trie, ann, obj, reqs, executor,
+                               device="cuda")
+    wall = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+
+    expect = {k: 0 for k in launches}
+    expect["trie_plan"] = stats.rounds
+    for e, t in tel.items():
+        for k, v in _expected_launches(engines[e].model.cfg,
+                                       len(t["prefill_s"])).items():
+            expect[k] += v
+    log(f"launches on the {path} path: {launches} (expected {expect})")
+    used = {k for k, v in expect.items() if v}
+    if launches != expect or any(launches[k] <= 0 for k in used):
+        raise AssertionError(f"kernel launches on the {path} path do not "
+                             f"match the stage invocations")
+    s = summarize(results)
+    log(f"served {len(results)} NL2SQL-2 requests in {wall:.2f} s: "
+        + " ".join(f"{k} {v:.6g}" for k, v in s.items()))
+    log(f"plans: {[[tpl.models[m].name for m in r.models] for r in results]}")
+    log(f"fleet rounds {stats.rounds}, replan ms per round "
+        f"{[round(x * 1e3, 3) for x in stats.replan_s_per_round]}, "
+        f"active per round {stats.active_per_round}")
+    out = {"launches": launches, "wall_s": wall, "engines": {}}
+    for e, t in tel.items():
+        L = engines[e].model.cfg.n_layers
+        if not t["prefill_s"]:
+            log(f"  {e}: no stage invocations")
+            continue
+        pre = np.median(t["prefill_s"]) * 1e3
+        dec = np.median(t["decode_s"]) * 1e3 / MAX_NEW
+        log(f"  {e} ({engines[e].model.cfg.name}, {L} layers): "
+            f"{len(t['prefill_s'])} invocations, prefill {PROMPT} tokens "
+            f"median {pre:.2f} ms, decode median {dec:.3f} ms/token "
+            f"({MAX_NEW} tokens)")
+        out["engines"][e] = dict(invocations=len(t["prefill_s"]),
+                                 prefill_ms=pre, decode_ms_per_token=dec)
+    out["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    log(f"torch.cuda.max_memory_allocated: "
+        f"{out['max_memory_allocated_gb']:.2f} GB")
+    if not all(r.n_stages >= 1 for r in results):
+        raise AssertionError("a request was served no stage")
+    rec.setdefault("paths", {})[path] = out
+    if "profile" in args.phases.split(","):
+        for ename, eng in sorted(engines.items()):
+            _profile_generate(f"{path} {ename}", eng, rec)
+
+
+def _engine(tpl, ename, cfg, seed):
+    """A `ServingEngine` named ``ename`` with random weights of ``cfg``
+    from ``seed``, priced as the preset's model on that engine."""
+    import torch
+
+    from repro_torch.models.transformer import Model
+    from repro_torch.serving.engine import ServingEngine
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    model = Model(cfg, device="cuda").init(gen)
+    spec = next(m for m in tpl.models if m.engine == ename)
+    n_par = sum(p.numel() for p in model.parameters())
+    log(f"engine {ename} hosts {spec.name}: {cfg.name} at full width (d "
+        f"{cfg.d_model}, vocab {cfg.vocab}, bf16), {cfg.n_layers} layers, "
+        f"{n_par / 1e9:.2f}B parameters")
+    return ServingEngine(ename, model, price_per_1k=spec.price, device="cuda")
+
+
 def phase_serve(args, rec):
     import torch
 
     from repro_torch.configs import get_config
-    from repro_torch.core.fleet import run_fleet
     from repro_torch.core.runtime import (make_workload_executor, run_cohort,
                                           summarize)
-    from repro_torch.kernels import _build
-    from repro_torch.models.transformer import Model
-    from repro_torch.serving.engine import ServingEngine
 
-    tpl, trie, wl, ann, obj, reqs = _cohort()
+    cohort = _cohort()
+    tpl, trie, wl, ann, obj, reqs = cohort
     execu = make_workload_executor(wl)
     res_cuda = run_cohort(trie, ann, obj, reqs, execu, engine="fleet",
                           device="cuda")
@@ -591,102 +849,52 @@ def phase_serve(args, rec):
         f"{[[tpl.models[m].name for m in r.models] for r in res_cuda]}")
 
     base = get_config("yi-9b")
-    engines, layers = {}, {}
     t0 = time.perf_counter()
-    for i, (ename, n_layers) in enumerate(sorted(ENGINE_LAYERS.items())):
-        cfg = dataclasses.replace(base, n_layers=n_layers)
-        gen = torch.Generator(device="cuda").manual_seed(SEED + i)
-        model = Model(cfg, device="cuda").init(gen)
-        spec = next(m for m in tpl.models if m.engine == ename)
-        engines[ename] = ServingEngine(ename, model, price_per_1k=spec.price,
-                                       device="cuda")
-        layers[ename] = n_layers
-        n_par = sum(p.numel() for p in model.parameters())
-        log(f"engine {ename} hosts {spec.name}: yi-9b at full width (d 4096,"
-            f" 32 heads, 4 kv heads, head_dim 128, d_ff 11008, vocab 64000,"
-            f" bf16), {n_layers} of 48 layers, {n_par / 1e9:.2f}B parameters")
+    engines = {e: _engine(tpl, e, dataclasses.replace(base, n_layers=n),
+                          SEED + i)
+               for i, (e, n) in enumerate(sorted(ENGINE_LAYERS.items()))}
     torch.cuda.synchronize()
-    log(f"reduced: depth only (engine-a 12 layers, engine-b 48); weights "
-        f"random from seed {SEED}; init {time.perf_counter() - t0:.1f} s")
-    _model_check(engines["engine-a"].model, rec)
-    for eng in engines.values():  # warm-up: cuBLAS handles, allocator
-        eng.generate(np.zeros((1, PROMPT), np.int64), max_new=2)
+    log(f"reduced: depth only (engine-a 12 layers, engine-b 48 of yi-9b's "
+        f"48); weights random from seed {SEED}; init "
+        f"{time.perf_counter() - t0:.1f} s")
+    _model_check(engines["engine-a"].model, rec, "yi-9b engine-a", 100)
+    _serve_cohort("yi-9b", engines, cohort, rec, args)
 
-    tel = {e: {"prefill_s": [], "decode_s": [], "tokens": 0} for e in engines}
-    vocab = base.vocab
 
-    def executor(q, depth, model_idx, t_now=0.0):
-        spec = tpl.models[model_idx]
-        eng = engines[spec.engine]
-        prompt = np.random.default_rng((SEED, int(q), int(depth))).integers(
-            0, vocab, (1, PROMPT))
-        out, ttft, dec = eng.generate(prompt, max_new=MAX_NEW)
-        if out.shape != (1, MAX_NEW) or out.min() < 0 or out.max() >= vocab:
-            raise AssertionError(f"bad generation {out.shape}")
-        tel[spec.engine]["prefill_s"].append(ttft)
-        tel[spec.engine]["decode_s"].append(dec)
-        tel[spec.engine]["tokens"] += out.shape[1]
-        success = bool(wl.S[q, depth, model_idx])
-        return success, eng.cost_of(PROMPT, out.shape[1]), ttft + dec
+def phase_serve_ssm(args, rec):
+    import torch
 
-    torch.cuda.reset_peak_memory_stats()
-    _build.reset_launches()
+    from repro_torch.configs import get_config
+
+    torch.cuda.empty_cache()  # the dense path's engines are gone
+    cohort = _cohort()
     t0 = time.perf_counter()
-    results, stats = run_fleet(trie, ann, obj, reqs, executor,
-                               device="cuda")
-    wall = time.perf_counter() - t0
-    launches = dict(_build.LAUNCHES)
-    rec["launches"] = launches
+    engines = {e: _engine(cohort[0], e, get_config(arch), SEED + 10 + i)
+               for i, (e, arch) in enumerate(sorted(SSM_ENGINES.items()))}
+    torch.cuda.synchronize()
+    log(f"reduced: nothing (every layer, full width); weights random from "
+        f"seed {SEED + 10}; init {time.perf_counter() - t0:.1f} s")
+    for eng in engines.values():
+        # a ragged prompt of 300 tokens spans two SSD chunks of 256
+        n = SSM_CHECK_LAYERS[eng.model.cfg.name]
+        small = _reduced_copy(eng.model, n)
+        _model_check(small, rec, f"{eng.model.cfg.name} {eng.name} first {n}"
+                     f" layers", 300)
+        del small
+    _serve_cohort("ssm", engines, cohort, rec, args)
 
-    n_prefill = {e: len(t["prefill_s"]) for e, t in tel.items()}
-    expect = {
-        "trie_plan": stats.rounds,
-        "flash_attention": sum(layers[e] * n for e, n in n_prefill.items()),
-        "decode_attention": sum(layers[e] * n * MAX_NEW
-                                for e, n in n_prefill.items()),
-        "rms_norm": sum((2 * layers[e] + 1) * n * (1 + MAX_NEW)
-                        for e, n in n_prefill.items()),
-    }
-    log(f"launches on the main path: {launches} (expected {expect})")
-    if launches != expect or min(launches.values()) <= 0:
-        raise AssertionError("kernel launches on the main path do not match "
-                             "the stage invocations")
-    s = summarize(results)
-    log(f"served {len(results)} NL2SQL-2 requests in {wall:.2f} s: "
-        + " ".join(f"{k} {v:.6g}" for k, v in s.items()))
-    log(f"plans: {[[tpl.models[m].name for m in r.models] for r in results]}")
-    log(f"fleet rounds {stats.rounds}, replan ms per round "
-        f"{[round(x * 1e3, 3) for x in stats.replan_s_per_round]}, "
-        f"active per round {stats.active_per_round}")
-    for e, t in tel.items():
-        if not t["prefill_s"]:
-            log(f"  {e}: no stage invocations")
-            continue
-        pre = np.median(t["prefill_s"]) * 1e3
-        dec = np.median(t["decode_s"]) * 1e3 / MAX_NEW
-        log(f"  {e} ({layers[e]} layers): {len(t['prefill_s'])} invocations, "
-            f"prefill {PROMPT} tokens median {pre:.2f} ms, decode median "
-            f"{dec:.3f} ms/token ({MAX_NEW} tokens)")
-        rec.setdefault("engines", {})[e] = dict(
-            invocations=len(t["prefill_s"]), prefill_ms=pre,
-            decode_ms_per_token=dec)
-    rec["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
-    log(f"torch.cuda.max_memory_allocated: "
-        f"{rec['max_memory_allocated_gb']:.2f} GB")
-    if not all(r.n_stages >= 1 for r in results):
-        raise AssertionError("a request was served no stage")
-    if "profile" in args.phases.split(","):
-        for ename, eng in sorted(engines.items()):
-            _profile_generate(ename, eng, rec)
+
+PHASES = {"device": phase_device, "kernels": phase_kernels,
+          "serve": phase_serve, "serve-ssm": phase_serve_ssm}
 
 
 # ----------------------------------------------------------------------
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default="device,kernels,serve",
-                    help="comma-separated subset of device,kernels,serve; "
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help=f"comma-separated subset of {','.join(PHASES)}; "
                          "add profile to trace one generate per engine "
-                         "after the serve phase")
+                         "after each serve phase")
     ap.add_argument("--verbose-build", action="store_true",
                     help="show the compiler's output (ptxas -v included)")
     args = ap.parse_args(argv)
@@ -702,8 +910,7 @@ def main(argv=None) -> int:
 
     rec = {"kernels": {}}
     failed = []
-    for name, fn in (("device", phase_device), ("kernels", phase_kernels),
-                     ("serve", phase_serve)):
+    for name, fn in PHASES.items():
         if name not in phases:
             continue
         if failed:
@@ -721,11 +928,14 @@ def main(argv=None) -> int:
     if failed:
         print(f"chip_smoke: failed phases {failed}", file=sys.stderr)
         return 1
-    if not {"device", "kernels", "serve"} <= set(phases):
+    if not set(PHASES) <= set(phases):
         log("partial run: no result line")
         return 0
+    # each serving path counts its own launches; the line adds them up
+    launches = {k: sum(p["launches"][k] for p in rec["paths"].values())
+                for k in KERNELS}
     kernels = [dict(name=k, route="cuda", source=KERNELS[k][0],
-                    replaces=KERNELS[k][1], launches=rec["launches"][k],
+                    replaces=KERNELS[k][1], launches=launches[k],
                     max_abs_err=v["max_abs_err"], ms=v["ms"],
                     plain_ms=v["plain_ms"], bound_ms=v["bound_ms"],
                     bound_by=v["bound_by"], library_ms=v["library_ms"])

@@ -1,7 +1,7 @@
 """Architecture config registry: ``get_config("<arch-id>", smoke=...)``.
 
 The port registers only the architectures whose model family it carries
-(dense GQA so far); ids match `repro.configs`.
+(dense GQA, SSM and hybrid so far); ids match `repro.configs`.
 """
 from __future__ import annotations
 
@@ -12,6 +12,8 @@ from repro_torch.models.config import ArchConfig
 
 _MODULES = {
     "yi-9b": "yi_9b",
+    "mamba2-1.3b": "mamba2_1p3b",
+    "zamba2-2.7b": "zamba2_2p7b",
 }
 
 ARCH_IDS = list(_MODULES)

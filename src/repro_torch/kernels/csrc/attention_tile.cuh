@@ -6,8 +6,10 @@
 // hits 32 different banks).  Each warp owns ROWS query rows, kept in
 // shared memory and read by broadcast.  Lane j scores key j against the
 // warp's rows (ROWS dot products of length D), the warp takes the tile's
-// max and sum by shuffles, and each lane accumulates D / 32 columns of the
-// output rows: acc[r][c] holds output column lane + 32 c of row r.
+// max and sum by shuffles, and each lane accumulates head_cols(D) =
+// ceil(D / 32) columns of the output rows: acc[r][c] holds output column
+// lane + 32 c of row r, which exists only where lane + 32 c < D (D = 80
+// gives three columns, the third for lanes 0-15).
 #pragma once
 
 #include "common.cuh"
@@ -15,6 +17,9 @@
 namespace repro {
 
 constexpr int kTileKeys = 32;
+
+// Output columns a lane accumulates at head dimension D.
+__host__ __device__ constexpr int head_cols(int D) { return (D + 31) / 32; }
 
 template <int D, int ROWS>
 __device__ __forceinline__ void tile_scores(const float* __restrict__ qrows,
@@ -43,7 +48,7 @@ __device__ __forceinline__ void tile_update(const float (&s)[ROWS],
                                             const float* __restrict__ vtile,
                                             int lane, float (&m)[ROWS],
                                             float (&l)[ROWS],
-                                            float (&acc)[ROWS][D / 32]) {
+                                            float (&acc)[ROWS][head_cols(D)]) {
   float p[ROWS];
 #pragma unroll
   for (int r = 0; r < ROWS; ++r) {
@@ -53,7 +58,7 @@ __device__ __forceinline__ void tile_update(const float (&s)[ROWS],
     p[r] = ok[r] ? expf(s[r] - m_new) : 0.f;
     l[r] = alpha * l[r] + warp_sum(p[r]);
 #pragma unroll
-    for (int c = 0; c < D / 32; ++c) acc[r][c] *= alpha;
+    for (int c = 0; c < head_cols(D); ++c) acc[r][c] *= alpha;
     m[r] = m_new;
   }
 #pragma unroll 4
@@ -63,8 +68,8 @@ __device__ __forceinline__ void tile_update(const float (&s)[ROWS],
     for (int r = 0; r < ROWS; ++r) pj[r] = __shfl_sync(0xffffffffu, p[r], j);
     const float* vr = vtile + j * D;
 #pragma unroll
-    for (int c = 0; c < D / 32; ++c) {
-      const float vv = vr[lane + 32 * c];
+    for (int c = 0; c < head_cols(D); ++c) {
+      const float vv = lane + 32 * c < D ? vr[lane + 32 * c] : 0.f;
 #pragma unroll
       for (int r = 0; r < ROWS; ++r) acc[r][c] += pj[r] * vv;
     }

@@ -24,6 +24,10 @@ int repro_decode_attention(const void*, const void*, const void*, const void*,
                            void*);
 int repro_rms_norm(const void*, const void*, void*, int, int, float, int,
                    void*);
+int repro_ssd_scan(const void*, const void*, const void*, const void*,
+                   const void*, const void*, void*, void*, int, int, int, int,
+                   int, int, int, void*);
+int repro_ssd_smem_bytes(int, int);
 const char* repro_error_string(int);
 }
 
@@ -80,4 +84,14 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
                                P(stream)),
                 "rms_norm");
         });
+  m.def("ssd_scan",
+        [](ptr x, ptr dt, ptr A, ptr Bm, ptr Cm, ptr h0, ptr y, ptr hout,
+           int B, int S, int Hn, int hd, int N, int Q, int dtype, ptr stream) {
+          check(repro_ssd_scan(P(x), P(dt), P(A), P(Bm), P(Cm),
+                               h0 ? P(h0) : nullptr, P(y),
+                               hout ? P(hout) : nullptr, B, S, Hn, hd, N, Q,
+                               dtype, P(stream)),
+                "ssd_scan");
+        });
+  m.def("ssd_smem_bytes", &repro_ssd_smem_bytes);
 }

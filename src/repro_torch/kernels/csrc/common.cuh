@@ -1,7 +1,8 @@
 // Shared helpers of the port's CUDA kernels: dtype conversion, warp and
 // block reductions, and the launch-error convention (every launcher
-// returns cudaGetLastError() as an int, 0 on success; the Python binding
-// raises on anything else).
+// returns cudaGetLastError() as an int, 0 on success, or a status of its
+// own such as kStatusBadHeadDim; the Python binding raises on anything
+// but 0).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -12,6 +13,9 @@ namespace repro {
 constexpr float kNegInf = -1e30f;  // masked-score sentinel (ref.NEG_INF)
 constexpr int kDtypeF32 = 0;
 constexpr int kDtypeBF16 = 1;
+// Launcher status for a head dimension no kernel was compiled for (beyond
+// every cudaError_t value); repro_error_string names it.
+constexpr int kStatusBadHeadDim = 100000;
 
 template <typename T> __device__ __forceinline__ float to_f32(T x);
 template <> __device__ __forceinline__ float to_f32<float>(float x) { return x; }

@@ -43,9 +43,9 @@ __global__ void decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
   const int L = min(max(lens[b], 0), S);
   const int start = window > 0 ? max(0, L - window) : 0;
 
-  float m[1] = {kNegInf}, l[1] = {0.f}, acc[1][D / 32];
+  float m[1] = {kNegInf}, l[1] = {0.f}, acc[1][head_cols(D)];
 #pragma unroll
-  for (int c = 0; c < D / 32; ++c) acc[0][c] = 0.f;
+  for (int c = 0; c < head_cols(D); ++c) acc[0][c] = 0.f;
 
   for (int k0 = start; k0 < L; k0 += kTileKeys) {
     __syncthreads();
@@ -59,8 +59,9 @@ __global__ void decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
 
   const float denom = l[0] == 0.f ? 1.f : l[0];
 #pragma unroll
-  for (int c = 0; c < D / 32; ++c) {
-    ob[static_cast<size_t>(g) * D + lane + 32 * c] = from_f32<T>(acc[0][c] / denom);
+  for (int c = 0; c < head_cols(D); ++c) {
+    const int col = lane + 32 * c;
+    if (col < D) ob[static_cast<size_t>(g) * D + col] = from_f32<T>(acc[0][c] / denom);
   }
 }
 
@@ -75,15 +76,20 @@ void launch_decode(const void* q, const void* kc, const void* vc,
       window);
 }
 
+// Launch the instantiation for head dimension D; an unlisted D launches
+// nothing and returns kStatusBadHeadDim.
 template <typename T>
-void dispatch_decode(int D, const void* q, const void* kc, const void* vc,
-                     const int* lens, void* o, int B, int H, int KV, int S,
-                     float scale, int window, cudaStream_t s) {
+int dispatch_decode(int D, const void* q, const void* kc, const void* vc,
+                    const int* lens, void* o, int B, int H, int KV, int S,
+                    float scale, int window, cudaStream_t s) {
   switch (D) {
     case 32: launch_decode<T, 32>(q, kc, vc, lens, o, B, H, KV, S, scale, window, s); break;
     case 64: launch_decode<T, 64>(q, kc, vc, lens, o, B, H, KV, S, scale, window, s); break;
-    default: launch_decode<T, 128>(q, kc, vc, lens, o, B, H, KV, S, scale, window, s); break;
+    case 80: launch_decode<T, 80>(q, kc, vc, lens, o, B, H, KV, S, scale, window, s); break;
+    case 128: launch_decode<T, 128>(q, kc, vc, lens, o, B, H, KV, S, scale, window, s); break;
+    default: return kStatusBadHeadDim;
   }
+  return launch_status();
 }
 
 }  // namespace repro
@@ -97,9 +103,7 @@ extern "C" int repro_decode_attention(const void* q, const void* kc,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* ln = static_cast<const int*>(lens);
   if (dtype == kDtypeBF16) {
-    dispatch_decode<__nv_bfloat16>(D, q, kc, vc, ln, o, B, H, KV, S, scale, window, s);
-  } else {
-    dispatch_decode<float>(D, q, kc, vc, ln, o, B, H, KV, S, scale, window, s);
+    return dispatch_decode<__nv_bfloat16>(D, q, kc, vc, ln, o, B, H, KV, S, scale, window, s);
   }
-  return launch_status();
+  return dispatch_decode<float>(D, q, kc, vc, ln, o, B, H, KV, S, scale, window, s);
 }

@@ -56,13 +56,13 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (window > 0) k_begin = max(0, q0 - window + 1);
   }
 
-  float m[kFlashRows], l[kFlashRows], acc[kFlashRows][D / 32];
+  float m[kFlashRows], l[kFlashRows], acc[kFlashRows][head_cols(D)];
 #pragma unroll
   for (int r = 0; r < kFlashRows; ++r) {
     m[r] = kNegInf;
     l[r] = 0.f;
 #pragma unroll
-    for (int c = 0; c < D / 32; ++c) acc[r][c] = 0.f;
+    for (int c = 0; c < head_cols(D); ++c) acc[r][c] = 0.f;
   }
 
   for (int k0 = k_begin; k0 < k_end; k0 += kTileKeys) {
@@ -92,8 +92,9 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (qi >= Sq) continue;
     const float denom = l[r] == 0.f ? 1.f : l[r];
 #pragma unroll
-    for (int c = 0; c < D / 32; ++c) {
-      ob[static_cast<size_t>(qi) * D + lane + 32 * c] = from_f32<T>(acc[r][c] / denom);
+    for (int c = 0; c < head_cols(D); ++c) {
+      const int col = lane + 32 * c;
+      if (col < D) ob[static_cast<size_t>(qi) * D + col] = from_f32<T>(acc[r][c] / denom);
     }
   }
 }
@@ -109,15 +110,20 @@ void launch_flash(const void* q, const void* k, const void* v, void* o,
       causal, window);
 }
 
+// Launch the instantiation for head dimension D; an unlisted D launches
+// nothing and returns kStatusBadHeadDim.
 template <typename T>
-void dispatch_flash(int D, const void* q, const void* k, const void* v,
-                    void* o, int B, int H, int KV, int Sq, int Sk,
-                    float scale, int causal, int window, cudaStream_t s) {
+int dispatch_flash(int D, const void* q, const void* k, const void* v,
+                   void* o, int B, int H, int KV, int Sq, int Sk,
+                   float scale, int causal, int window, cudaStream_t s) {
   switch (D) {
     case 32: launch_flash<T, 32>(q, k, v, o, B, H, KV, Sq, Sk, scale, causal, window, s); break;
     case 64: launch_flash<T, 64>(q, k, v, o, B, H, KV, Sq, Sk, scale, causal, window, s); break;
-    default: launch_flash<T, 128>(q, k, v, o, B, H, KV, Sq, Sk, scale, causal, window, s); break;
+    case 80: launch_flash<T, 80>(q, k, v, o, B, H, KV, Sq, Sk, scale, causal, window, s); break;
+    case 128: launch_flash<T, 128>(q, k, v, o, B, H, KV, Sq, Sk, scale, causal, window, s); break;
+    default: return kStatusBadHeadDim;
   }
+  return launch_status();
 }
 
 }  // namespace repro
@@ -130,9 +136,7 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
   using namespace repro;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kDtypeBF16) {
-    dispatch_flash<__nv_bfloat16>(D, q, k, v, o, B, H, KV, Sq, Sk, scale, causal, window, s);
-  } else {
-    dispatch_flash<float>(D, q, k, v, o, B, H, KV, Sq, Sk, scale, causal, window, s);
+    return dispatch_flash<__nv_bfloat16>(D, q, k, v, o, B, H, KV, Sq, Sk, scale, causal, window, s);
   }
-  return launch_status();
+  return dispatch_flash<float>(D, q, k, v, o, B, H, KV, Sq, Sk, scale, causal, window, s);
 }

@@ -61,5 +61,9 @@ extern "C" int repro_rms_norm(const void* x, const void* scale, void* out,
 
 // The message of a launcher's status code, for the Python binding.
 extern "C" const char* repro_error_string(int code) {
+  if (code == repro::kStatusBadHeadDim) {
+    return "head dimension not compiled into the attention kernels "
+           "(32, 64, 80, 128)";
+  }
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

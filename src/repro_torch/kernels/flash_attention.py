@@ -7,7 +7,8 @@ import torch
 
 from repro_torch.kernels import _build
 
-HEAD_DIMS = (32, 64, 128)
+# head dimensions compiled into csrc/flash_attention.cu and decode_attention.cu
+HEAD_DIMS = (32, 64, 80, 128)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 

@@ -11,6 +11,7 @@ from repro_torch.kernels import ref
 from repro_torch.kernels.decode_attention import decode_attention as _cuda_decode
 from repro_torch.kernels.flash_attention import flash_attention as _cuda_flash
 from repro_torch.kernels.rmsnorm import rms_norm as _cuda_rmsnorm
+from repro_torch.kernels.ssd_scan import ssd_scan as _cuda_ssd
 from repro_torch.kernels.trie_plan import fleet_plan_blocked, trie_plan_cuda
 
 
@@ -34,6 +35,24 @@ def rms_norm(x, scale, eps: float = 1e-6):
     if x.is_cuda:
         return _cuda_rmsnorm(x, scale, eps)
     return ref.rms_norm(x, scale, eps)
+
+
+def ssd_scan(x, dt, A, Bm, Cm, *, chunk: int = 256, init_state=None,
+             return_state: bool = False):
+    """Mamba2 SSD chunked scan: x (B,S,Hn,P), dt (B,S,Hn), A (Hn,), Bm/Cm
+    (B,S,N), optional ``init_state`` (B,Hn,P,N) -> y [, final state].
+
+    `repro` runs its Pallas kernel only for the stateless form and falls
+    to XLA otherwise; here every form takes the kernel on the card."""
+    fn = _cuda_ssd if x.is_cuda else ref.ssd_scan_chunked
+    return fn(x, dt, A, Bm, Cm, chunk=chunk, init_state=init_state,
+              return_state=return_state)
+
+
+def ssd_decode_step(x, dt, A, Bm, Cm, state):
+    """One-token SSD update -> (y, new state).  Plain PyTorch on every
+    device: `repro` has no kernel for it either."""
+    return ref.ssd_decode_step(x, dt, A, Bm, Cm, state)
 
 
 TRIE_PLAN_VARIANTS = ("dense", "fused", "cuda")

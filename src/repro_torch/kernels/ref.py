@@ -69,6 +69,98 @@ def decode_attention(q, k_cache, v_cache, cache_len, *, window: int = 0,
 
 
 # ----------------------------------------------------------------------
+# Mamba2 / SSD (state-space duality) scan
+# ----------------------------------------------------------------------
+def ssd_scan(x, dt, A, Bm, Cm, *, init_state=None, return_state=False):
+    """Sequential oracle of the SSD recurrence (`repro.kernels.ref.ssd_scan`):
+
+        h_t = exp(A dt_t) h_{t-1} + dt_t x_t (outer) B_t,   y_t = h_t . C_t
+
+    x (B,S,Hn,P), dt (B,S,Hn), A (Hn,), Bm/Cm (B,S,N), ``init_state``
+    (B,Hn,P,N) -> y (B,S,Hn,P) in x's dtype [, final state in float32]."""
+    Bq, S, Hn, P = x.shape
+    N = Bm.shape[-1]
+    h = (init_state.float() if init_state is not None else
+         torch.zeros(Bq, Hn, P, N, dtype=torch.float32, device=x.device))
+    xf, dtf, bf, cf = x.float(), dt.float(), Bm.float(), Cm.float()
+    A = A.float()
+    ys = []
+    for t in range(S):
+        decay = torch.exp(A[None, :] * dtf[:, t])                   # (B,Hn)
+        upd = torch.einsum("bhp,bn->bhpn", xf[:, t] * dtf[:, t, :, None],
+                           bf[:, t])
+        h = h * decay[..., None, None] + upd
+        ys.append(torch.einsum("bhpn,bn->bhp", h, cf[:, t]))
+    y = (torch.stack(ys, dim=1) if ys else xf.new_zeros(x.shape)).to(x.dtype)
+    return (y, h) if return_state else y
+
+
+def ssd_scan_chunked(x, dt, A, Bm, Cm, *, chunk: int = 256, init_state=None,
+                     return_state=False):
+    """Chunked SSD scan, the plain version of `csrc/ssd_scan.cu` (the
+    chunk-parallel form of `repro.kernels.xla_ssd.ssd_scan_chunked`).
+
+    Per chunk of ``Q = min(chunk, S)`` steps, with ``L_t = cumsum(A dt)``
+    inside the chunk:
+
+        y   = tril(exp(L_t - L_s) dt_s (C_t . B_s)) x + exp(L_t) C_t . h_in
+        h   = exp(L_Q) h_in + sum_s exp(L_Q - L_s) dt_s x_s (outer) B_s
+
+    The intra-chunk terms are computed for all chunks at once; the state is
+    carried over the chunks in order (`repro` takes an associative scan;
+    the sum is the same).  Any S works: the ragged last chunk is padded
+    with ``dt = 0`` and ``x = B = C = 0``, steps that neither decay nor
+    update the state, so the final state is the state after step S-1."""
+    Bq, S, Hn, P = x.shape
+    N = Bm.shape[-1]
+    Q = max(1, min(chunk, S))
+    nc = -(-S // Q)
+    pad = nc * Q - S
+
+    def padded(a):
+        a = a.float()
+        if pad:
+            a = torch.cat([a, a.new_zeros((Bq, pad) + a.shape[2:])], dim=1)
+        return a.reshape((Bq, nc, Q) + a.shape[2:])
+
+    xf, dtf, bf, cf = padded(x), padded(dt), padded(Bm), padded(Cm)
+    logdec = torch.cumsum(A.float() * dtf, dim=2)                  # (B,c,Q,Hn)
+    cb = torch.einsum("bcqn,bcsn->bcqs", cf, bf)                    # (B,c,Q,Q)
+    diff = logdec[:, :, :, None, :] - logdec[:, :, None, :, :]      # L_t - L_s
+    tril = torch.tril(torch.ones(Q, Q, dtype=torch.bool, device=x.device))
+    # mask before exp: L_t - L_s > 0 above the diagonal may overflow
+    ratio = torch.exp(torch.where(tril[None, None, :, :, None], diff, -torch.inf))
+    M = ratio * cb[..., None] * dtf[:, :, None, :, :]
+    y = torch.einsum("bcqsh,bcshp->bcqhp", M, xf)                   # (B,c,Q,Hn,P)
+
+    last = logdec[:, :, -1, :]                                      # (B,c,Hn)
+    wts = torch.exp(last[:, :, None, :] - logdec) * dtf             # (B,c,Q,Hn)
+    U = torch.einsum("bcqh,bcqhp,bcqn->bchpn", wts, xf, bf)         # (B,c,Hn,P,N)
+    h = (init_state.float() if init_state is not None else
+         torch.zeros(Bq, Hn, P, N, dtype=torch.float32, device=x.device))
+    h_in = []
+    for c in range(nc):
+        h_in.append(h)
+        h = torch.exp(last[:, c])[..., None, None] * h + U[:, c]
+    h_in = torch.stack(h_in, dim=1)                                 # (B,c,Hn,P,N)
+    y = y + torch.exp(logdec)[..., None] * torch.einsum(
+        "bcqn,bchpn->bcqhp", cf, h_in)
+    y = y.reshape(Bq, nc * Q, Hn, P)[:, :S].to(x.dtype)
+    return (y, h) if return_state else y
+
+
+def ssd_decode_step(x, dt, A, Bm, Cm, state):
+    """One-token SSD update (`repro.kernels.ref.ssd_decode_step`): x (B,Hn,P),
+    dt (B,Hn), A (Hn,), Bm/Cm (B,N), state (B,Hn,P,N) float32 -> (y in x's
+    dtype, new state)."""
+    decay = torch.exp(A[None, :] * dt.float())
+    upd = torch.einsum("bhp,bn->bhpn", x.float() * dt[..., None], Bm.float())
+    new = state * decay[..., None, None] + upd
+    y = torch.einsum("bhpn,bn->bhp", new, Cm.float())
+    return y.to(x.dtype), new
+
+
+# ----------------------------------------------------------------------
 # RMSNorm
 # ----------------------------------------------------------------------
 def rms_norm(x, scale, eps: float = 1e-6):

@@ -1,12 +1,13 @@
-"""Dense decoder blocks of the port (`repro.models.layers` counterpart).
+"""Model blocks of the port (`repro.models.layers` counterpart).
 
-The dense subset only: RMSNorm, rotary embeddings, GQA attention (full
-sequence and one-token decode against a KV cache) and the SwiGLU MLP.
+RMSNorm, rotary embeddings, GQA attention (full sequence and one-token
+decode against a KV cache), the SwiGLU MLP and the Mamba2 (SSD) block.
 Weights keep `repro`'s layout, ``(in, out)`` matrices applied as
 ``x @ w``, so `models.convert` copies them without transposes.  The
-attention cores and every RMSNorm go through `kernels.ops`, which runs the
-CUDA kernels on a CUDA tensor and the plain versions on a CPU tensor; the
-projections, rope and SiLU stay torch ops, as `repro` left them to XLA.
+attention cores, the SSD scan and every RMSNorm go through `kernels.ops`,
+which runs the CUDA kernels on a CUDA tensor and the plain versions on a
+CPU tensor; the projections, rope, the depthwise convolution and SiLU stay
+torch ops, as `repro` left them to XLA.
 """
 from __future__ import annotations
 
@@ -131,3 +132,106 @@ class MLP(nn.Module):
     def forward(self, x):
         """x (..., d) -> (..., d)."""
         return (F.silu(x @ self.w1) * (x @ self.w3)) @ self.w2
+
+
+class Mamba(nn.Module):
+    """Mamba2 block with the SSD scan (`repro`'s ``init_mamba``,
+    ``mamba_forward``, ``mamba_decode``), with `repro`'s parameter names and
+    layouts: ``in_proj`` (d, 2 d_in + 2N + nh) splits into z, xBC and dt;
+    ``conv_w`` (W, C) / ``conv_b`` (C,) is the causal depthwise convolution
+    over xBC (C = d_in + 2N); ``A_log``, ``D``, ``dt_bias`` (nh,); ``norm``
+    (d_in,) scales the gated RMSNorm; ``out_proj`` (d_in, d).
+
+    ``A_log`` and ``dt_bias`` stay float32 (they enter float32 math), as
+    does ``norm``, like the port's other norm scales; the rest is held in
+    the compute dtype, where `repro` casts it at use."""
+
+    def __init__(self, cfg: ArchConfig, *, device, dtype):
+        super().__init__()
+        s = cfg.ssm
+        self.cfg = cfg
+        d = cfg.d_model
+        self.d_in = s.expand * d
+        self.nh = self.d_in // s.head_dim
+        self.N = s.state_dim
+        self.conv_ch = self.d_in + 2 * self.N
+
+        def w(*shape, dt=dtype):
+            return nn.Parameter(torch.empty(shape, device=device, dtype=dt),
+                                requires_grad=False)
+
+        f32 = torch.float32
+        self.in_proj = w(d, 2 * self.d_in + 2 * self.N + self.nh)
+        self.conv_w = w(s.conv_width, self.conv_ch)
+        self.conv_b = w(self.conv_ch)
+        self.A_log = w(self.nh, dt=f32)
+        self.D = w(self.nh)
+        self.dt_bias = w(self.nh, dt=f32)
+        self.norm = w(self.d_in, dt=f32)
+        self.out_proj = w(self.d_in, d)
+
+    def init(self, generator: torch.Generator) -> None:
+        """`repro`'s ``init_mamba`` distributions from ``generator``."""
+        _dense_(self.in_proj, generator)
+        self.conv_w.copy_(0.1 * torch.randn(
+            self.conv_w.shape, generator=generator, device=self.conv_w.device))
+        self.conv_b.zero_()
+        self.A_log.copy_(torch.log(torch.linspace(
+            1.0, 16.0, self.nh, device=self.A_log.device)))
+        self.D.fill_(1.0)
+        self.dt_bias.zero_()
+        self.norm.fill_(1.0)
+        _dense_(self.out_proj, generator)
+
+    def _split(self, zxbcdt):
+        d_in, N = self.d_in, self.N
+        return (zxbcdt[..., :d_in], zxbcdt[..., d_in: 2 * d_in + 2 * N],
+                zxbcdt[..., 2 * d_in + 2 * N:])
+
+    def _ssm_inputs(self, xBC, dt_raw):
+        """(x (..., nh, P), B, C, dt float32, A float32) from the activated
+        convolution output and the raw step sizes."""
+        d_in, N = self.d_in, self.N
+        x = xBC[..., :d_in].unflatten(-1, (self.nh, self.cfg.ssm.head_dim))
+        dt = F.softplus(dt_raw.float() + self.dt_bias)
+        return (x, xBC[..., d_in: d_in + N], xBC[..., d_in + N:], dt,
+                -torch.exp(self.A_log))
+
+    def _gate_out(self, y, x, z):
+        y = (y + x * self.D[:, None]).flatten(-2)
+        return ops.rms_norm(y * F.silu(z), self.norm) @ self.out_proj
+
+    def forward(self, u, *, return_state: bool = False):
+        """u (B, S, d) -> y (B, S, d) [, (conv state (B, W-1, C), SSM state
+        (B, nh, P, N) float32)].  The conv state is the last W-1
+        pre-convolution inputs, zero-padded on the left for S < W-1."""
+        B, S, _ = u.shape
+        W = self.conv_w.shape[0]
+        zxbcdt = u @ self.in_proj
+        z, pre, dt_raw = self._split(zxbcdt)
+        xp = F.pad(pre, (0, 0, W - 1, 0))
+        conv = torch.zeros_like(pre)
+        for i in range(W):     # repro's order: taps summed, then the bias
+            conv = conv + xp[:, i: i + S] * self.conv_w[i]
+        xBC = F.silu(conv + self.conv_b)
+        x, Bm, Cm, dt, A = self._ssm_inputs(xBC, dt_raw)
+        res = ops.ssd_scan(x.contiguous(), dt.contiguous(), A,
+                           Bm.contiguous(), Cm.contiguous(),
+                           chunk=self.cfg.ssm.chunk,
+                           return_state=return_state)
+        y = self._gate_out(res[0] if return_state else res, x, z)
+        if not return_state:
+            return y
+        return y, (xp[:, S:], res[1])
+
+    def decode(self, u_tok, conv_state, ssm_state):
+        """One token per sequence, ``u_tok`` (B, d), against the conv state
+        (B, W-1, C) and SSM state (B, nh, P, N) -> (y (B, d), new conv state,
+        new SSM state); the caller stores the states."""
+        zxbcdt = u_tok @ self.in_proj
+        z, new, dt_raw = self._split(zxbcdt)
+        window = torch.cat([conv_state, new[:, None, :]], dim=1)
+        xBC = F.silu((window * self.conv_w[None]).sum(dim=1) + self.conv_b)
+        x, Bm, Cm, dt, A = self._ssm_inputs(xBC, dt_raw)
+        y, ssm_state = ops.ssd_decode_step(x, dt, A, Bm, Cm, ssm_state)
+        return self._gate_out(y, x, z), window[:, 1:], ssm_state

@@ -20,12 +20,14 @@ from repro_torch.core.fleet import run_fleet
 from repro_torch.core.runtime import make_workload_executor, run_cohort
 from repro_torch.core.trie import Trie
 from repro_torch.core.workload import generate_workload
+from repro_torch.models.config import MoEConfig
 from repro_torch.models.convert import params_from_jax
 from repro_torch.models.transformer import Model
 from repro_torch.serving.engine import ServingEngine
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "repro")
+SSM_ARCHS = ("mamba2-1.3b", "zamba2-2.7b")
 
 
 def _imported_roots(path):
@@ -81,6 +83,10 @@ def test_entry_points_refuse_the_cpu_unasked(no_cuda):
         lambda: params_from_jax(cfg, {}),
         lambda: ServingEngine("e", Model(cfg, device="cpu")),
     ]
+    for arch in SSM_ARCHS:
+        c = get_config(arch, smoke=True)
+        calls += [lambda c=c: Model(c), lambda c=c: params_from_jax(c, {}),
+                  lambda c=c: ServingEngine("e", Model(c, device="cpu"))]
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
@@ -100,3 +106,23 @@ def test_entry_points_run_on_the_cpu_when_asked(no_cuda):
     eng = ServingEngine("e", model, device="cpu")
     out, ttft, dec = eng.generate(np.zeros((1, 8), np.int32), max_new=3)
     assert out.shape == (1, 3) and ttft > 0 and dec > 0
+
+
+@pytest.mark.parametrize("arch", SSM_ARCHS)
+def test_ssm_models_run_on_the_cpu_when_asked(no_cuda, arch):
+    model = Model(get_config(arch, smoke=True), device="cpu").init(
+        torch.Generator().manual_seed(0))
+    assert all(p.device.type == "cpu" for p in model.parameters())
+    eng = ServingEngine("e", model, device="cpu")
+    out, ttft, dec = eng.generate(np.zeros((1, 8), np.int32), max_new=3)
+    assert out.shape == (1, 3) and ttft > 0 and dec > 0
+
+
+@pytest.mark.parametrize("change", [
+    {"attn_kind": "mla"}, {"moe": MoEConfig(n_experts=4, top_k=2)},
+    {"family": "vlm"}, {"family": "audio"}])
+def test_model_still_refuses_unported_families(change):
+    """MLA, MoE, VLM and enc-dec models are later slices: `Model` raises."""
+    cfg = dataclasses.replace(get_config("yi-9b", smoke=True), **change)
+    with pytest.raises(NotImplementedError, match="families only"):
+        Model(cfg, device="cpu")

@@ -7,6 +7,9 @@ tests/test_kernels.py (2e-2 for bfloat16, 2e-5 for float32).  A CUDA
 tensor takes the kernel instead: the last tests pin that dispatch and its
 refusals without a card.
 """
+import pathlib
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -17,6 +20,7 @@ from repro.kernels.flash_attention import flash_attention as pallas_flash
 from repro.kernels.rmsnorm import rms_norm as pallas_rmsnorm
 from repro_torch.kernels import _build, ops, ref
 from repro_torch.kernels.decode_attention import decode_attention as cuda_decode
+from repro_torch.kernels.flash_attention import HEAD_DIMS
 from repro_torch.kernels.flash_attention import flash_attention as cuda_flash
 from repro_torch.kernels.rmsnorm import rms_norm as cuda_rmsnorm
 
@@ -39,7 +43,7 @@ def _close(t, j, dtype):
 
 
 @pytest.mark.parametrize("B,H,KV,S,D", [(1, 4, 4, 128, 32), (2, 8, 2, 128, 64),
-                                        (1, 4, 1, 64, 128)])
+                                        (1, 4, 1, 64, 128), (1, 4, 4, 128, 80)])
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 @pytest.mark.parametrize("causal,window", [(True, 0), (False, 0), (True, 32)])
 def test_attention_matches_pallas_flash(B, H, KV, S, D, dtype, causal, window):
@@ -55,7 +59,7 @@ def test_attention_matches_pallas_flash(B, H, KV, S, D, dtype, causal, window):
 
 
 @pytest.mark.parametrize("B,H,KV,S,D", [(2, 8, 2, 256, 64), (3, 4, 4, 128, 32),
-                                        (2, 8, 1, 128, 128)])
+                                        (2, 8, 1, 128, 128), (2, 4, 4, 128, 80)])
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 @pytest.mark.parametrize("window", [0, 48])
 def test_decode_attention_matches_pallas_decode(B, H, KV, S, D, dtype, window):
@@ -115,3 +119,18 @@ def test_ops_reach_plain_versions_on_cpu():
     x = torch.from_numpy(rng.standard_normal((4, 64), np.float32))
     s = torch.ones(64)
     assert torch.equal(ops.rms_norm(x, s), ref.rms_norm(x, s))
+
+
+@pytest.mark.parametrize("source", ["flash_attention.cu", "decode_attention.cu"])
+def test_attention_dispatch_lists_head_dims_and_refuses_others(source):
+    """The C entry points instantiate exactly the wrapper's ``HEAD_DIMS``
+    (80 among them, for zamba2's shared attention), and an unlisted head
+    dimension returns an error status (which the binding raises) instead
+    of launching another instantiation."""
+    text = (pathlib.Path(_build.CSRC) / source).read_text()
+    body = re.search(r"int dispatch_\w+\(.*?\n}", text, re.S).group(0)
+    pairs = re.findall(r"case (\d+): launch_\w+<T, (\d+)>", body)
+    assert all(case == dim for case, dim in pairs)
+    assert tuple(int(case) for case, _ in pairs) == HEAD_DIMS
+    assert "default: return kStatusBadHeadDim;" in body
+    assert 80 in HEAD_DIMS
