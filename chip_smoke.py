@@ -12,7 +12,8 @@ Phases (any failure exits non-zero and prints no result):
                card at the shapes of both serving paths, and time kernel,
                plain version and the nearest single PyTorch call (CUDA
                graphs of back-to-back calls, timed with CUDA events; inputs
-               stay warm in L2);
+               stay warm in L2, and the attention kernels are also timed
+               cold, rotating over 64 MB of input copies);
 3. serve     — an NL2SQL-2 cohort through the fleet runtime: first with the
                workload's stage tables on "cuda" and on "cpu" (identical
                results), then served by two full-width Yi-9B engines
@@ -90,23 +91,29 @@ def log(*a):
 # ----------------------------------------------------------------------
 # timing
 # ----------------------------------------------------------------------
-def graph_ms(fn, calls: int = 20, reps: int = 7) -> float:
-    """Median device milliseconds of one ``fn()``: ``calls`` back-to-back
+def graph_ms(fn, calls: int = 20, reps: int = 7, inputs=None) -> float:
+    """Median device milliseconds of one call: ``calls`` back-to-back
     calls captured in a CUDA graph, replayed ``reps`` times between CUDA
-    events (no host launch cost in the reading)."""
+    events (no host launch cost in the reading).  Without ``inputs`` each
+    call is ``fn()`` and its operands stay warm in L2; with ``inputs`` (a
+    list of argument tuples, see `cold_inputs`) call i is
+    ``fn(*inputs[i])``, one call per copy."""
     import torch
 
+    if inputs is not None:
+        calls = len(inputs)
+    call = (lambda i: fn()) if inputs is None else (lambda i: fn(*inputs[i]))
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
-        for _ in range(3):
-            fn()
+        for i in range(3):
+            call(i % calls)
     torch.cuda.current_stream().wait_stream(side)
     torch.cuda.synchronize()
     g = torch.cuda.CUDAGraph()
     with torch.cuda.graph(g):
-        for _ in range(calls):
-            fn()
+        for i in range(calls):
+            call(i)
     g.replay()
     torch.cuda.synchronize()
     times = []
@@ -120,6 +127,16 @@ def graph_ms(fn, calls: int = 20, reps: int = 7) -> float:
         times.append(a.elapsed_time(b) / calls)
     del g
     return statistics.median(times)
+
+
+def cold_inputs(*tensors, min_bytes: int = 64 << 20):
+    """Copies of ``tensors`` whose bytes together exceed ``min_bytes`` (64
+    MB against the H100's 50 MB L2): a graph that calls once per copy in
+    turn finds each call's operands evicted from L2 by the calls between,
+    as the serving loop finds a layer's cache."""
+    size = sum(t.numel() * t.element_size() for t in tensors)
+    n = max(2, -(-min_bytes // size))
+    return [tuple(t.clone() for t in tensors) for _ in range(n)]
 
 
 def bound(nbytes: float, ops: float, peak_ops: float):
@@ -361,70 +378,168 @@ def check_flash(rec):
             plain_ms = graph_ms(lambda: ref.attention(q, k, v, causal=True))
             lib_ms = graph_ms(lambda: F.scaled_dot_product_attention(
                 q, k, v, is_causal=True, enable_gqa=True))
+            cold = cold_inputs(q, k, v)
+            cold_ms = graph_ms(lambda *a: flash_attention(*a, causal=True),
+                               inputs=cold)
+            lib_cold_ms = graph_ms(
+                lambda a, b, c: F.scaled_dot_product_attention(
+                    a, b, c, is_causal=True, enable_gqa=True), inputs=cold)
+            del cold
             nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
             ops = 4.0 * D * H * _attn_pairs(S, S, True, 0)
             b_ms, b_by = bound(nbytes, ops, BF16_OPS)
             case = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                        library_ms=lib_ms, tol=BF16_TOL)
+                        library_ms=lib_ms, cold_ms=cold_ms,
+                        library_cold_ms=lib_cold_ms, tol=BF16_TOL)
             rec.setdefault("timing_cases", {})[
                 f"flash_attention {arch} (1,{H},{S},{D}) kv {KV}"] = case
             if arch == "yi-9b":  # the first path's shape heads the table
                 rec["kernels"]["flash_attention"] = case
             log(f"  flash_attention {arch} (1,{H},{S},{D}) kv {KV} causal: "
-                f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA "
-                f"{lib_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by})")
+                f"kernel {ms:.4f} ms (cold L2 {cold_ms:.4f}), plain "
+                f"{plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms (cold L2 "
+                f"{lib_cold_ms:.4f}), bound {b_ms:.6f} ms ({b_by})")
     rec["kernels"]["flash_attention"]["max_abs_err"] = err
     log(f"flash_attention: ok, max abs err {err:.3g}")
+
+
+def _plan_str(p) -> str:
+    return (f"span {p.span} x {p.splits} splits, {p.slices} column slices, "
+            f"{p.hc} heads a block")
+
+
+def _decode_plans(dmod, B, KV, G, S, D, sms, itemsize=2):
+    """The plan `split_plan` picks, then the plans its rule passes over:
+    with each column slice count, spans of one staged tile and spans just
+    short enough that the grid fills a wave of the SMs."""
+    chosen = dmod.split_plan(B, KV, G, S, D, sms, itemsize=itemsize)
+    tiles = -(-S // (128 // itemsize))
+    slabs = B * KV * -(-G // chosen.hc)
+    plans = [chosen]
+    for c in dmod.column_slices(D, itemsize):
+        for n in (tiles, max(tiles, -(-sms // (slabs * c)))):
+            span = max(-(-S // dmod.MAX_SPLITS), -(-S // n))
+            p = dmod.Plan(span, -(-S // span), chosen.hc, c)
+            if p not in plans:
+                plans.append(p)
+    return plans
 
 
 def check_decode(rec):
     import torch
     import torch.nn.functional as F
 
+    from repro_torch.kernels import decode_attention as dmod
     from repro_torch.kernels import ref
     from repro_torch.kernels.decode_attention import decode_attention
 
     g = torch.Generator(device="cuda").manual_seed(SEED + 1)
     S, L = PROMPT + 64, PROMPT + 1
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     err = 0.0
+
+    def rn(*shape, dt):
+        return torch.randn(*shape, generator=g, device="cuda").to(dt)
+
+    def check(label, q, kc, vc, lens, w, tol):
+        out = decode_attention(q, kc, vc, lens, window=w)
+        torch.cuda.synchronize()
+        want = ref.decode_attention(q, kc, vc, lens, window=w)
+        e = check_close("decode_attention", out, want, tol)
+        p = dmod.split_plan(q.shape[0], kc.shape[1],
+                            q.shape[1] // kc.shape[1], kc.shape[2],
+                            q.shape[2], sms, itemsize=q.element_size())
+        log(f"  decode_attention {label} {str(q.dtype)[6:]} q "
+            f"{tuple(q.shape)} kv {kc.shape[1]} S={kc.shape[2]} window={w}"
+            f" ({_plan_str(p)}): max abs err {e:.3g} (tol {tol})")
+        return e, p
+
+    for dt, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, F32_TOL)):
+        # both serving shapes, at every window they decode with: batch 1
+        # (the served plan) and batch 2
+        for arch, (H, KV, D, window) in ATTN_SHAPES.items():
+            for lens in ([L], [L, 300]):
+                B = len(lens)
+                q, kc, vc = rn(B, H, D, dt=dt), rn(B, KV, S, D, dt=dt), \
+                    rn(B, KV, S, D, dt=dt)
+                lens = torch.tensor(lens, dtype=torch.int32, device="cuda")
+                for w in sorted({0, 128, window}):
+                    err = max(err, check(f"{arch} lens={tuple(lens.tolist())}",
+                                         q, kc, vc, lens, w, tol)[0])
+        # the split-K merge: G = 16 and 32 (and 64, two head chunks of
+        # 32) at lengths 1, 33 and S, where most splits are empty
+        for H, KV in ((32, 2), (32, 1), (64, 1)):
+            q, kc, vc = rn(3, H, 128, dt=dt), rn(3, KV, S, 128, dt=dt), \
+                rn(3, KV, S, 128, dt=dt)
+            lens = torch.tensor([1, 33, S], dtype=torch.int32, device="cuda")
+            for w in (0, 48):
+                err = max(err, check(f"G={H // KV} lens=(1,33,{S})", q, kc,
+                                     vc, lens, w, tol)[0])
+        # a cache of one tile: one split, no merge
+        H, KV, D, _ = ATTN_SHAPES["zamba2-2.7b"]
+        q, kc, vc = rn(2, H, D, dt=dt), rn(2, KV, 32, D, dt=dt), \
+            rn(2, KV, 32, D, dt=dt)
+        lens = torch.tensor([20, 32], dtype=torch.int32, device="cuda")
+        for w in (0, 8):
+            e, p = check("one split", q, kc, vc, lens, w, tol)
+            assert p.splits == 1, p
+            err = max(err, e)
+
     for arch, (H, KV, D, window) in ATTN_SHAPES.items():
-        for dt, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, F32_TOL)):
-            q = torch.randn(2, H, D, generator=g, device="cuda").to(dt)
-            kc = torch.randn(2, KV, S, D, generator=g, device="cuda").to(dt)
-            vc = torch.randn(2, KV, S, D, generator=g, device="cuda").to(dt)
-            lens = torch.tensor([L, 300], dtype=torch.int32, device="cuda")
-            for w in sorted({0, 128, window}):
-                out = decode_attention(q, kc, vc, lens, window=w)
-                torch.cuda.synchronize()
-                want = ref.decode_attention(q, kc, vc, lens, window=w)
-                e = check_close("decode_attention", out, want, tol)
-                err = max(err, e)
-                log(f"  decode_attention {arch} {str(dt)[6:]} (2,{H},{D}) "
-                    f"kv {KV} S={S} lens=({L},300) window={w}: max abs "
-                    f"err {e:.3g} (tol {tol})")
-        q1 = torch.randn(1, H, D, generator=g, device="cuda").bfloat16()
-        k1 = torch.randn(1, KV, S, D, generator=g, device="cuda").bfloat16()
-        v1 = torch.randn(1, KV, S, D, generator=g, device="cuda").bfloat16()
+        q1 = rn(1, H, D, dt=torch.bfloat16)
+        k1 = rn(1, KV, S, D, dt=torch.bfloat16)
+        v1 = rn(1, KV, S, D, dt=torch.bfloat16)
         l1 = torch.tensor([L], dtype=torch.int32, device="cuda")
         mask = (torch.arange(S, device="cuda") < L)[None, None, None, :]
-        ms = graph_ms(lambda: decode_attention(q1, k1, v1, l1, window=window))
+        want = ref.decode_attention(q1, k1, v1, l1, window=window)
+
+        def kernel(q, k, v):
+            return decode_attention(q, k, v, l1, window=window)
+
+        def sdpa(q, k, v):
+            return F.scaled_dot_product_attention(
+                q[:, :, None], k, v, attn_mask=mask, enable_gqa=True)
+
+        # every plan the rule weighs, each held against the plain version
+        # and timed, for the record of the choice
+        plans, chosen = [], None
+        for p in _decode_plans(dmod, 1, KV, H // KV, S, D, sms):
+            chosen = chosen or p
+            out = dmod._launch(q1, k1, v1, l1, window, p)
+            e = check_close("decode_attention", out, want, BF16_TOL)
+            p_ms = graph_ms(lambda p=p: dmod._launch(q1, k1, v1, l1, window,
+                                                     p))
+            plans.append(dict(plan=p._asdict(), ms=p_ms, max_abs_err=e))
+            log(f"    plan {_plan_str(p)}: {p_ms:.4f} ms, max abs err "
+                f"{e:.3g}{' (chosen)' if p is chosen else ''}")
+        err = max(err, check_close("decode_attention", kernel(q1, k1, v1),
+                                   want, BF16_TOL))
+        ms = graph_ms(lambda: kernel(q1, k1, v1))
         plain_ms = graph_ms(lambda: ref.decode_attention(q1, k1, v1, l1,
                                                          window=window))
-        lib_ms = graph_ms(lambda: F.scaled_dot_product_attention(
-            q1[:, :, None], k1, v1, attn_mask=mask, enable_gqa=True))
+        lib_ms = graph_ms(lambda: sdpa(q1, k1, v1))
+        cold = cold_inputs(q1, k1, v1)
+        cold_ms = graph_ms(kernel, inputs=cold)
+        lib_cold_ms = graph_ms(sdpa, inputs=cold)
+        err = max(err, check_close("decode_attention", kernel(*cold[-1]),
+                                   want, BF16_TOL))
+        del cold
         nbytes = 2 * (2 * q1.numel() + 2 * KV * L * D) + 4
         ops = 4.0 * H * D * L
         b_ms, b_by = bound(nbytes, ops, BF16_OPS)
         case = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                    library_ms=lib_ms, tol=BF16_TOL)
+                    library_ms=lib_ms, cold_ms=cold_ms,
+                    library_cold_ms=lib_cold_ms, plans=plans, tol=BF16_TOL)
         rec.setdefault("timing_cases", {})[
             f"decode_attention {arch} (1,{H},{D}) kv {KV} cache {S} len {L} "
             f"window {window}"] = case
         if arch == "yi-9b":
             rec["kernels"]["decode_attention"] = case
         log(f"  decode_attention {arch} (1,{H},{D}) kv {KV} cache {S} len {L}"
-            f" window {window}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"SDPA {lib_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by})")
+            f" window {window} ({_plan_str(chosen)}): kernel "
+            f"{ms:.4f} ms (cold L2 {cold_ms:.4f}), plain {plain_ms:.4f} ms, "
+            f"SDPA {lib_ms:.4f} ms (cold L2 {lib_cold_ms:.4f}), bound "
+            f"{b_ms:.6f} ms ({b_by})")
     rec["kernels"]["decode_attention"]["max_abs_err"] = err
     log(f"decode_attention: ok, max abs err {err:.3g}")
 

@@ -1,5 +1,6 @@
-// One 32-key tile of online-softmax attention for a warp, shared by the
-// prefill (flash_attention.cu) and decode (decode_attention.cu) kernels.
+// One 32-key tile of online-softmax attention for a warp, used by the
+// float32 prefill kernel (flash_attention.cu::flash_kernel); the bf16
+// prefill and the decode kernel keep their tiles in the operands' dtype.
 //
 // The block stages a tile of 32 keys and values in shared memory as
 // float32 (keys padded to D + 1 floats a row so that lane j reading key j

@@ -20,8 +20,8 @@ int repro_flash_attention(const void*, const void*, const void*, void*, int,
                           int, int, int, int, int, float, int, int, int,
                           void*);
 int repro_decode_attention(const void*, const void*, const void*, const void*,
-                           void*, int, int, int, int, int, float, int, int,
-                           void*);
+                           void*, void*, void*, int, int, int, int, int, int,
+                           int, int, int, float, int, int, void*);
 int repro_rms_norm(const void*, const void*, void*, int, int, float, int,
                    void*);
 int repro_ssd_scan(const void*, const void*, const void*, const void*,
@@ -70,11 +70,13 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
                 "flash_attention");
         });
   m.def("decode_attention",
-        [](ptr q, ptr kc, ptr vc, ptr lens, ptr o, int B, int H, int KV,
-           int S, int D, float scale, int window, int dtype, ptr stream) {
-          check(repro_decode_attention(P(q), P(kc), P(vc), P(lens), P(o), B, H,
-                                       KV, S, D, scale, window, dtype,
-                                       P(stream)),
+        [](ptr q, ptr kc, ptr vc, ptr lens, ptr o, ptr ws, ptr counters,
+           int B, int H, int KV, int S, int D, int span, int nsplit, int ncs,
+           int hc, float scale, int window, int dtype, ptr stream) {
+          check(repro_decode_attention(P(q), P(kc), P(vc), P(lens), P(o),
+                                       P(ws), P(counters), B, H, KV, S, D,
+                                       span, nsplit, ncs, hc, scale, window,
+                                       dtype, P(stream)),
                 "decode_attention");
         });
   m.def("rms_norm",

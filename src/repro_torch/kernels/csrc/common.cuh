@@ -1,12 +1,14 @@
-// Shared helpers of the port's CUDA kernels: dtype conversion, warp and
-// block reductions, and the launch-error convention (every launcher
-// returns cudaGetLastError() as an int, 0 on success, or a status of its
-// own such as kStatusBadHeadDim; the Python binding raises on anything
-// but 0).
+// Shared helpers of the port's CUDA kernels: dtype conversion, warp
+// reductions, asynchronous 16-byte copies, and the launch-error
+// convention (every launcher returns cudaGetLastError() as an int, 0 on
+// success, or a status of its own such as kStatusBadHeadDim; the Python
+// binding raises on anything but 0).
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 namespace repro {
 
@@ -16,6 +18,8 @@ constexpr int kDtypeBF16 = 1;
 // Launcher status for a head dimension no kernel was compiled for (beyond
 // every cudaError_t value); repro_error_string names it.
 constexpr int kStatusBadHeadDim = 100000;
+// Launcher status for sizes the kernel was not given consistently.
+constexpr int kStatusBadArgs = 100001;
 
 template <typename T> __device__ __forceinline__ float to_f32(T x);
 template <> __device__ __forceinline__ float to_f32<float>(float x) { return x; }
@@ -39,6 +43,39 @@ __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
+}
+
+// Asynchronous 16-byte copy from global to shared memory (cp.async, which
+// bypasses L1 and the registers).  With ``pred`` false it reads nothing
+// and fills the 16 shared bytes with zeros (``gmem`` must still be a valid
+// address).
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           bool pred = true) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(smem)),
+               "l"(gmem), "r"(pred ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// Wait until at most N committed groups of this thread are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Launch ``kernel`` needs ``smem`` bytes of dynamic shared memory: above
+// the default 48 KB it must be allowed first.  Returns 0 or the error.
+template <typename K>
+inline int allow_smem(K kernel, size_t smem) {
+  if (smem <= 48 * 1024) return 0;
+  return static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem)));
 }
 
 inline int launch_status() { return static_cast<int>(cudaGetLastError()); }

@@ -65,5 +65,8 @@ extern "C" const char* repro_error_string(int code) {
     return "head dimension not compiled into the attention kernels "
            "(32, 64, 80, 128)";
   }
+  if (code == repro::kStatusBadArgs) {
+    return "inconsistent launch arguments (split, column slice or head chunk sizes)";
+  }
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

@@ -1,22 +1,91 @@
 """Binding of `csrc/decode_attention.cu`: one-token attention over a KV
 cache with a per-sequence valid length and an optional window
-(`repro.kernels.decode_attention` counterpart; the plain version is
-`ref.decode_attention`)."""
+(`repro.kernels.decode_attention` counterpart; the plain versions are
+`ref.decode_attention` and, split the way the kernel splits the cache,
+`ref.decode_attention_split`)."""
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import DTYPES, HEAD_DIMS
 
-MAX_GROUP = 16  # query heads per kv head: one warp each in a block
+MAX_SPLITS = 64   # csrc kDecodeMaxSplits: splits of the cache axis at most
+HEAD_CHUNK = 32   # csrc kDecodeHeads: query heads a block at most
+MIN_COLS = 16     # output columns a block at least
+
+# device index -> every arrival-counter buffer made for it, the newest
+# last: a buffer that a launch may have used is never freed, since a CUDA
+# graph captured with it replays it
+_COUNTERS: dict[int, list[torch.Tensor]] = {}
+
+
+class Plan(NamedTuple):
+    """How a launch cuts the work: the cache axis into ``splits`` spans of
+    ``span`` slots, the G query heads of a kv head into chunks of ``hc``,
+    and the output columns into ``slices``; grid (splits x slices, KV x
+    head chunks, B)."""
+    span: int
+    splits: int
+    hc: int
+    slices: int
+
+
+def column_slices(D: int, itemsize: int) -> list[int]:
+    """The column slice counts the kernel takes at head dimension ``D``,
+    fewest first: slices of at least ``MIN_COLS`` columns and whole
+    16-byte copies."""
+    vec = 16 // itemsize
+    return [c for c in range(1, max(1, D // MIN_COLS) + 1)
+            if D % c == 0 and (D // c) % vec == 0]
+
+
+def split_plan(B: int, KV: int, G: int, S: int, D: int, sms: int,
+               itemsize: int = 2) -> Plan:
+    """The launch plan for these shapes on ``sms`` SMs: spans of one
+    staged tile (csrc `decode_tile_keys`: 128 bytes a column, 64 bf16 or 32
+    float32 keys; longer where that would pass ``MAX_SPLITS``), and the most
+    column slices that keep the grid within one wave.  Shapes only: the
+    lengths lie on the device."""
+    nchunk = -(-G // HEAD_CHUNK)
+    hc = -(-G // nchunk)
+    span = max(128 // itemsize, -(-S // MAX_SPLITS))
+    splits = -(-S // span)
+    blocks = splits * B * KV * nchunk
+    fit = [c for c in column_slices(D, itemsize) if blocks * c <= sms]
+    return Plan(span, splits, hc, fit[-1] if fit else 1)
+
+
+def partial_floats(hc: int, D: int) -> int:
+    """Floats of one split's partial in the workspace: m and l of each
+    head padded to 16 bytes, then the (hc, D) accumulator."""
+    return -(-2 * hc // 4) * 4 + hc * D
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _counters(device: torch.device, n: int) -> torch.Tensor:
+    """At least ``n`` of the device's arrival counters, zeroed once when
+    made: every launch leaves them at 0.  Launches that share them run in
+    stream order (one stream a device)."""
+    bufs = _COUNTERS.setdefault(device.index, [])
+    if not bufs or bufs[-1].numel() < n:
+        bufs.append(torch.zeros(max(n, 1024), dtype=torch.int32,
+                                device=device))
+    return bufs[-1]
 
 
 def decode_attention(q, k_cache, v_cache, cache_len, *, window: int = 0):
     """(B,H,D) x (B,KV,S,D)^2 with ``cache_len`` (B,) int32 -> (B,H,D) on
     the card: sequence ``b`` attends to cache slots ``[max(0, L - window),
     L)`` with ``L = cache_len[b]`` (``window = 0``: all of ``[0, L)``).
-    Any cache length ``S`` works."""
+    Any cache length ``S`` and any number of query heads per kv head."""
     _build.check_cuda("decode_attention", q, k_cache, v_cache, cache_len)
     B, H, D = q.shape
     KV, S = k_cache.shape[1], k_cache.shape[2]
@@ -26,16 +95,38 @@ def decode_attention(q, k_cache, v_cache, cache_len, *, window: int = 0):
                         "caches of one dtype and int32 lengths")
     if D not in HEAD_DIMS or k_cache.shape != (B, KV, S, D) or \
             v_cache.shape != k_cache.shape or H % KV or \
-            H // KV > MAX_GROUP or cache_len.shape != (B,):
+            cache_len.shape != (B,):
         raise ValueError(f"decode_attention: unsupported shapes q "
                          f"{q.shape}, cache {k_cache.shape}, lens "
                          f"{cache_len.shape}")
+    if any(t.data_ptr() % 16 for t in (q, k_cache, v_cache)):
+        raise ValueError("decode_attention: q and the caches must start on "
+                         "16-byte boundaries (the kernel copies 16 bytes)")
+    if q.numel() == 0 or S == 0:
+        return torch.zeros_like(q)
+    plan = split_plan(B, KV, H // KV, S, D, _sm_count(q.device.index),
+                      itemsize=q.element_size())
+    return _launch(q, k_cache, v_cache, cache_len, window, plan)
+
+
+def _launch(q, k_cache, v_cache, cache_len, window: int, plan: Plan):
+    """Launch the kernel on checked operands with ``plan``."""
+    B, H, D = q.shape
+    KV, S = k_cache.shape[1], k_cache.shape[2]
     out = torch.empty_like(q)
-    if q.numel() == 0:
-        return out
+    groups = B * KV * -(-(H // KV) // plan.hc) * plan.slices
+    if plan.splits > 1:
+        ws = torch.empty(groups * plan.splits *
+                         partial_floats(plan.hc, D // plan.slices),
+                         dtype=torch.float32, device=q.device)
+        ws_ptr = ws.data_ptr()
+        cnt_ptr = _counters(q.device, groups).data_ptr()
+    else:
+        ws_ptr = cnt_ptr = 0
     _build.extension().decode_attention(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-        cache_len.data_ptr(), out.data_ptr(), B, H, KV, S, D, D ** -0.5,
-        int(window), DTYPES[q.dtype], _build.stream_of(q))
+        cache_len.data_ptr(), out.data_ptr(), ws_ptr, cnt_ptr, B, H, KV, S, D,
+        plan.span, plan.splits, plan.slices, plan.hc, D ** -0.5, int(window),
+        DTYPES[q.dtype], _build.stream_of(q))
     _build.count_launch("decode_attention")
     return out

@@ -68,6 +68,51 @@ def decode_attention(q, k_cache, v_cache, cache_len, *, window: int = 0,
     return out.reshape(B, H, D).to(q.dtype)
 
 
+def decode_attention_split(q, k_cache, v_cache, cache_len, *, window: int = 0,
+                           split: int, scale: float | None = None):
+    """`decode_attention` computed the way `csrc/decode_attention.cu` does:
+    the cache axis is cut into spans of ``split`` slots, each span keeps a
+    partial (m, l, acc) over its valid slots in float32 (an empty span m =
+    NEG_INF, l = 0), and the partials merge by their log-sum-exp weights,
+    an empty span with weight exactly 0.  A sequence with no valid slot
+    gives 0.  The probabilities stay float32, as in the kernel.  (The
+    kernel also cuts the output columns into slices, each merged on its
+    own with the same weights: the arithmetic of a column is unchanged.)"""
+    B, H, D = q.shape
+    KV, S = k_cache.shape[1], k_cache.shape[2]
+    G = H // KV
+    scale = scale if scale is not None else D ** -0.5
+    n = -(-S // split)
+    pad = n * split - S
+
+    def spans(c):
+        c = c.float()
+        if pad:
+            c = torch.cat([c, c.new_zeros(B, KV, pad, D)], dim=2)
+        return c.reshape(B, KV, n, split, D)
+
+    kf, vf = spans(k_cache), spans(v_cache)
+    qg = q.reshape(B, KV, G, D).float()
+    logits = torch.einsum("bkgd,bknsd->bkgns", qg, kf) * scale
+    lens = torch.as_tensor(cache_len, device=q.device).reshape(-1).expand(B)
+    pos = torch.arange(n * split, device=q.device).reshape(n, split)
+    valid = pos[None] < lens[:, None, None]
+    if window > 0:
+        valid &= pos[None] >= (lens[:, None, None] - window)
+    valid = valid[:, None, None]                                # (B,1,1,n,s)
+    m = torch.where(valid, logits, NEG_INF).amax(dim=-1)         # (B,KV,G,n)
+    p = torch.where(valid, torch.exp(logits - m[..., None]), 0.0)
+    l = p.sum(dim=-1)
+    acc = torch.einsum("bkgns,bknsd->bkgnd", p, vf)
+    full = l > 0
+    big = torch.where(full, m, NEG_INF).amax(dim=-1, keepdim=True)
+    w = torch.where(full, torch.exp(m - big), 0.0)
+    total = (w * l).sum(dim=-1)
+    out = torch.einsum("bkgn,bkgnd->bkgd", w, acc)
+    out = out / torch.where(total == 0, 1.0, total)[..., None]
+    return out.reshape(B, H, D).to(q.dtype)
+
+
 # ----------------------------------------------------------------------
 # Mamba2 / SSD (state-space duality) scan
 # ----------------------------------------------------------------------

@@ -3,8 +3,9 @@
 On the CPU `kernels.ops` runs each kernel's plain PyTorch version; here
 those run on the same numpy inputs as `repro`'s Pallas kernels in
 interpret mode, in float32 and bfloat16, at the tolerances of
-tests/test_kernels.py (2e-2 for bfloat16, 2e-5 for float32).  A CUDA
-tensor takes the kernel instead: the last tests pin that dispatch and its
+tests/test_kernels.py (2e-2 for bfloat16, 2e-5 for float32); decode
+attention also at H / KV = 32, which the split-K kernel takes like any
+group size.  A CUDA tensor takes the kernel instead: the last tests pin that dispatch and its
 refusals without a card.
 """
 import pathlib
@@ -59,7 +60,8 @@ def test_attention_matches_pallas_flash(B, H, KV, S, D, dtype, causal, window):
 
 
 @pytest.mark.parametrize("B,H,KV,S,D", [(2, 8, 2, 256, 64), (3, 4, 4, 128, 32),
-                                        (2, 8, 1, 128, 128), (2, 4, 4, 128, 80)])
+                                        (2, 8, 1, 128, 128), (2, 4, 4, 128, 80),
+                                        (2, 32, 1, 128, 64)])
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 @pytest.mark.parametrize("window", [0, 48])
 def test_decode_attention_matches_pallas_decode(B, H, KV, S, D, dtype, window):
@@ -123,14 +125,21 @@ def test_ops_reach_plain_versions_on_cpu():
 
 @pytest.mark.parametrize("source", ["flash_attention.cu", "decode_attention.cu"])
 def test_attention_dispatch_lists_head_dims_and_refuses_others(source):
-    """The C entry points instantiate exactly the wrapper's ``HEAD_DIMS``
-    (80 among them, for zamba2's shared attention), and an unlisted head
-    dimension returns an error status (which the binding raises) instead
-    of launching another instantiation."""
+    """Every dispatch function of the C entry points instantiates exactly
+    the wrapper's ``HEAD_DIMS`` (80 among them, for zamba2's shared
+    attention), and an unlisted head dimension returns an error status
+    (which the binding raises) instead of launching another instantiation.
+    The entry point reaches a dispatch for both dtypes."""
     text = (pathlib.Path(_build.CSRC) / source).read_text()
-    body = re.search(r"int dispatch_\w+\(.*?\n}", text, re.S).group(0)
-    pairs = re.findall(r"case (\d+): launch_\w+<T, (\d+)>", body)
-    assert all(case == dim for case, dim in pairs)
-    assert tuple(int(case) for case, _ in pairs) == HEAD_DIMS
-    assert "default: return kStatusBadHeadDim;" in body
+    bodies = re.findall(r"int dispatch_\w+\(.*?\n}", text, re.S)
+    assert bodies
+    for body in bodies:
+        pairs = re.findall(r"case (\d+): (?:return )?launch_\w+<T, (\d+)>",
+                           body)
+        assert all(case == dim for case, dim in pairs)
+        assert tuple(int(case) for case, _ in pairs) == HEAD_DIMS
+        assert "default: return kStatusBadHeadDim;" in body
+    entry = text[text.index('extern "C"'):]
+    assert re.search(r"dispatch_\w+<__nv_bfloat16>", entry)
+    assert re.search(r"dispatch_\w+<float>", entry)
     assert 80 in HEAD_DIMS
