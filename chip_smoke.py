@@ -12,8 +12,10 @@ Phases (any failure exits non-zero and prints no result):
                card at the shapes of both serving paths, and time kernel,
                plain version and the nearest single PyTorch call (CUDA
                graphs of back-to-back calls, timed with CUDA events; inputs
-               stay warm in L2, and the attention kernels are also timed
-               cold, rotating over 64 MB of input copies);
+               stay warm in L2, and the attention and SSD kernels are also
+               timed cold, rotating over 64 MB of input copies; decode
+               attention and the SSD scan time every launch plan their
+               wrappers weigh);
 3. serve     — an NL2SQL-2 cohort through the fleet runtime: first with the
                workload's stage tables on "cuda" and on "cpu" (identical
                results), then served by two full-width Yi-9B engines
@@ -23,6 +25,10 @@ Phases (any failure exits non-zero and prints no result):
 4. serve-ssm — the same cohort served by a full-width, full-depth
                Mamba2-1.3B engine (engine-a) and Zamba2-2.7B engine
                (engine-b), with their launches counted the same way.
+
+On request: `profile` traces one generate per engine after each serve
+phase; `parts` (`--phases device,parts`) times copies of the bf16 SSD
+kernel with one part taken out or a design alternative put in.
 
 The last three lines of output are the `{"kernels": [...]}` JSON line, the
 card's `nvidia-smi` line and `{"ok": true, ...}`.
@@ -554,11 +560,13 @@ def check_rms_norm(rec):
     g = torch.Generator(device="cuda").manual_seed(SEED + 2)
     err = 0.0
     # yi-9b rows (4096), the mamba2 / zamba2 block norms (2048, 2560) and
-    # their gated norms (4096, 5120); the yi-9b rows are timed
+    # their gated norms (4096, 5120), and a width that is no multiple of a
+    # 16-byte vector (100: element by element); bf16 is timed at one row
+    # (decode) at every serving width and at 448 rows (prefill) at yi-9b's
     cases = [(dt, tol, rows, D)
              for dt, tol in ((torch.bfloat16, BF16_TOL),
                              (torch.float32, F32_TOL))
-             for D in (4096, 2048, 2560, 5120) for rows in (PROMPT, 1)]
+             for D in (4096, 2048, 2560, 5120, 100) for rows in (PROMPT, 1)]
     for dt, tol, rows, D in cases:
         x = (3 * torch.randn(rows, D, generator=g, device="cuda")).to(dt)
         s = torch.rand(D, generator=g, device="cuda") + 0.5
@@ -568,7 +576,7 @@ def check_rms_norm(rec):
         err = max(err, e)
         log(f"  rms_norm {str(dt)[6:]} ({rows},{D}): max abs err "
             f"{e:.3g} (tol {tol})")
-        if dt != torch.bfloat16 or D != 4096:
+        if dt != torch.bfloat16 or D == 100 or (rows == PROMPT and D != 4096):
             continue
         sb = s.to(dt)
         ms = graph_ms(lambda: rms_norm(x, s))
@@ -621,25 +629,54 @@ def _ssd_work(S, Hn, P, N, Q):
     return float(nbytes), ops
 
 
+def _ssd_odd_shapes(g, ssd_scan, ref) -> float:
+    """Shapes no model serves: N and P not multiples of 8 (the bf16
+    kernel stages element by element and pads N and P to 64) and four
+    chunks of 32 over 3 heads (the bf16 launch runs each chunk in a block
+    of its own, the last one walking the first three chunks)."""
+    import torch
+
+    err = 0.0
+    for dt_, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, SSD_F32_TOL)):
+        x, dt, A, Bm, Cm, h0 = _ssd_inputs(g, 100, 3, 20, 12, dt_, True)
+        y, s = ssd_scan(x, dt, A, Bm, Cm, chunk=32, init_state=h0,
+                        return_state=True)
+        torch.cuda.synchronize()
+        yw, sw = ref.ssd_scan_chunked(x, dt, A, Bm, Cm, chunk=32,
+                                      init_state=h0, return_state=True)
+        e = max(check_close("ssd_scan y", y, yw, tol),
+                check_close("ssd_scan state", s, sw, SSD_STATE_TOL))
+        log(f"  ssd_scan {str(dt_)[6:]} x (1,100,3,20) N 12 chunk 32 init=True"
+            f" final=True: max abs err {e:.3g}")
+        err = max(err, e)
+    return err
+
+
 def check_ssd_scan(rec):
     import torch
 
     from repro_torch.configs import get_config
     from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd_scan as smod
     from repro_torch.kernels.ssd_scan import ssd_scan
 
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain version in f32
     g = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     err = 0.0
     for arch in SSM_ENGINES.values():
         c = get_config(arch).ssm
         Hn = c.expand * get_config(arch).d_model // c.head_dim
         P, N = c.head_dim, c.state_dim
         # S = 448 is one whole chunk and a ragged one; 100 and 300 are
-        # ragged; every form: no state, an initial state, the final state
+        # ragged, 7 and 1 below one 16-row tile; every form: no state, an
+        # initial state, the final state
         cases = [(torch.bfloat16, PROMPT, False, True),
                  (torch.bfloat16, PROMPT, False, False),
+                 (torch.bfloat16, PROMPT, True, True),
                  (torch.bfloat16, 100, True, True),
+                 (torch.bfloat16, 7, True, True),
+                 (torch.bfloat16, 1, True, True),
                  (torch.float32, PROMPT, True, True),
                  (torch.float32, 300, False, True),
                  (torch.float32, 100, True, False)]
@@ -662,23 +699,61 @@ def check_ssd_scan(rec):
             err = max(err, e)
             log(f"  ssd_scan {arch} {str(dt_)[6:]} x (1,{S},{Hn},{P}) N {N} "
                 f"chunk {c.chunk} init={init} final={final}: {msg}")
-        # time the form the prefill calls: bf16, S = 448, final state
+        if arch == SSM_ENGINES["engine-a"]:
+            err = max(err, _ssd_odd_shapes(g, ssd_scan, ref))
+        # time the form the prefill calls: bf16, S = 448, final state; every
+        # run count the wrapper weighs first (1 to one a chunk), each held
+        # against the plain version
         x, dt, A, Bm, Cm, _ = _ssd_inputs(g, PROMPT, Hn, P, N,
                                           torch.bfloat16, False)
-        ms = graph_ms(lambda: ssd_scan(x, dt, A, Bm, Cm, chunk=c.chunk,
-                                       return_state=True))
+        want = ref.ssd_scan_chunked(x, dt, A, Bm, Cm, chunk=c.chunk,
+                                    return_state=True)
+        Q = min(c.chunk, PROMPT)
+        nchunks = -(-PROMPT // Q)
+        chosen = smod.scan_runs(1, Hn, P, nchunks, sms)
+        plans = []
+        for runs in range(1, nchunks + 1):
+            out = smod._launch(x, dt, A, Bm, Cm, Q, None, True, runs)
+            e = max(check_close("ssd_scan y", out[0], want[0], BF16_TOL),
+                    check_close("ssd_scan state", out[1], want[1],
+                                SSD_STATE_TOL))
+            p_ms = graph_ms(lambda r=runs: smod._launch(x, dt, A, Bm, Cm, Q,
+                                                        None, True, r))
+            nb = smod.blocks(1, Hn, P, runs)
+            plans.append(dict(runs=runs, ms=p_ms, max_abs_err=e, blocks=nb))
+            err = max(err, e)
+            log(f"    plan {runs} chunk run(s) ({nb} blocks): {p_ms:.4f} ms,"
+                f" max abs err {e:.3g}{' (chosen)' if runs == chosen else ''}")
+
+        def kernel(*a):
+            return ssd_scan(*a, chunk=c.chunk, return_state=True)
+
+        ms = graph_ms(lambda: kernel(x, dt, A, Bm, Cm))
         plain_ms = graph_ms(lambda: ref.ssd_scan_chunked(
             x, dt, A, Bm, Cm, chunk=c.chunk, return_state=True))
-        b_ms, b_by = bound(*_ssd_work(PROMPT, Hn, P, N, c.chunk), F32_OPS)
+        cold = cold_inputs(x, dt, A, Bm, Cm)
+        cold_ms = graph_ms(kernel, inputs=cold)
+        got = kernel(*cold[-1])
+        err = max(err, check_close("ssd_scan y", got[0], want[0], BF16_TOL),
+                  check_close("ssd_scan state", got[1], want[1],
+                              SSD_STATE_TOL))
+        del cold
+        work = _ssd_work(PROMPT, Hn, P, N, c.chunk)
+        b_ms, b_by = bound(*work, BF16_OPS)      # bf16 on the tensor cores
+        f32_ms, f32_by = bound(*work, F32_OPS)   # the float32 kernel's
         case = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                    library_ms=None, tol=BF16_TOL)
+                    bound_f32_ms=f32_ms, bound_f32_by=f32_by,
+                    library_ms=None, cold_ms=cold_ms, plans=plans,
+                    tol=BF16_TOL)
         rec.setdefault("timing_cases", {})[
             f"ssd_scan {arch} x (1,{PROMPT},{Hn},{P}) N {N}"] = case
         if arch == SSM_ENGINES["engine-a"]:
             rec["kernels"]["ssd_scan"] = case
         log(f"  ssd_scan {arch} x (1,{PROMPT},{Hn},{P}) N {N} bf16 with final"
-            f" state: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-            f"{b_ms:.6f} ms ({b_by}), no single PyTorch call")
+            f" state ({chosen} chunk run(s)): kernel {ms:.4f} ms (cold L2 "
+            f"{cold_ms:.4f}), plain {plain_ms:.4f} ms, bound {b_ms:.6f} ms "
+            f"({b_by}; at the float32 peak {f32_ms:.6f}, {f32_by}), no "
+            f"single PyTorch call")
     rec["kernels"]["ssd_scan"]["max_abs_err"] = err
     log(f"ssd_scan: ok, max abs err {err:.3g}")
 
@@ -691,6 +766,90 @@ def phase_kernels(args, rec):
     log("kernels: " + ", ".join(f"{k} ok (max abs err "
                                 f"{v['max_abs_err']:.3g}, tol {v['tol']})"
                                 for k, v in rec["kernels"].items()))
+
+
+# ----------------------------------------------------------------------
+# phase parts (on request): where the bf16 SSD kernel's time goes
+# ----------------------------------------------------------------------
+# copies of `csrc/ssd_scan.cu`, by the macros they are built with: bits of
+# its `SsdVariant` in SSD_VARIANT take one part out of the bf16 kernel or
+# put in the alternative a design choice was weighed against; SSD_KEYS
+# sets the keys of a C.B tile
+SSD_PARTS = {
+    "whole kernel": (),
+    "launch only": ("SSD_VARIANT=1",),
+    "no outputs (y)": ("SSD_VARIANT=2",),
+    "no state update": ("SSD_VARIANT=4",),
+    "staging and L scan only": ("SSD_VARIANT=6",),
+    "no carried term C.h": ("SSD_VARIANT=8",),
+    "no key tiles (C.B, M, M.x)": ("SSD_VARIANT=16",),
+    "no C.B products": ("SSD_VARIANT=32",),
+    "M without its exps": ("SSD_VARIANT=64",),
+    "no M.x products": ("SSD_VARIANT=128",),
+    "y not stored": ("SSD_VARIANT=256",),
+    "C and B staged a quarter": ("SSD_VARIANT=512",),
+}
+SSD_ALTERNATIVES = {
+    "C staged with B and x (not during the update)": ("SSD_VARIANT=1024",),
+    "y stored from the fragments (not through shared rows)":
+        ("SSD_VARIANT=2048",),
+    "16-key C.B tiles (not 32)": ("SSD_KEYS=16",),
+    "64-key C.B tiles (not 32)": ("SSD_KEYS=64",),
+}
+
+
+def phase_parts(args, rec):
+    """Time copies of the bf16 SSD kernel at both serving shapes (S 448,
+    chunk 256, final state, the run count the wrapper picks), as
+    `check_ssd_scan` times the kernel.  A copy with a part taken out
+    computes wrong outputs and only its time is read; the difference to the
+    whole kernel is what that part costs on the critical path.  A copy
+    with an alternative is held against the plain version as well."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build, ref
+    from repro_torch.kernels import ssd_scan as smod
+    from repro_torch.kernels.flash_attention import DTYPES
+
+    t0 = time.perf_counter()
+    copies = {name: _build.extension(defines=d)
+              for name, d in {**SSD_PARTS, **SSD_ALTERNATIVES}.items()}
+    log(f"parts: {len(copies)} copies built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    g = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rec["parts"] = {}
+    for arch in SSM_ENGINES.values():
+        c = get_config(arch).ssm
+        Hn = c.expand * get_config(arch).d_model // c.head_dim
+        P, N, Q = c.head_dim, c.state_dim, min(c.chunk, PROMPT)
+        runs = smod.scan_runs(1, Hn, P, -(-PROMPT // Q), sms)
+        x, dt, A, Bm, Cm, _ = _ssd_inputs(g, PROMPT, Hn, P, N,
+                                          torch.bfloat16, False)
+        want = ref.ssd_scan_chunked(x, dt, A, Bm, Cm, chunk=Q,
+                                    return_state=True)
+        y = torch.empty_like(x)
+        st = torch.empty(1, Hn, P, N, device="cuda")
+        for name, ext in copies.items():
+            def call(ext=ext):
+                ext.ssd_scan(x.data_ptr(), dt.data_ptr(), A.data_ptr(),
+                             Bm.data_ptr(), Cm.data_ptr(), 0, y.data_ptr(),
+                             st.data_ptr(), 1, PROMPT, Hn, P, N, Q,
+                             DTYPES[torch.bfloat16], runs,
+                             torch.cuda.current_stream().cuda_stream)
+
+            call()
+            msg = ""
+            if name in SSD_ALTERNATIVES or name == "whole kernel":
+                e = max(check_close("ssd_scan y", y, want[0], BF16_TOL),
+                        check_close("ssd_scan state", st, want[1],
+                                    SSD_STATE_TOL))
+                msg = f", max abs err {e:.3g}"
+            us = 1e3 * graph_ms(call)
+            rec["parts"][f"{arch} {name}"] = us
+            log(f"  ssd_scan parts {arch} ({runs} chunk run(s)) {name}: "
+                f"{us:.2f} us{msg}")
 
 
 # ----------------------------------------------------------------------
@@ -1001,6 +1160,7 @@ def phase_serve_ssm(args, rec):
 
 PHASES = {"device": phase_device, "kernels": phase_kernels,
           "serve": phase_serve, "serve-ssm": phase_serve_ssm}
+ON_REQUEST = {"parts": phase_parts}  # run only when named
 
 
 # ----------------------------------------------------------------------
@@ -1009,7 +1169,8 @@ def main(argv=None) -> int:
     ap.add_argument("--phases", default=",".join(PHASES),
                     help=f"comma-separated subset of {','.join(PHASES)}; "
                          "add profile to trace one generate per engine "
-                         "after each serve phase")
+                         "after each serve phase, parts to time copies of "
+                         "the bf16 SSD kernel with parts taken out")
     ap.add_argument("--verbose-build", action="store_true",
                     help="show the compiler's output (ptxas -v included)")
     args = ap.parse_args(argv)
@@ -1025,7 +1186,7 @@ def main(argv=None) -> int:
 
     rec = {"kernels": {}}
     failed = []
-    for name, fn in PHASES.items():
+    for name, fn in {**PHASES, **ON_REQUEST}.items():
         if name not in phases:
             continue
         if failed:

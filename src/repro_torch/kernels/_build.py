@@ -14,6 +14,7 @@ main path went through the kernels (`reset_launches` zeroes the counts).
 """
 from __future__ import annotations
 
+import functools
 import pathlib
 
 import torch
@@ -27,7 +28,8 @@ CUDA_FLAGS = ("-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a")
 LAUNCHES = {"trie_plan": 0, "flash_attention": 0, "decode_attention": 0,
             "rms_norm": 0, "ssd_scan": 0}
 
-_EXT = None
+_EXT = None        # the build the wrappers launch
+_COPIES: dict = {}  # timing copies, by their macros
 
 
 def reset_launches() -> None:
@@ -41,25 +43,46 @@ def count_launch(name: str) -> None:
     LAUNCHES[name] += 1
 
 
-def extension(verbose: bool = False):
+def extension(verbose: bool = False, defines: tuple = ()):
     """The loaded kernel extension, built on the first call.
 
     ``verbose`` shows the compiler's output, ptxas' register and
-    shared-memory report included.  A build that fails raises."""
+    shared-memory report included.  ``defines`` (``("NAME=value", ...)``)
+    builds and loads instead a copy compiled with those macros, in a
+    directory of its own: the timing copies of `csrc/ssd_scan.cu`
+    (``SSD_VARIANT``, ``SSD_KEYS``), which no wrapper launches.  A build
+    that fails raises."""
     global _EXT
+    defines = tuple(defines)
+    if defines:
+        if defines not in _COPIES:
+            _COPIES[defines] = _load(verbose, defines)
+        return _COPIES[defines]
     if _EXT is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError("the CUDA kernels need a CUDA device")
-        from torch.utils.cpp_extension import load
-
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        flags = list(CUDA_FLAGS) + (["-Xptxas=-v"] if verbose else [])
-        _EXT = load(name="repro_torch_kernels",
-                    sources=[str(CSRC / s) for s in SOURCES],
-                    build_directory=str(BUILD_DIR),
-                    extra_cflags=["-O2", "-std=c++17"],
-                    extra_cuda_cflags=flags, verbose=verbose)
+        _EXT = _load(verbose, ())
     return _EXT
+
+
+def _load(verbose: bool, defines: tuple):
+    if not torch.cuda.is_available():
+        raise RuntimeError("the CUDA kernels need a CUDA device")
+    from torch.utils.cpp_extension import load
+
+    tag = "_".join(d.replace("=", "") for d in defines)
+    out = BUILD_DIR / tag if tag else BUILD_DIR
+    out.mkdir(parents=True, exist_ok=True)
+    flags = list(CUDA_FLAGS) + [f"-D{d}" for d in defines] + (
+        ["-Xptxas=-v"] if verbose else [])
+    return load(name="repro_torch_kernels" + (f"_{tag}" if tag else ""),
+                sources=[str(CSRC / s) for s in SOURCES],
+                build_directory=str(out), extra_cflags=["-O2", "-std=c++17"],
+                extra_cuda_cflags=flags, verbose=verbose)
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index``."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def stream_of(t: torch.Tensor) -> int:

@@ -26,8 +26,8 @@ int repro_rms_norm(const void*, const void*, void*, int, int, float, int,
                    void*);
 int repro_ssd_scan(const void*, const void*, const void*, const void*,
                    const void*, const void*, void*, void*, int, int, int, int,
-                   int, int, int, void*);
-int repro_ssd_smem_bytes(int, int);
+                   int, int, int, int, void*);
+int repro_ssd_smem_bytes(int, int, int);
 const char* repro_error_string(int);
 }
 
@@ -88,11 +88,12 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
         });
   m.def("ssd_scan",
         [](ptr x, ptr dt, ptr A, ptr Bm, ptr Cm, ptr h0, ptr y, ptr hout,
-           int B, int S, int Hn, int hd, int N, int Q, int dtype, ptr stream) {
+           int B, int S, int Hn, int hd, int N, int Q, int dtype, int runs,
+           ptr stream) {
           check(repro_ssd_scan(P(x), P(dt), P(A), P(Bm), P(Cm),
                                h0 ? P(h0) : nullptr, P(y),
                                hout ? P(hout) : nullptr, B, S, Hn, hd, N, Q,
-                               dtype, P(stream)),
+                               dtype, runs, P(stream)),
                 "ssd_scan");
         });
   m.def("ssd_smem_bytes", &repro_ssd_smem_bytes);

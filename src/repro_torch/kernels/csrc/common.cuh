@@ -1,5 +1,6 @@
 // Shared helpers of the port's CUDA kernels: dtype conversion, warp
-// reductions, asynchronous 16-byte copies, and the launch-error
+// reductions, asynchronous 16-byte copies, bf16 tensor-core fragments,
+// and the launch-error
 // convention (every launcher returns cudaGetLastError() as an int, 0 on
 // success, or a status of its own such as kStatusBadHeadDim; the Python
 // binding raises on anything but 0).
@@ -11,6 +12,8 @@
 #include <cstdint>
 
 namespace repro {
+
+using bf16 = __nv_bfloat16;
 
 constexpr float kNegInf = -1e30f;  // masked-score sentinel (ref.NEG_INF)
 constexpr int kDtypeF32 = 0;
@@ -67,6 +70,40 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// ---------------------------------------------------------------------
+// bf16 tensor-core fragments (mma.sync m16n8k16), shared by the flash
+// attention and SSD kernels: operands come from shared memory through
+// ldmatrix (rows given by the lanes, 8 per 8x8 matrix), accumulators
+// stay float32 in registers.
+// ---------------------------------------------------------------------
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// d += a (16x16, row) . b (16x8, col), bf16 operands, float32 accumulator.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two floats rounded to bf16 (nearest even) in one register, lo first.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
 }
 
 // Launch ``kernel`` needs ``smem`` bytes of dynamic shared memory: above

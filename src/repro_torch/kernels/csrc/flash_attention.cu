@@ -129,8 +129,6 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // ---------------------------------------------------------------------
 // bf16 on the tensor cores
 // ---------------------------------------------------------------------
-using bf16 = __nv_bfloat16;
-
 constexpr int kMmaThreads = 128;  // four warps
 constexpr int kMmaBlockQ = 64;    // query rows a block, 16 a warp
 constexpr int kMmaBlockK = 64;    // keys a tile
@@ -139,34 +137,6 @@ constexpr int kMmaPad = 8;        // bf16 padding of a shared row (16 bytes)
 template <int D>
 constexpr size_t flash_mma_smem_bytes() {
   return static_cast<size_t>(kMmaBlockQ + 4 * kMmaBlockK) * (D + kMmaPad) * sizeof(bf16);
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-// d += a (16x16, row) . b (16x8, col), bf16 operands, float32 accumulator.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Two floats rounded to bf16 (nearest even) in one register, lo first.
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&h);
 }
 
 template <int D>

@@ -5,7 +5,6 @@ cache with a per-sequence valid length and an optional window
 `ref.decode_attention_split`)."""
 from __future__ import annotations
 
-import functools
 from typing import NamedTuple
 
 import torch
@@ -65,11 +64,6 @@ def partial_floats(hc: int, D: int) -> int:
     return -(-2 * hc // 4) * 4 + hc * D
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def _counters(device: torch.device, n: int) -> torch.Tensor:
     """At least ``n`` of the device's arrival counters, zeroed once when
     made: every launch leaves them at 0.  Launches that share them run in
@@ -104,7 +98,7 @@ def decode_attention(q, k_cache, v_cache, cache_len, *, window: int = 0):
                          "16-byte boundaries (the kernel copies 16 bytes)")
     if q.numel() == 0 or S == 0:
         return torch.zeros_like(q)
-    plan = split_plan(B, KV, H // KV, S, D, _sm_count(q.device.index),
+    plan = split_plan(B, KV, H // KV, S, D, _build.sm_count(q.device.index),
                       itemsize=q.element_size())
     return _launch(q, k_cache, v_cache, cache_len, window, plan)
 

@@ -194,6 +194,59 @@ def ssd_scan_chunked(x, dt, A, Bm, Cm, *, chunk: int = 256, init_state=None,
     return (y, h) if return_state else y
 
 
+def _bf16(a):
+    return a.to(torch.bfloat16).float()
+
+
+def ssd_scan_tiled(x, dt, A, Bm, Cm, *, chunk: int = 256, init_state=None,
+                   return_state=False, rounded: bool = False):
+    """`ssd_scan_chunked` computed the way `csrc/ssd_scan.cu`'s bf16 kernel
+    computes it: chunk by chunk in order, each chunk's outputs from the
+    state entering it, every product accumulated in float32.
+
+    With ``rounded`` the operands are rounded where the kernel rounds them
+    for its bf16 tensor-core products (C, B and x are bf16 already):
+
+    - M = exp(L_t - L_s) dt_s (C_t . B_s), formed in float32, to bf16
+      before M . x;
+    - the entering state h to bf16 for C_t . h;
+    - in the update, v = w_s x_s (w_s = exp(L_Q - L_s) dt_s) split into
+      bf16 parts hi = bf16(v) and lo = bf16(v - hi), the update being
+      hi^T B + lo^T B.
+
+    The state itself stays float32.  (The kernel's blocks that start
+    after the first chunk form their entering state from the chunks
+    before them by the same updates in the same order.)"""
+    Bq, S, Hn, P = x.shape
+    N = Bm.shape[-1]
+    Q = max(1, min(chunk, S))
+    r = _bf16 if rounded else (lambda a: a)
+    h = (init_state.float() if init_state is not None else
+         torch.zeros(Bq, Hn, P, N, dtype=torch.float32, device=x.device))
+    ys = []
+    for c0 in range(0, S, Q):
+        n = min(Q, S - c0)
+        xc, dtc = x[:, c0:c0 + n].float(), dt[:, c0:c0 + n].float()
+        bc, cc = Bm[:, c0:c0 + n].float(), Cm[:, c0:c0 + n].float()
+        L = torch.cumsum(A.float() * dtc, dim=1)                    # (B,n,Hn)
+        cb = torch.einsum("btn,bsn->bts", cc, bc)
+        tril = torch.tril(torch.ones(n, n, dtype=torch.bool, device=x.device))
+        diff = L[:, :, None, :] - L[:, None, :, :]                  # L_t - L_s
+        M = torch.exp(torch.where(tril[None, :, :, None], diff, -torch.inf)) \
+            * cb[..., None] * dtc[:, None]                          # (B,t,s,Hn)
+        y = torch.einsum("btsh,bshp->bthp", r(M), xc)
+        y = y + torch.exp(L)[..., None] * torch.einsum("btn,bhpn->bthp",
+                                                       cc, r(h))
+        ys.append(y)
+        v = (torch.exp(L[:, -1:] - L) * dtc)[..., None] * xc         # (B,n,Hn,P)
+        hi = r(v)
+        parts = (hi, _bf16(v - hi)) if rounded else (v,)
+        U = sum(torch.einsum("bshp,bsn->bhpn", part, bc) for part in parts)
+        h = torch.exp(L[:, -1])[..., None, None] * h + U
+    y = (torch.cat(ys, dim=1) if ys else x.float()).to(x.dtype)
+    return (y, h) if return_state else y
+
+
 def ssd_decode_step(x, dt, A, Bm, Cm, state):
     """One-token SSD update (`repro.kernels.ref.ssd_decode_step`): x (B,Hn,P),
     dt (B,Hn), A (Hn,), Bm/Cm (B,N), state (B,Hn,P,N) float32 -> (y in x's
