@@ -12,10 +12,13 @@ Phases (any failure exits non-zero and prints no result):
                card at the shapes of both serving paths, and time kernel,
                plain version and the nearest single PyTorch call (CUDA
                graphs of back-to-back calls, timed with CUDA events; inputs
-               stay warm in L2, and the attention and SSD kernels are also
-               timed cold, rotating over 64 MB of input copies; decode
-               attention and the SSD scan time every launch plan their
-               wrappers weigh);
+               stay warm in L2, and the attention, SSD and replan kernels
+               are also timed cold, rotating over 64 MB of input copies;
+               decode attention, the SSD scan and the replan time every
+               launch plan their wrappers weigh).  The replan runs at six
+               shapes (`PLAN_SHAPES`, from the served cohort to 256 lanes
+               on a 5461-node trie), exact against its plain versions and
+               the host search;
 3. serve     — an NL2SQL-2 cohort through the fleet runtime: first with the
                workload's stage tables on "cuda" and on "cpu" (identical
                results), then served by two full-width Yi-9B engines
@@ -24,7 +27,11 @@ Phases (any failure exits non-zero and prints no result):
                kernel's launches counted over that run;
 4. serve-ssm — the same cohort served by a full-width, full-depth
                Mamba2-1.3B engine (engine-a) and Zamba2-2.7B engine
-               (engine-b), with their launches counted the same way.
+               (engine-b), with their launches counted the same way; then
+               the replan's wall time per round over the serve phases and
+               one round under `torch.profiler`, which must be one kernel
+               and two copies (after the last serve phase that runs: a
+               profiler session slows later launches).
 
 On request: `profile` traces one generate per engine after each serve
 phase; `parts` (`--phases device,parts`) times copies of the bf16 SSD
@@ -157,12 +164,29 @@ def max_err(out, ref) -> float:
 
 
 def check_close(name, out, ref, tol):
+    """Max abs error of ``out``; raises unless every element lies within
+    tol + tol * |ref| (the bound) and is finite."""
     err = max_err(out, ref)
-    ok = bool(((out.float() - ref.float()).abs()
-               <= tol + tol * ref.float().abs()).all())
-    if not ok or not bool(out.float().isfinite().all()):
-        raise AssertionError(f"{name}: max abs err {err:.3g} beyond tol {tol}")
+    ratio = bound_ratio(out, ref, tol)
+    if not ratio <= 1.0 or not bool(out.float().isfinite().all()):
+        raise AssertionError(f"{name}: max abs err {err:.3g}, worst err / "
+                             f"(tol (1 + |ref|)) {ratio:.3g} > 1 (tol {tol})")
     return err
+
+
+def err_str(out, ref, tol) -> str:
+    """The max abs error beside the share of the mixed bound it reaches."""
+    return (f"max abs err {max_err(out, ref):.3g}, worst "
+            f"{bound_ratio(out, ref, tol):.3g} of tol (1 + |ref|), tol {tol}")
+
+
+def bound_ratio(out, ref, tol) -> float:
+    """The worst ratio of |out - ref| to the bound tol (1 + |ref|): at most
+    1 where `check_close` passes."""
+    if not out.numel():
+        return 0.0
+    ref = ref.float()
+    return float(((out.float() - ref).abs() / (tol * (1 + ref.abs()))).max())
 
 
 # ----------------------------------------------------------------------
@@ -221,7 +245,24 @@ def _host_plan(trie, ann, obj, roots, el, delays, engines, bd):
     return np.array(tgt), np.array(nxt)
 
 
-def _plan_case(name, lanes, seed):
+# the replan's shapes: (label, preset, lanes, prefixes).  The served
+# cohort's lanes at random nodes and all at the root (its first round),
+# the deep trie's lanes at random nodes and 16 at the root, and the two
+# fleet scales: `repro`'s fleet benchmark's largest batch on nl2sql_8, all
+# at the root, and a mathqa_4 fleet mid-cohort, half at the root
+PLAN_SHAPES = (("served", "nl2sql_2", N_REQUESTS, "random"),
+               ("served, round 1", "nl2sql_2", N_REQUESTS, "root"),
+               ("deep", "mathqa_4", 64, "random"),
+               ("deep, round 1", "mathqa_4", N_REQUESTS, "root"),
+               ("fleet", "nl2sql_8", 256, "root"),
+               ("fleet, deep", "mathqa_4", 256, "half"))
+
+
+def _plan_case(name, lanes, seed, prefixes="random"):
+    """A trie of preset ``name`` on the card, its two objectives, and
+    ``lanes`` lanes at random nodes (``prefixes`` "random"), at the root
+    ("root") or half at the root ("half"), with random elapsed latency and
+    live delays from ``seed``."""
     import torch
 
     from repro_torch.core import presets
@@ -240,6 +281,7 @@ def _plan_case(name, lanes, seed):
     roots = rng.integers(0, trie.n_nodes, lanes).astype(np.int32)
     el = rng.uniform(0, 1.5, lanes).astype(np.float32)
     delays = rng.uniform(0, 0.5, (lanes, len(engines))).astype(np.float32)
+    roots[: {"random": 0, "root": lanes, "half": lanes // 2}[prefixes]] = 0
     term = trie.terminal
     objs = [Objective("max_acc",
                       cost_cap=float(np.quantile(ann.cost[term], 0.5)),
@@ -258,13 +300,19 @@ def _plan_case(name, lanes, seed):
                 t_delays=cuda(delays, np.float32))
 
 
+def _plan_tensors(c):
+    """The replan's tensor operands in `trie_plan_cuda`'s order: the trie's
+    columns, then the lanes'."""
+    td = c["td"]
+    return (td.terminal, td.depth, td.acc, td.cost, td.lat, td.subtree_size,
+            td.path_models, td.path_counts, td.engine_of_model, c["t_roots"],
+            c["t_el"], c["t_ec"], c["t_delays"])
+
+
 def _plan_args(c, obj, bd_t):
     from repro_torch.core.controller_torch import _objective_scalars
 
-    td = c["td"]
-    return ((td.terminal, td.depth, td.acc, td.cost, td.lat, td.subtree_size,
-             td.path_models, td.path_counts, td.engine_of_model, c["t_roots"],
-             c["t_el"], c["t_ec"], c["t_delays"], *_objective_scalars(obj)),
+    return ((*_plan_tensors(c), *_objective_scalars(obj)),
             dict(kind=obj.kind, blocked_depth=bd_t))
 
 
@@ -287,15 +335,59 @@ def _plan_work(c, obj):
     return float(nbytes), ops
 
 
+def _trie_plans(tmod, B, N, sms):
+    """The plan `split_plan` picks, then the plans its rule passes over:
+    no slices, half and twice its slices, each at 1, 4 and 8 lanes a
+    block."""
+    chosen = tmod.split_plan(B, N, sms)
+    plans = [chosen]
+    for s in sorted({1, max(1, chosen.splits // 2),
+                     min(tmod.MAX_SPLITS, 2 * chosen.splits)}):
+        for lanes in (1, 4, 8):
+            if tmod.Plan(s, lanes) not in plans:
+                plans.append(tmod.Plan(s, lanes))
+    return plans
+
+
+def _plan_launch(c, obj, plan):
+    """A call that launches the kernel with ``plan`` on case ``c``'s lanes
+    (no blocked column) and returns (targets, next models)."""
+    import torch
+
+    from repro_torch.core.controller_torch import _objective_scalars
+    from repro_torch.kernels import trie_plan as tmod
+
+    t = _plan_tensors(c)
+    launch = tmod.bind(*t[:11], t[12], *_objective_scalars(obj),
+                       kind=obj.kind, plan=plan)
+
+    def run():
+        out = torch.empty(2, len(c["roots"]), dtype=torch.int32,
+                          device="cuda")
+        launch(out)
+        return out[0], out[1]
+
+    return run
+
+
 def check_trie_plan(rec):
+    """The replan kernel at every shape of `PLAN_SHAPES`: exact against the
+    plain blocked and dense versions and the host `select_path`, for both
+    objectives, with and without a blocked column; timed warm and cold in
+    L2 (the cold graph calls once per copy of over 64 MB of the trie's
+    columns and the lanes' operands), beside the plain blocked version."""
     import torch
 
     from repro_torch.kernels import ref
+    from repro_torch.kernels import trie_plan as tmod
     from repro_torch.kernels.trie_plan import fleet_plan_blocked, trie_plan_cuda
 
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     err = 0.0
-    for name, lanes in (("nl2sql_2", N_REQUESTS), ("mathqa_4", 64)):
-        c = _plan_case(name, lanes, seed=lanes)
+    for label, name, lanes, prefixes in PLAN_SHAPES:
+        c = _plan_case(name, lanes, seed=lanes, prefixes=prefixes)
+        N = c["trie"].n_nodes
+        where = f"trie_plan {label} ({name} N={N} B={lanes})"
         bd = _blocked_column(c["td"], int(c["td"].engine_of_model[-1]))
         assert bd.max() > 0
         for obj in c["objs"]:
@@ -303,42 +395,74 @@ def check_trie_plan(rec):
                 bd_t = None if blocked is None else \
                     torch.from_numpy(blocked).cuda()
                 a, kw = _plan_args(c, obj, bd_t)
-                got = trie_plan_cuda(*a, **kw)
                 plain = fleet_plan_blocked(*a, **kw)
                 dense = ref.fleet_plan(*a[:7], *a[8:], **kw)
                 host = _host_plan(c["trie"], c["ann"], obj, c["roots"],
                                   c["el"], c["delays"], c["engines"], blocked)
+                got = trie_plan_cuda(*a, **kw)
                 for want, what in ((plain, "plain blocked"),
                                    (dense, "plain dense")):
                     for x, y in zip(got, want):
                         if not torch.equal(x, y):
-                            raise AssertionError(f"trie_plan {name} "
-                                                 f"{obj.kind} != {what}")
+                            raise AssertionError(f"{where} {obj.kind} != "
+                                                 f"{what}")
                 if not (np.array_equal(got[0].cpu().numpy(), host[0]) and
                         np.array_equal(got[1].cpu().numpy(), host[1])):
-                    raise AssertionError(f"trie_plan {name} {obj.kind} != "
-                                         f"host select_path")
-                feas = int((got[0] >= 0).sum())
-                log(f"  trie_plan {name} N={c['trie'].n_nodes} B={lanes} "
-                    f"{obj.kind} blocked={blocked is not None}: exact "
-                    f"(feasible lanes {feas})")
+                    raise AssertionError(f"{where} {obj.kind} != host "
+                                         f"select_path")
                 err = max(err, max_err(got[0], plain[0]))
+                log(f"  {where} {obj.kind} blocked={blocked is not None}: "
+                    f"exact (feasible lanes {int((plain[0] >= 0).sum())})")
         obj = c["objs"][0]
         a, kw = _plan_args(c, obj, None)
+        # counts rows off their 16-byte alignment (an offset view) take the
+        # kernel's generic path, the one for pool widths other than 2, 4, 8
+        counts = c["td"].path_counts
+        odd = torch.empty(counts.numel() + 1, device="cuda")[1:]
+        odd = odd.view_as(counts).copy_(counts)
+        b = (*a[:7], odd, *a[8:])
+        if not all(torch.equal(x, y) for x, y in zip(
+                trie_plan_cuda(*b, **kw), fleet_plan_blocked(*b, **kw))):
+            raise AssertionError(f"{where}: the generic path != plain")
+        log(f"  {where} max_acc, counts rows unaligned (generic path): exact")
+        scalars = a[len(_plan_tensors(c)):]
+        cold = cold_inputs(*_plan_tensors(c))
         ms = graph_ms(lambda: trie_plan_cuda(*a, **kw))
+        cold_ms = graph_ms(lambda *t: trie_plan_cuda(*t, *scalars, **kw),
+                           inputs=cold)
+        del cold
         plain_ms = graph_ms(lambda: fleet_plan_blocked(*a, **kw))
-        nbytes, ops = _plan_work(c, obj)
-        b_ms, b_by = bound(nbytes, ops, F32_OPS)
-        log(f"  trie_plan {name} B={lanes}: kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by})")
-        rec.setdefault("timing_cases", {})[f"trie_plan {name} B={lanes}"] = \
-            dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
-        if name == "nl2sql_2":  # the main path's shape
+        b_ms, b_by = bound(*_plan_work(c, obj), F32_OPS)
+        split = tmod.split_plan(lanes, N, sms)
+        # every plan the rule weighs, each exact and timed warm
+        want = fleet_plan_blocked(*a, **kw)
+        plans = []
+        for p in _trie_plans(tmod, lanes, N, sms):
+            run = _plan_launch(c, obj, p)
+            got = run()
+            if not all(torch.equal(x, y) for x, y in zip(got, want)):
+                raise AssertionError(f"{where} plan {p} != plain blocked")
+            p_ms = graph_ms(run)
+            plans.append(dict(plan=p._asdict(), ms=p_ms))
+            log(f"    plan {p.splits} split(s), {p.lanes_per_block} lanes a "
+                f"block: {p_ms:.4f} ms, exact"
+                f"{' (chosen)' if p == split else ''}")
+        rec.setdefault("timing_cases", {})[f"trie_plan {label}"] = dict(
+            ms=ms, cold_ms=cold_ms, plain_ms=plain_ms,
+            bound_ms=b_ms, bound_by=b_by, library_ms=None, preset=name,
+            nodes=N, lanes=lanes, prefixes=prefixes, plan=split._asdict(),
+            plans=plans)
+        log(f"  {where}, {prefixes} prefixes ({split.splits} split(s), "
+            f"{split.lanes_per_block} lanes a block): kernel {ms:.4f} ms "
+            f"(cold L2 {cold_ms:.4f}), plain {plain_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by}; a launch in "
+            f"a graph alone takes ~0.0017)")
+        if label == "served":  # the main path's shape
             rec["kernels"]["trie_plan"] = dict(
-                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by, library_ms=None, tol=0.0)
+                ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None, tol=0.0)
     rec["kernels"]["trie_plan"]["max_abs_err"] = err
-    log(f"trie_plan: exact against plain versions and host, tol 0")
+    log("trie_plan: exact against the plain versions and the host at every "
+        "shape, tol 0")
 
 
 def _attn_pairs(Sq, Sk, causal, window):
@@ -377,7 +501,7 @@ def check_flash(rec):
             e = check_close("flash_attention", out, want, tol)
             err = max(err, e)
             log(f"  flash_attention {arch} {str(dt)[6:]} (1,{H},{S},{D}) kv "
-                f"{KV} window={window}: max abs err {e:.3g} (tol {tol})")
+                f"{KV} window={window}: {err_str(out, want, tol)}")
             if dt != torch.bfloat16 or S != PROMPT or window:
                 continue
             ms = graph_ms(lambda: flash_attention(q, k, v, causal=True))
@@ -457,7 +581,7 @@ def check_decode(rec):
                             q.shape[2], sms, itemsize=q.element_size())
         log(f"  decode_attention {label} {str(q.dtype)[6:]} q "
             f"{tuple(q.shape)} kv {kc.shape[1]} S={kc.shape[2]} window={w}"
-            f" ({_plan_str(p)}): max abs err {e:.3g} (tol {tol})")
+            f" ({_plan_str(p)}): {err_str(out, want, tol)}")
         return e, p
 
     for dt, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, F32_TOL)):
@@ -572,10 +696,10 @@ def check_rms_norm(rec):
         s = torch.rand(D, generator=g, device="cuda") + 0.5
         out = rms_norm(x, s)
         torch.cuda.synchronize()
-        e = check_close("rms_norm", out, ref.rms_norm(x, s), tol)
-        err = max(err, e)
-        log(f"  rms_norm {str(dt)[6:]} ({rows},{D}): max abs err "
-            f"{e:.3g} (tol {tol})")
+        want = ref.rms_norm(x, s)
+        err = max(err, check_close("rms_norm", out, want, tol))
+        log(f"  rms_norm {str(dt)[6:]} ({rows},{D}): "
+            f"{err_str(out, want, tol)}")
         if dt != torch.bfloat16 or D == 100 or (rows == PROMPT and D != 4096):
             continue
         sb = s.to(dt)
@@ -690,11 +814,11 @@ def check_ssd_scan(rec):
             tol = BF16_TOL if dt_ == torch.bfloat16 else SSD_F32_TOL
             y, yw = (got[0], want[0]) if final else (got, want)
             e = check_close("ssd_scan y", y, yw, tol)
-            msg = f"y max abs err {e:.3g} (tol {tol})"
+            msg = f"y {err_str(y, yw, tol)}"
             if final:
                 es = check_close("ssd_scan state", got[1], want[1],
                                  SSD_STATE_TOL)
-                msg += f", state {es:.3g} (tol {SSD_STATE_TOL})"
+                msg += f"; state {err_str(got[1], want[1], SSD_STATE_TOL)}"
                 e = max(e, es)
             err = max(err, e)
             log(f"  ssd_scan {arch} {str(dt_)[6:]} x (1,{S},{Hn},{P}) N {N} "
@@ -1057,7 +1181,8 @@ def _serve_cohort(path, engines, cohort, rec, args):
     log(f"fleet rounds {stats.rounds}, replan ms per round "
         f"{[round(x * 1e3, 3) for x in stats.replan_s_per_round]}, "
         f"active per round {stats.active_per_round}")
-    out = {"launches": launches, "wall_s": wall, "engines": {}}
+    out = {"launches": launches, "wall_s": wall, "engines": {},
+           "replan_s_per_round": list(stats.replan_s_per_round)}
     for e, t in tel.items():
         L = engines[e].model.cfg.n_layers
         if not t["prefill_s"]:
@@ -1080,6 +1205,61 @@ def _serve_cohort(path, engines, cohort, rec, args):
     if "profile" in args.phases.split(","):
         for ename, eng in sorted(engines.items()):
             _profile_generate(f"{path} {ename}", eng, rec)
+
+
+def _profile_round(cohort):
+    """After the last serve phase, since a profiler session leaves later
+    launches slower: one round of the cohort's fleet replan, as `run_fleet` makes it (the
+    planner's step on 16 lanes at the root, then one copy of the plan
+    back), under `torch.profiler`: its device work must be one trie_plan
+    kernel, one host-to-device copy and one device-to-host copy, and
+    nothing else (no fill).  The window idles 10 ms on either side of the
+    round, so the profiler's start and stop cannot cut it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.controller_torch import (TrieDevice,
+                                                   make_fleet_planner,
+                                                   trie_engines)
+
+    tpl, trie, wl, ann, obj, reqs = cohort
+    step = make_fleet_planner(TrieDevice.build(trie, ann, device="cuda"),
+                              obj)
+    B, E = len(reqs), len(trie_engines(tpl))
+    lanes = (np.zeros(B, np.int32), np.zeros(B, np.float32),
+             np.zeros(B, np.float32), np.zeros((B, E), np.float32))
+    step(*lanes).cpu()  # the planner's buffers are made outside the window
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        time.sleep(0.01)
+        step(*lanes).cpu().numpy()
+        time.sleep(0.01)
+    ops = [e.name for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    kinds = {"trie_plan kernel": [n for n in ops if "trie_plan" in n],
+             "host-to-device copy": [n for n in ops if "HtoD" in n],
+             "device-to-host copy": [n for n in ops if "DtoH" in n]}
+    other = [n for n in ops if not any(n in v for v in kinds.values())]
+    log(f"  one fleet round under torch.profiler: "
+        + ", ".join(f"{len(v)} {k}" for k, v in kinds.items())
+        + f", {len(other)} other device operations {other}")
+    if any(len(v) != 1 for v in kinds.values()) or other:
+        raise AssertionError(f"a fleet round's device work is not one "
+                             f"kernel and two copies: {ops}")
+
+
+def _replan_summary(rec):
+    """The serve phases' replan wall time per fleet round, in µs."""
+    rounds = [x for p in rec["paths"].values()
+              for x in p["replan_s_per_round"]]
+    us = np.array(rounds) * 1e6
+    rec["replan_us_per_round"] = dict(
+        rounds=len(us), median=float(np.median(us)), min=float(us.min()),
+        max=float(us.max()))
+    log(f"replan per fleet round over the serve phases: median "
+        f"{np.median(us):.1f} us (min {us.min():.1f}, max {us.max():.1f}) "
+        f"over {len(us)} rounds")
 
 
 def _engine(tpl, ename, cfg, seed):
@@ -1133,6 +1313,9 @@ def phase_serve(args, rec):
         f"{time.perf_counter() - t0:.1f} s")
     _model_check(engines["engine-a"].model, rec, "yi-9b engine-a", 100)
     _serve_cohort("yi-9b", engines, cohort, rec, args)
+    if "serve-ssm" not in args.phases.split(","):
+        _replan_summary(rec)
+        _profile_round(cohort)
 
 
 def phase_serve_ssm(args, rec):
@@ -1156,6 +1339,8 @@ def phase_serve_ssm(args, rec):
                      f" layers", 300)
         del small
     _serve_cohort("ssm", engines, cohort, rec, args)
+    _replan_summary(rec)
+    _profile_round(cohort)
 
 
 PHASES = {"device": phase_device, "kernels": phase_kernels,

@@ -140,26 +140,91 @@ def _objective_scalars(obj: Objective):
     return float(acc_floor), float(cost_cap), float(lat_cap)
 
 
-def _plan(td: TrieDevice, prefixes, elapsed_lat, elapsed_cost, delays,
-          blocked, scalars, *, kind, variant):
-    """Upload one batch of host lane state and run the replan."""
-    n = td.terminal.shape[0]
-    prefixes = np.asarray(prefixes, dtype=np.int32)
-    if prefixes.size and (prefixes.min() < 0 or prefixes.max() >= n):
-        raise ValueError(f"prefix nodes must lie in [0, {n})")
-    dev = td.device
+class LanePlanner:
+    """The launch path of one replan: host lane state in, (2, B) plan out.
 
-    def lanes(a, dtype):
-        return torch.from_numpy(np.ascontiguousarray(a, dtype=dtype)).to(dev)
+    A call packs the lane operands into one reused host buffer (pinned
+    when the trie lies on a CUDA device) as contiguous column blocks:
+    prefixes int32, elapsed latency float32, the (B, E) delays float32
+    and, when given, the blocked column.  One copy takes the buffer to one
+    device buffer whose slices the replan reads, and the replan writes
+    (targets, next_models) into the rows of one (2, B) int32 tensor, so a
+    fleet round costs one copy in, the kernel and one copy out.  The copy
+    in returns when it is done, so the next call may refill the host
+    buffer at once (a non-blocking one would need an event to guard the
+    buffer, for a copy of a few hundred bytes).  Elapsed cost is accepted
+    and not uploaded (the cost budget is expectation-based: no variant
+    reads it), and "no blocked column" is a null column, not a fill.  The
+    slices and the bound replan (`ops.bind_trie_plan`) are made once for
+    each (B, E, blocked or not) and reused, so a round runs few host
+    calls."""
 
-    bd = torch.zeros_like(td.depth) if blocked is None \
-        else lanes(blocked, np.float32)
-    return kernel_ops.trie_plan(
-        td.terminal, td.depth, td.acc, td.cost, td.lat, td.subtree_size,
-        td.path_models, td.path_counts, td.engine_of_model,
-        lanes(prefixes, np.int32), lanes(elapsed_lat, np.float32),
-        lanes(elapsed_cost, np.float32), lanes(delays, np.float32),
-        *scalars, kind=kind, variant=variant, blocked_depth=bd)
+    def __init__(self, td: TrieDevice, obj: Objective,
+                 variant: str | None = None):
+        self.td = td
+        self.kind = obj.kind
+        self.scalars = _objective_scalars(obj)
+        self.variant = _resolve_variant(variant, td.device)
+        self._pinned = td.device.type == "cuda"
+        self._host = self._dev = None
+        self._layouts: dict = {}
+
+    def _layout(self, b: int, e: int, blocked: bool):
+        """(host words as numpy, host slice, device slice, the bound
+        replan) for this shape."""
+        key = (b, e, blocked)
+        if key in self._layouts:
+            return self._layouts[key]
+        n = self.td.terminal.shape[0]
+        words = b * (2 + e) + (n if blocked else 0)
+        if self._host is None or self._host.numel() < words:
+            cap = max(words, 4096)
+            self._host = torch.empty(cap, dtype=torch.int32,
+                                     pin_memory=self._pinned)
+            self._dev = torch.empty(cap, dtype=torch.int32,
+                                    device=self.td.device) \
+                if self._pinned else self._host
+            self._layouts.clear()
+        f = self._dev[b:words].view(torch.float32)
+        td = self.td
+        launch = kernel_ops.bind_trie_plan(
+            td.terminal, td.depth, td.acc, td.cost, td.lat, td.subtree_size,
+            td.path_models, td.path_counts, td.engine_of_model,
+            self._dev[:b], f[:b], f[b:b * (1 + e)].view(b, e), *self.scalars,
+            kind=self.kind, variant=self.variant,
+            blocked_depth=f[b * (1 + e):] if blocked else None)
+        lay = (self._host.numpy()[:words], self._host[:words],
+               self._dev[:words], launch)
+        self._layouts[key] = lay
+        return lay
+
+    def __call__(self, prefixes, elapsed_lat, elapsed_cost, delays,
+                 blocked=None):
+        """(2, B) int32 tensor on the trie's device whose rows are the
+        targets and the next models (it unpacks as that pair) of B lanes
+        at ``prefixes`` with ``elapsed_lat`` spent and (B, E) live
+        ``delays``; ``blocked``, a node column, masks nodes whose path
+        meets a down engine."""
+        del elapsed_cost  # cost budgets are expectation-based
+        n = self.td.terminal.shape[0]
+        prefixes = np.asarray(prefixes)
+        delays = np.asarray(delays)
+        b, e = delays.shape
+        if prefixes.shape != (b,) or (b and (prefixes.min() < 0 or
+                                             prefixes.max() >= n)):
+            raise ValueError(f"prefix nodes must lie in [0, {n}), one a lane")
+        h, host, dev, launch = self._layout(b, e, blocked is not None)
+        f = h.view(np.float32)
+        h[:b] = prefixes
+        f[b:2 * b] = elapsed_lat
+        f[2 * b:b * (2 + e)] = delays.reshape(-1)
+        if blocked is not None:
+            f[b * (2 + e):] = blocked
+        if self._pinned:
+            dev.copy_(host)
+        out = torch.empty((2, b), dtype=torch.int32, device=self.td.device)
+        launch(out)
+        return out
 
 
 def make_batched_planner(td: TrieDevice, obj: Objective,
@@ -167,37 +232,28 @@ def make_batched_planner(td: TrieDevice, obj: Objective,
     """Returns plan(prefixes, elapsed_lat, elapsed_cost, engine_delays) ->
     best terminating node per request ((B,) int32 tensor on the device, -1
     infeasible), with one shared (E,) engine-delay vector."""
-    scalars = _objective_scalars(obj)
-    variant = _resolve_variant(variant, td.device)
+    planner = LanePlanner(td, obj, variant)
 
     def plan(prefixes, elapsed_lat, elapsed_cost, engine_delays,
              blocked=None):
         b = np.asarray(prefixes).shape[0]
         row = np.asarray(engine_delays, dtype=np.float32)
-        tgt, _ = _plan(td, prefixes, elapsed_lat, elapsed_cost,
+        return planner(prefixes, elapsed_lat, elapsed_cost,
                        np.broadcast_to(row[None, :], (b, row.shape[0])),
-                       blocked, scalars, kind=obj.kind, variant=variant)
-        return tgt
+                       blocked)[0]
 
     return plan
 
 
 def make_fleet_planner(td: TrieDevice, obj: Objective,
-                       variant: str | None = None):
-    """Returns step(prefixes, elapsed_lat, elapsed_cost, engine_delays) ->
-    (targets, next_models), the fleet runtime's one-call-per-round
-    replanner; ``engine_delays`` has shape (B, E), one live delay vector
-    per request.  Inputs are host arrays; outputs are (B,) int32 tensors
-    on the device."""
-    scalars = _objective_scalars(obj)
-    variant = _resolve_variant(variant, td.device)
-
-    def step(prefixes, elapsed_lat, elapsed_cost, engine_delays,
-             blocked=None):
-        return _plan(td, prefixes, elapsed_lat, elapsed_cost, engine_delays,
-                     blocked, scalars, kind=obj.kind, variant=variant)
-
-    return step
+                       variant: str | None = None) -> LanePlanner:
+    """The fleet runtime's one-call-per-round replanner: step(prefixes,
+    elapsed_lat, elapsed_cost, engine_delays) -> one (2, B) int32 tensor
+    on the device whose rows are the targets and the next models
+    (`LanePlanner`): it unpacks as the pair and comes back in one copy.
+    ``engine_delays`` has shape (B, E), one live delay vector per request;
+    inputs are host arrays.  ``elapsed_cost`` is accepted and not read."""
+    return LanePlanner(td, obj, variant)
 
 
 def next_model_for(trie: Trie, u: int, target: int) -> int:

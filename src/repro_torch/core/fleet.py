@@ -10,8 +10,9 @@ can see the load the others are about to place on shared engines.
 
 - per-request control state (realized prefix node, elapsed latency/cost,
   done flags) lives in arrays, not Python objects;
-- each round issues ONE batched planner call (`make_fleet_planner`, one
-  launch of the trie-replan kernel on a CUDA device) that
+- each round issues ONE batched planner call (`make_fleet_planner`: on a
+  CUDA device one copy of the packed lane state in, one launch of the
+  trie-replan kernel, one copy of the (2, B) plan out) that
   re-roots and re-solves the constrained search for every in-flight
   request AND gathers each request's next model from the device-side
   first-step table — no per-request host search, no `ancestors()` walks;
@@ -158,13 +159,11 @@ def run_fleet(
                     delays[i] = [d.get(e, 0.0) for e in engines]
 
         t0 = time.perf_counter()
-        tgts, nxts = plan_step(
-            u,
-            elapsed_lat.astype(np.float32),
-            elapsed_cost.astype(np.float32),
-            delays,
-        )
-        nxts = nxts.cpu().numpy()  # waits until the round is done on the device
+        plan = plan_step(u, elapsed_lat.astype(np.float32), elapsed_cost,
+                         delays)
+        # one copy of the (2, B) plan; waits until the round is done on the
+        # device
+        _, nxts = plan.cpu().numpy()
         replan_s = time.perf_counter() - t0
 
         n_active = int(active.sum())

@@ -30,6 +30,10 @@ LAUNCHES = {"trie_plan": 0, "flash_attention": 0, "decode_attention": 0,
 
 _EXT = None        # the build the wrappers launch
 _COPIES: dict = {}  # timing copies, by their macros
+# (kernel, device index) -> every arrival-counter buffer made for it, the
+# newest last: a buffer that a launch may have used is never freed, since
+# a CUDA graph captured with it replays it
+_COUNTERS: dict[tuple[str, int], list[torch.Tensor]] = {}
 
 
 def reset_launches() -> None:
@@ -41,6 +45,18 @@ def reset_launches() -> None:
 def count_launch(name: str) -> None:
     """Record one launch of kernel ``name`` (called by its wrapper only)."""
     LAUNCHES[name] += 1
+
+
+def counters(name: str, device: torch.device, n: int) -> torch.Tensor:
+    """At least ``n`` arrival counters of kernel ``name`` on ``device``,
+    zeroed once when made: every launch of that kernel leaves them at 0
+    (the last block or warp to arrive resets its counter).  Launches that
+    share them run in stream order (one stream a device)."""
+    bufs = _COUNTERS.setdefault((name, device.index), [])
+    if not bufs or bufs[-1].numel() < n:
+        bufs.append(torch.zeros(max(n, 1024), dtype=torch.int32,
+                                device=device))
+    return bufs[-1]
 
 
 def extension(verbose: bool = False, defines: tuple = ()):

@@ -15,7 +15,7 @@ int repro_trie_plan(const void*, const void*, const void*, const void*,
                     const void*, const void*, const void*, const void*,
                     const void*, const void*, const void*, const void*,
                     const void*, int, int, int, int, int, float, float, float,
-                    int, void*, void*, void*);
+                    int, int, int, void*, void*, void*, void*, void*);
 int repro_flash_attention(const void*, const void*, const void*, void*, int,
                           int, int, int, int, int, float, int, int, int,
                           void*);
@@ -51,13 +51,17 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
         [](ptr terminal, ptr depth, ptr acc, ptr cost, ptr lat, ptr blocked,
            ptr subtree, ptr counts, ptr path_models, ptr eom, ptr prefixes,
            ptr elapsed_lat, ptr delays, int N, int M, int Dmax, int E, int B,
-           float floor_eff, float cap_eff, float lat_cap, int kind, ptr tgt,
+           float floor_eff, float cap_eff, float lat_cap, int kind,
+           int splits, int lanes_per_block, ptr ws, ptr counters, ptr tgt,
            ptr nxt, ptr stream) {
           check(repro_trie_plan(P(terminal), P(depth), P(acc), P(cost), P(lat),
-                                P(blocked), P(subtree), P(counts),
-                                P(path_models), P(eom), P(prefixes),
-                                P(elapsed_lat), P(delays), N, M, Dmax, E, B,
-                                floor_eff, cap_eff, lat_cap, kind, P(tgt),
+                                blocked ? P(blocked) : nullptr, P(subtree),
+                                P(counts), P(path_models), P(eom),
+                                P(prefixes), P(elapsed_lat), P(delays), N, M,
+                                Dmax, E, B, floor_eff, cap_eff, lat_cap, kind,
+                                splits, lanes_per_block,
+                                ws ? P(ws) : nullptr,
+                                counters ? P(counters) : nullptr, P(tgt),
                                 P(nxt), P(stream)),
                 "trie_plan");
         });

@@ -115,6 +115,18 @@ inline int allow_smem(K kernel, size_t smem) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem)));
 }
 
+// Add one to a counter in global memory with release and acquire semantics
+// at device scope; returns the count before (the arrival of a split-K
+// block or a replan slice: the last to arrive merges).
+__device__ __forceinline__ int arrive_acq_rel(int* counter) {
+  int prev;
+  asm volatile("atom.add.acq_rel.gpu.s32 %0, [%1], 1;\n"
+               : "=r"(prev)
+               : "l"(counter)
+               : "memory");
+  return prev;
+}
+
 inline int launch_status() { return static_cast<int>(cudaGetLastError()); }
 
 }  // namespace repro

@@ -93,17 +93,6 @@ size_t decode_smem_bytes(int tk, int hc, int nsplit) {
          (static_cast<size_t>(hc) * D + hc * tk + 3 * hc) * sizeof(float);
 }
 
-// Add one to a counter in global memory with release and acquire semantics
-// at device scope; returns the count before.
-__device__ __forceinline__ int arrive_acq_rel(int* counter) {
-  int prev;
-  asm volatile("atom.add.acq_rel.gpu.s32 %0, [%1], 1;\n"
-               : "=r"(prev)
-               : "l"(counter)
-               : "memory");
-  return prev;
-}
-
 // Eight (bf16) or four (f32) elements of one 16-byte shared-memory load.
 __device__ __forceinline__ void load16(const __nv_bfloat16* p, float (&f)[8]) {
   const uint4 u = *reinterpret_cast<const uint4*>(p);

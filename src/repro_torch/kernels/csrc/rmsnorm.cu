@@ -148,7 +148,8 @@ extern "C" const char* repro_error_string(int code) {
   }
   if (code == repro::kStatusBadArgs) {
     return "inconsistent launch arguments (decode split, column slice or head "
-           "chunk sizes; SSD channel slice or chunk runs)";
+           "chunk sizes; SSD channel slice or chunk runs; replan sizes, "
+           "slices or lanes a block)";
   }
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

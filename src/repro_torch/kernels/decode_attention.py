@@ -16,11 +16,6 @@ MAX_SPLITS = 64   # csrc kDecodeMaxSplits: splits of the cache axis at most
 HEAD_CHUNK = 32   # csrc kDecodeHeads: query heads a block at most
 MIN_COLS = 16     # output columns a block at least
 
-# device index -> every arrival-counter buffer made for it, the newest
-# last: a buffer that a launch may have used is never freed, since a CUDA
-# graph captured with it replays it
-_COUNTERS: dict[int, list[torch.Tensor]] = {}
-
 
 class Plan(NamedTuple):
     """How a launch cuts the work: the cache axis into ``splits`` spans of
@@ -64,17 +59,6 @@ def partial_floats(hc: int, D: int) -> int:
     return -(-2 * hc // 4) * 4 + hc * D
 
 
-def _counters(device: torch.device, n: int) -> torch.Tensor:
-    """At least ``n`` of the device's arrival counters, zeroed once when
-    made: every launch leaves them at 0.  Launches that share them run in
-    stream order (one stream a device)."""
-    bufs = _COUNTERS.setdefault(device.index, [])
-    if not bufs or bufs[-1].numel() < n:
-        bufs.append(torch.zeros(max(n, 1024), dtype=torch.int32,
-                                device=device))
-    return bufs[-1]
-
-
 def decode_attention(q, k_cache, v_cache, cache_len, *, window: int = 0):
     """(B,H,D) x (B,KV,S,D)^2 with ``cache_len`` (B,) int32 -> (B,H,D) on
     the card: sequence ``b`` attends to cache slots ``[max(0, L - window),
@@ -114,7 +98,8 @@ def _launch(q, k_cache, v_cache, cache_len, window: int, plan: Plan):
                          partial_floats(plan.hc, D // plan.slices),
                          dtype=torch.float32, device=q.device)
         ws_ptr = ws.data_ptr()
-        cnt_ptr = _counters(q.device, groups).data_ptr()
+        cnt_ptr = _build.counters("decode_attention", q.device,
+                                   groups).data_ptr()
     else:
         ws_ptr = cnt_ptr = 0
     _build.extension().decode_attention(

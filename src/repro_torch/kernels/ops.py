@@ -12,6 +12,7 @@ from repro_torch.kernels.decode_attention import decode_attention as _cuda_decod
 from repro_torch.kernels.flash_attention import flash_attention as _cuda_flash
 from repro_torch.kernels.rmsnorm import rms_norm as _cuda_rmsnorm
 from repro_torch.kernels.ssd_scan import ssd_scan as _cuda_ssd
+from repro_torch.kernels.trie_plan import bind as _bind_cuda_plan
 from repro_torch.kernels.trie_plan import fleet_plan_blocked, trie_plan_cuda
 
 
@@ -97,3 +98,41 @@ def trie_plan(terminal, depth, acc, cost, lat, subtree_size, path_models,
               path_counts, engine_of_model, prefixes, elapsed_lat,
               elapsed_cost, engine_delays, acc_floor, cost_cap, lat_cap,
               kind=kind, blocked_depth=blocked_depth)
+
+
+def bind_trie_plan(terminal, depth, acc, cost, lat, subtree_size,
+                   path_models, path_counts, engine_of_model, prefixes,
+                   elapsed_lat, engine_delays, acc_floor, cost_cap, lat_cap,
+                   *, kind: str, variant: str | None = None,
+                   blocked_depth=None):
+    """`trie_plan` bound to its operands: returns ``launch(out)``, which
+    runs the replan on the operands' contents at call time and writes
+    (targets, next_models) into the rows of ``out``, a (2, B) int32
+    tensor on their device.  "cuda" checks the operands once, here
+    (`trie_plan.bind`), so a caller that rewrites them in place launches
+    again without a check; the plain variants compute and copy."""
+    if variant is None:
+        variant = default_plan_variant(prefixes.device)
+    if variant == "cuda":
+        if not prefixes.is_cuda:
+            raise ValueError("trie_plan variant 'cuda' needs CUDA tensors; "
+                             "use 'fused' or 'dense' on the CPU")
+        return _bind_cuda_plan(
+            terminal, depth, acc, cost, lat, subtree_size, path_models,
+            path_counts, engine_of_model, prefixes, elapsed_lat,
+            engine_delays, acc_floor, cost_cap, lat_cap, kind=kind,
+            blocked_depth=blocked_depth)
+    if variant not in TRIE_PLAN_VARIANTS:
+        raise ValueError(f"unknown trie_plan variant {variant!r}: "
+                         f"{TRIE_PLAN_VARIANTS}")
+
+    def launch(out):
+        tgt, nxt = trie_plan(
+            terminal, depth, acc, cost, lat, subtree_size, path_models,
+            path_counts, engine_of_model, prefixes, elapsed_lat, None,
+            engine_delays, acc_floor, cost_cap, lat_cap, kind=kind,
+            variant=variant, blocked_depth=blocked_depth)
+        out[0].copy_(tgt)
+        out[1].copy_(nxt)
+
+    return launch

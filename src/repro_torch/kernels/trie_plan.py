@@ -8,15 +8,19 @@ budget mask, takes the exact lexicographic argmin of
 for ``min_cost``, and emits ``(target, path_models[target, depth[u]])``,
 or -1.
 
-This module holds the same computation twice:
+This module holds the same computation three times:
 
 - `fleet_plan_blocked`: plain PyTorch, node tiles merged into per-lane
   running minima (`request_stats`, `_tile_lexmin_update`, `finalize` —
   the JAX helpers' counterparts);
-- `trie_plan_cuda`: the binding of `csrc/trie_plan.cu`, one thread block
-  per lane (see the note there).
+- `fleet_plan_split`: plain PyTorch cut the way the kernel cuts the work
+  (lanes in groups of ``lanes_per_block``, each lane's interval in up to
+  ``splits`` contiguous slices, the slices' partial minima merged on the
+  full key tuple);
+- `trie_plan_cuda`: the binding of `csrc/trie_plan.cu`, one warp per
+  (lane, slice) with `split_plan`'s launch plan (see the note there).
 
-Both compute the cumulative engine delay of a node as the sum over models
+All three compute the cumulative engine delay of a node as the sum over models
 ``m = 0..M-1``, left to right, of ``path_counts[v, m] * pmd[b, m]`` with
 every product and sum rounded on its own (no fused multiply-add), so the
 kernel and its plain version agree bit for bit; `repro`'s matmul form
@@ -24,6 +28,8 @@ groups the same float32 terms and agrees with both, as with the host
 `select_path`, up to the last ulp at an exact feasibility boundary.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -36,8 +42,35 @@ BIG_CUT = 1e29     # "no feasible node survived" detection threshold
 BIG_IDX = 2 ** 30  # infeasible node-index sentinel
 
 DEFAULT_BLOCK_NODES = 512
-MAX_MODELS = 64    # model-pool width the CUDA kernel keeps in shared memory
+MAX_MODELS = 64    # model-pool width the CUDA kernel takes
 MIN_COST, MAX_ACC = 0, 1
+
+MAX_SPLITS = 64      # csrc kMaxSplits: slices of a lane at most
+SLICE_NODES = 128    # csrc kSliceNodes: nodes a slice at least
+MAX_LANES_PER_BLOCK = 8  # csrc kMaxLanesPerBlock
+WARPS_PER_SM = 32    # warps a launch puts on each SM at most
+
+
+class Plan(NamedTuple):
+    """How a launch cuts the work: each lane's interval into at most
+    ``splits`` slices (one warp each), ``lanes_per_block`` lanes at one
+    slice index a block; grid (lane groups, splits)."""
+    splits: int
+    lanes_per_block: int
+
+
+def split_plan(B: int, N: int, sms: int) -> Plan:
+    """The launch plan for B lanes over a trie of N nodes on ``sms`` SMs,
+    a function of these alone (never of the prefixes, which lie on the
+    device, so the wrapper never synchronises): as many slices as a root
+    lane's N nodes fill at ``SLICE_NODES`` a slice, within ``MAX_SPLITS``
+    and ``WARPS_PER_SM`` warps an SM; then as many lanes a block, up to
+    ``MAX_LANES_PER_BLOCK``, as keep a block on every SM."""
+    b = max(B, 1)
+    splits = max(1, min(MAX_SPLITS, -(-N // SLICE_NODES),
+                        sms * WARPS_PER_SM // b))
+    lanes = max(1, min(MAX_LANES_PER_BLOCK, b * splits // sms))
+    return Plan(splits, lanes)
 
 
 def path_delay(counts, pmd):
@@ -116,11 +149,20 @@ def _tile_lexmin_update(carry, idx0, term_t, depth_t, acc_t, cost_t, lat_t,
     col = du.long().clamp(max=pm_t.shape[1] - 1)
     nxt_t = pm_t[row, col]
 
+    return _merge(carry, (m1, m2, m3, li, nxt_t))
+
+
+def _merge(carry, cand):
+    """Per lane, the lexicographically smaller of two running minima
+    (k1, k2, k3, idx, first step), compared on the full key tuple: the
+    lower node index wins an exact tie of the keys."""
+    bk1, bk2, bk3, bidx, bnxt = carry
+    m1, m2, m3, li, nxt = cand
     better = (m1 < bk1) | ((m1 == bk1) & ((m2 < bk2) | ((m2 == bk2) & (
         (m3 < bk3) | ((m3 == bk3) & (li < bidx))))))
     return (torch.where(better, m1, bk1), torch.where(better, m2, bk2),
             torch.where(better, m3, bk3), torch.where(better, li, bidx),
-            torch.where(better, nxt_t, bnxt))
+            torch.where(better, nxt, bnxt))
 
 
 def finalize(carry, lo):
@@ -129,6 +171,15 @@ def finalize(carry, lo):
     tgt = torch.where(bk1 >= BIG_CUT, -1, bidx).to(torch.int32)
     nxt = torch.where((tgt < 0) | (tgt == lo), -1, bnxt).to(torch.int32)
     return tgt, nxt
+
+
+def _empty_carry(bsz: int, dev):
+    """Running minima of ``bsz`` lanes before any node: every key BIG."""
+    return (torch.full((bsz,), BIG, device=dev),
+            torch.full((bsz,), BIG, device=dev),
+            torch.full((bsz,), BIG, device=dev),
+            torch.full((bsz,), BIG_IDX, dtype=torch.int32, device=dev),
+            torch.full((bsz,), -1, dtype=torch.int32, device=dev))
 
 
 def fleet_plan_blocked(terminal, depth, acc, cost, lat, subtree_size,
@@ -143,18 +194,12 @@ def fleet_plan_blocked(terminal, depth, acc, cost, lat, subtree_size,
     if blocked_depth is None:
         blocked_depth = torch.zeros_like(terminal)
     n = terminal.shape[0]
-    bsz = prefixes.shape[0]
     if n <= 4 * block_nodes:  # small tries are one tile
         block_nodes = n
     stats = request_stats(depth, cost, lat, subtree_size, path_counts,
                           engine_of_model, prefixes, elapsed_lat,
                           engine_delays, lat_cap, cost_cap, acc_floor)
-    dev = terminal.device
-    carry = (torch.full((bsz,), BIG, device=dev),
-             torch.full((bsz,), BIG, device=dev),
-             torch.full((bsz,), BIG, device=dev),
-             torch.full((bsz,), BIG_IDX, dtype=torch.int32, device=dev),
-             torch.full((bsz,), -1, dtype=torch.int32, device=dev))
+    carry = _empty_carry(prefixes.shape[0], terminal.device)
     for s in range(0, n, block_nodes):
         t = slice(s, min(s + block_nodes, n))
         carry = _tile_lexmin_update(
@@ -162,6 +207,53 @@ def fleet_plan_blocked(terminal, depth, acc, cost, lat, subtree_size,
             path_counts[t], path_models[t], blocked_depth[t], *stats,
             kind=kind)
     return finalize(carry, stats[0])
+
+
+def fleet_plan_split(terminal, depth, acc, cost, lat, subtree_size,
+                     path_models, path_counts, engine_of_model, prefixes,
+                     elapsed_lat, elapsed_cost, engine_delays, acc_floor,
+                     cost_cap, lat_cap, *, kind: str, blocked_depth=None,
+                     splits: int = 1, lanes_per_block: int = 1,
+                     slice_nodes: int = SLICE_NODES):
+    """The kernel's decomposition in plain PyTorch: (targets,
+    next_models), the contract of `fleet_plan_blocked`.
+
+    Lanes go in groups of ``lanes_per_block`` (a block).  A lane whose
+    interval holds L nodes takes ``n = min(splits, ceil(L / slice_nodes))``
+    contiguous slices ``[lo + L*s // n, lo + L*(s+1) // n)``; each slice's
+    partial minimum and its first step (a warp's) merge into the lane's
+    result on the full key tuple, slice 0 first, as `csrc/trie_plan.cu`
+    merges them (in any order: the tuple's order is total).
+    ``slice_nodes`` is the kernel's ``SLICE_NODES``; a smaller one cuts
+    small tries into many slices."""
+    del elapsed_cost
+    if blocked_depth is None:
+        blocked_depth = torch.zeros_like(terminal)
+    if splits < 1 or lanes_per_block < 1:
+        raise ValueError("fleet_plan_split: splits and lanes_per_block must "
+                         "be at least 1")
+    bsz, dev = prefixes.shape[0], terminal.device
+    tgt = torch.empty(bsz, dtype=torch.int32, device=dev)
+    nxt = torch.empty_like(tgt)
+    for g in range(0, bsz, lanes_per_block):
+        lanes = slice(g, min(g + lanes_per_block, bsz))
+        stats = request_stats(depth, cost, lat, subtree_size, path_counts,
+                              engine_of_model, prefixes[lanes],
+                              elapsed_lat[lanes], engine_delays[lanes],
+                              lat_cap, cost_cap, acc_floor)
+        lo, size = stats[0].long(), (stats[1] - stats[0]).long()
+        n = torch.clamp(-(-size // slice_nodes), max=splits)  # csrc nslices
+        carry = _empty_carry(lo.shape[0], dev)
+        for s in range(splits):
+            a = lo + size * s // n
+            e = torch.where(s < n, lo + size * (s + 1) // n, a)
+            part = _tile_lexmin_update(
+                _empty_carry(lo.shape[0], dev), 0, terminal, depth, acc,
+                cost, lat, path_counts, path_models, blocked_depth,
+                a.to(torch.int32), e.to(torch.int32), *stats[2:], kind=kind)
+            carry = _merge(carry, part)
+        tgt[lanes], nxt[lanes] = finalize(carry, stats[0])
+    return tgt, nxt
 
 
 def trie_plan_cuda(terminal, depth, acc, cost, lat, subtree_size,
@@ -173,12 +265,34 @@ def trie_plan_cuda(terminal, depth, acc, cost, lat, subtree_size,
     Same contract as `fleet_plan_blocked`; every operand must be a
     contiguous CUDA tensor (float32 node columns, int32 ``subtree_size``/
     ``path_models``/``engine_of_model``/``prefixes``), and every prefix a
-    node of the trie (lanes with an out-of-range prefix come back -1)."""
+    node of the trie (lanes with an out-of-range prefix come back -1).
+    ``blocked_depth=None`` reads as a zero column, with nothing filled.
+    The two outputs are the rows of one (2, B) tensor."""
     del elapsed_cost
-    if blocked_depth is None:
-        blocked_depth = torch.zeros_like(terminal)
-    cols = (terminal, depth, acc, cost, lat, blocked_depth, path_counts,
-            elapsed_lat, engine_delays)
+    launch = bind(terminal, depth, acc, cost, lat, subtree_size,
+                  path_models, path_counts, engine_of_model, prefixes,
+                  elapsed_lat, engine_delays, acc_floor, cost_cap, lat_cap,
+                  kind=kind, blocked_depth=blocked_depth)
+    out = torch.empty((2, prefixes.shape[0]), dtype=torch.int32,
+                      device=prefixes.device)
+    launch(out)
+    return out[0], out[1]
+
+
+def bind(terminal, depth, acc, cost, lat, subtree_size, path_models,
+         path_counts, engine_of_model, prefixes, elapsed_lat, engine_delays,
+         acc_floor, cost_cap, lat_cap, *, kind: str, blocked_depth=None,
+         plan: Plan | None = None):
+    """Check the replan's operands once (`trie_plan_cuda`'s rules) and
+    return ``launch(out)``, which launches the kernel on them with
+    ``plan`` (default `split_plan`'s) and writes (targets, next_models)
+    into the rows of ``out``, a contiguous (2, B) int32 tensor on their
+    device.  The operands are read at each launch, not at binding: a
+    caller that rewrites them in place (the planner's lane buffer) launches
+    again without a check."""
+    cols = (terminal, depth, acc, cost, lat, path_counts, elapsed_lat,
+            engine_delays) + (() if blocked_depth is None else
+                              (blocked_depth,))
     ints = (subtree_size, path_models, engine_of_model, prefixes)
     _build.check_cuda("trie_plan", *cols, *ints)
     if any(t.dtype != torch.float32 for t in cols) or any(
@@ -192,24 +306,42 @@ def trie_plan_cuda(terminal, depth, acc, cost, lat, subtree_size,
         raise ValueError(f"trie_plan: {m} models exceed the kernel's "
                          f"{MAX_MODELS}")
     if path_models.shape[0] != n or prefixes.shape != (bsz,) or \
-            elapsed_lat.shape != (bsz,) or engine_of_model.shape != (m,):
+            elapsed_lat.shape != (bsz,) or engine_of_model.shape != (m,) or \
+            any(t.shape != (n,) for t in (terminal, depth, acc, cost, lat,
+                                          subtree_size)) or \
+            (blocked_depth is not None and blocked_depth.shape != (n,)):
         raise ValueError("trie_plan: inconsistent operand shapes")
     if kind not in ("min_cost", "max_acc"):
         raise ValueError(f"unknown objective kind {kind!r}")
-    floor_eff, cap_eff = effective_scalars(acc_floor, cost_cap)
-    tgt = torch.empty(bsz, dtype=torch.int32, device=prefixes.device)
-    nxt = torch.empty_like(tgt)
-    if bsz == 0:
-        return tgt, nxt
-    _build.extension().trie_plan(
-        terminal.data_ptr(), depth.data_ptr(), acc.data_ptr(),
-        cost.data_ptr(), lat.data_ptr(), blocked_depth.data_ptr(),
-        subtree_size.data_ptr(), path_counts.data_ptr(),
-        path_models.data_ptr(), engine_of_model.data_ptr(),
-        prefixes.data_ptr(), elapsed_lat.data_ptr(),
-        engine_delays.data_ptr(), n, m, path_models.shape[1], e, bsz,
-        floor_eff, cap_eff, float(np.float32(lat_cap)),
-        MIN_COST if kind == "min_cost" else MAX_ACC,
-        tgt.data_ptr(), nxt.data_ptr(), _build.stream_of(prefixes))
-    _build.count_launch("trie_plan")
-    return tgt, nxt
+    if not bsz or not n:
+        return lambda out: None
+    dev = prefixes.device
+    if plan is None:
+        plan = split_plan(bsz, n, _build.sm_count(dev.index))
+    ws = cnt = None
+    if plan.splits > 1:  # partials: (k1, k2, k3, idx) and the first step
+        ws = torch.empty(5 * bsz * plan.splits, dtype=torch.int32,
+                         device=dev)
+        cnt = _build.counters("trie_plan", dev, bsz)
+    ext = _build.extension()
+    args = (terminal.data_ptr(), depth.data_ptr(), acc.data_ptr(),
+            cost.data_ptr(), lat.data_ptr(),
+            0 if blocked_depth is None else blocked_depth.data_ptr(),
+            subtree_size.data_ptr(), path_counts.data_ptr(),
+            path_models.data_ptr(), engine_of_model.data_ptr(),
+            prefixes.data_ptr(), elapsed_lat.data_ptr(),
+            engine_delays.data_ptr(), n, m, path_models.shape[1], e, bsz,
+            *effective_scalars(acc_floor, cost_cap),
+            float(np.float32(lat_cap)),
+            MIN_COST if kind == "min_cost" else MAX_ACC, plan.splits,
+            plan.lanes_per_block, 0 if ws is None else ws.data_ptr(),
+            0 if cnt is None else cnt.data_ptr())
+
+    def launch(out):
+        o = out.data_ptr()
+        ext.trie_plan(*args, o, o + 4 * bsz, _build.stream_of(prefixes))
+        _build.count_launch("trie_plan")
+
+    # the operands and the workspace live as long as the launch can run
+    launch.operands = (cols, ints, ws)
+    return launch
