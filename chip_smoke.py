@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py                       # every phase
     python3 chip_smoke.py --phases device,kernels --verbose-build
+    python3 chip_smoke.py --phases device,serve,serve-events
 
 Phases (any failure exits non-zero and prints no result):
 
@@ -18,19 +19,27 @@ Phases (any failure exits non-zero and prints no result):
                launch plan their wrappers weigh).  The replan runs at six
                shapes (`PLAN_SHAPES`, from the served cohort to 256 lanes
                on a 5461-node trie), exact against its plain versions and
-               the host search;
+               the host search, and in the event runtime's lane forms
+               (`CLASS_SHAPES`: class-shifted lanes, some at -inf, with and
+               without a blocked column);
 3. serve     — an NL2SQL-2 cohort through the fleet runtime: first with the
                workload's stage tables on "cuda" and on "cpu" (identical
                results), then served by two full-width Yi-9B engines
                (random weights from a seed; depth is the only cut): prefill
                and greedy decode for every stage the planner picks, every
                kernel's launches counted over that run;
-4. serve-ssm — the same cohort served by a full-width, full-depth
+4. serve-events — the same cohort as an open-arrival stream through the
+               event runtime on phase serve's engines (admission, priority
+               classes, preemption, an annotation swap, exploration, an
+               outage), replayed on the CPU with identical results and its
+               launches counted the same way;
+5. serve-ssm — the same cohort served by a full-width, full-depth
                Mamba2-1.3B engine (engine-a) and Zamba2-2.7B engine
                (engine-b), with their launches counted the same way; then
-               the replan's wall time per round over the serve phases and
-               one round under `torch.profiler`, which must be one kernel
-               and two copies (after the last serve phase that runs: a
+               the replan's wall time per round over the serve phases, and
+               one fleet round and one resident replan of the event runtime
+               under `torch.profiler`, each of which must be one kernel and
+               two copies (after the last serve phase that runs: a
                profiler session slows later launches).
 
 On request: `profile` traces one generate per engine after each serve
@@ -229,7 +238,8 @@ def _blocked_column(td, down_engine: int):
 
 def _host_plan(trie, ann, obj, roots, el, delays, engines, bd):
     """(targets, next models) from the host float64 `select_path`, with the
-    blocked column applied as a per-lane terminal mask."""
+    blocked column applied as a per-lane terminal mask; a lane at elapsed
+    -inf (a deadline-free class) is planned with no latency cap."""
     from repro_torch.core.controller import select_path
     from repro_torch.core.controller_torch import next_model_for
 
@@ -237,7 +247,11 @@ def _host_plan(trie, ann, obj, roots, el, delays, engines, bd):
     for i, u in enumerate(roots):
         t = trie if bd is None else dataclasses.replace(
             trie, terminal=trie.terminal & (bd <= trie.depth[u]))
-        v = select_path(t, ann, obj, root=int(u), elapsed_lat=float(el[i]),
+        free = not np.isfinite(el[i])
+        v = select_path(t, ann,
+                        dataclasses.replace(obj, lat_cap=None) if free
+                        else obj, root=int(u),
+                        elapsed_lat=0.0 if free else float(el[i]),
                         engine_delays={e: float(delays[i, j])
                                        for j, e in enumerate(engines)})
         tgt.append(v)
@@ -298,6 +312,32 @@ def _plan_case(name, lanes, seed, prefixes="random"):
                 t_roots=cuda(roots, np.int32), t_el=cuda(el, np.float32),
                 t_ec=cuda(np.zeros(lanes), np.float32),
                 t_delays=cuda(delays, np.float32))
+
+
+# the event runtime's lane forms: (label, preset, lanes).  Lanes of three
+# classes in turn: a tight deadline, none (elapsed shifted to -inf) and the
+# objective's cap, against the largest class cap, with engine 1 down
+CLASS_SHAPES = (("served, classes", "nl2sql_2", N_REQUESTS),
+                ("deep, classes", "mathqa_4", 64))
+
+
+def _class_lanes(c, obj):
+    """Case ``c``'s lanes as `run_events` feeds them to the replan under
+    priority classes: lane i of class i % 3 (deadlines: the 0.4 latency
+    quantile, none, ``obj``'s cap), its elapsed latency shifted by the
+    largest cap minus its own (-inf without one), and the objective's cap
+    replaced by that largest one.  Returns (objective, shifted elapsed)."""
+    import torch
+
+    ann, term = c["ann"], c["trie"].terminal
+    caps = (float(np.quantile(ann.lat[term], 0.4)), None, obj.lat_cap)
+    eff = max(x for x in caps if x is not None)
+    shift = np.array([-np.inf if caps[i % 3] is None else eff - caps[i % 3]
+                      for i in range(len(c["roots"]))])
+    el = (c["el"].astype(np.float64) + shift).astype(np.float32)
+    assert np.isneginf(el).any() and (el > c["el"]).any()
+    c["t_el"] = torch.from_numpy(el).cuda()
+    return dataclasses.replace(obj, lat_cap=eff), el
 
 
 def _plan_tensors(c):
@@ -460,9 +500,38 @@ def check_trie_plan(rec):
             rec["kernels"]["trie_plan"] = dict(
                 ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                 library_ms=None, tol=0.0)
+    for label, name, lanes in CLASS_SHAPES:
+        c = _plan_case(name, lanes, seed=lanes + 1)
+        where = f"trie_plan {label} ({name} N={c['trie'].n_nodes} B={lanes})"
+        bd = _blocked_column(c["td"], 1)
+        assert bd.max() > 0
+        bd_t = torch.from_numpy(bd).cuda()
+        for base in c["objs"]:
+            obj, el = _class_lanes(c, base)
+            for blocked, t in ((None, None), (bd, bd_t)):
+                a, kw = _plan_args(c, obj, t)
+                got = trie_plan_cuda(*a, **kw)
+                for want, what in ((fleet_plan_blocked(*a, **kw),
+                                    "plain blocked"),
+                                   (ref.fleet_plan(*a[:7], *a[8:], **kw),
+                                    "plain dense")):
+                    if not all(torch.equal(x, y) for x, y in zip(got, want)):
+                        raise AssertionError(f"{where} {obj.kind} != {what}")
+                host = _host_plan(c["trie"], c["ann"], obj, c["roots"], el,
+                                  c["delays"], c["engines"], blocked)
+                if not (np.array_equal(got[0].cpu().numpy(), host[0]) and
+                        np.array_equal(got[1].cpu().numpy(), host[1])):
+                    raise AssertionError(f"{where} {obj.kind} != host "
+                                         f"select_path")
+                free = np.isneginf(el)
+                log(f"  {where} {obj.kind} blocked={blocked is not None}: "
+                    f"exact ({int(free.sum())} lanes at -inf, feasible "
+                    f"lanes {int((got[0] >= 0).sum())}, of them "
+                    f"{int((got[0].cpu().numpy()[free] >= 0).sum())} at "
+                    f"-inf)")
     rec["kernels"]["trie_plan"]["max_abs_err"] = err
     log("trie_plan: exact against the plain versions and the host at every "
-        "shape, tol 0")
+        "shape and lane form, tol 0")
 
 
 def _attn_pairs(Sq, Sk, causal, window):
@@ -1125,21 +1194,12 @@ def _expected_launches(cfg, invocations: int) -> dict:
     return {k: v * invocations for k, v in per_run.items()}
 
 
-def _serve_cohort(path, engines, cohort, rec, args):
-    """Serve the NL2SQL-2 cohort through the fleet runtime on ``engines``
-    (name -> `ServingEngine`), every kernel's launches counted from zero
-    over that run alone and checked exactly against the stage
-    invocations; the readings go to ``rec["paths"][path]``."""
-    import torch
-
-    from repro_torch.core.fleet import run_fleet
-    from repro_torch.core.runtime import summarize
-    from repro_torch.kernels import _build
-
-    tpl, trie, wl, ann, obj, reqs = cohort
-    for eng in engines.values():  # warm-up: cuBLAS handles, allocator
-        eng.generate(np.zeros((1, PROMPT), np.int64), max_new=2)
-    tel = {e: {"prefill_s": [], "decode_s": []} for e in engines}
+def _engine_executor(engines, tpl, wl, tel):
+    """The stage executor of the serve phases: a real prefill of PROMPT
+    tokens (drawn from the request and the stage) and MAX_NEW greedy
+    tokens on the engine of the planned model; success from the
+    workload's stage table, the engine's cost, and ttft + decode seconds
+    as the stage latency.  Each call's timings go to ``tel``."""
 
     def executor(q, depth, model_idx, t_now=0.0):
         spec = tpl.models[model_idx]
@@ -1155,6 +1215,41 @@ def _serve_cohort(path, engines, cohort, rec, args):
         success = bool(wl.S[q, depth, model_idx])
         return success, eng.cost_of(PROMPT, out.shape[1]), ttft + dec
 
+    return executor
+
+
+def _check_engine_launches(path, launches, expect, engines, tel):
+    """Add the engines' kernel launches for the stage invocations in
+    ``tel`` to ``expect`` and raise unless ``launches`` equals it, with
+    every kernel the path should launch launched at least once."""
+    for e, t in tel.items():
+        for k, v in _expected_launches(engines[e].model.cfg,
+                                       len(t["prefill_s"])).items():
+            expect[k] += v
+    log(f"launches on the {path} path: {launches} (expected {expect})")
+    used = {k for k, v in expect.items() if v}
+    if launches != expect or any(launches[k] <= 0 for k in used):
+        raise AssertionError(f"kernel launches on the {path} path do not "
+                             f"match the stage invocations")
+
+
+def _serve_cohort(path, engines, cohort, rec, args):
+    """Serve the NL2SQL-2 cohort through the fleet runtime on ``engines``
+    (name -> `ServingEngine`), every kernel's launches counted from zero
+    over that run alone and checked exactly against the stage
+    invocations; the readings go to ``rec["paths"][path]``."""
+    import torch
+
+    from repro_torch.core.fleet import run_fleet
+    from repro_torch.core.runtime import summarize
+    from repro_torch.kernels import _build
+
+    tpl, trie, wl, ann, obj, reqs = cohort
+    for eng in engines.values():  # warm-up: cuBLAS handles, allocator
+        eng.generate(np.zeros((1, PROMPT), np.int64), max_new=2)
+    tel = {e: {"prefill_s": [], "decode_s": []} for e in engines}
+    executor = _engine_executor(engines, tpl, wl, tel)
+
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launches()
     t0 = time.perf_counter()
@@ -1165,15 +1260,7 @@ def _serve_cohort(path, engines, cohort, rec, args):
 
     expect = {k: 0 for k in launches}
     expect["trie_plan"] = stats.rounds
-    for e, t in tel.items():
-        for k, v in _expected_launches(engines[e].model.cfg,
-                                       len(t["prefill_s"])).items():
-            expect[k] += v
-    log(f"launches on the {path} path: {launches} (expected {expect})")
-    used = {k for k, v in expect.items() if v}
-    if launches != expect or any(launches[k] <= 0 for k in used):
-        raise AssertionError(f"kernel launches on the {path} path do not "
-                             f"match the stage invocations")
+    _check_engine_launches(path, launches, expect, engines, tel)
     s = summarize(results)
     log(f"served {len(results)} NL2SQL-2 requests in {wall:.2f} s: "
         + " ".join(f"{k} {v:.6g}" for k, v in s.items()))
@@ -1194,8 +1281,10 @@ def _serve_cohort(path, engines, cohort, rec, args):
             f"{len(t['prefill_s'])} invocations, prefill {PROMPT} tokens "
             f"median {pre:.2f} ms, decode median {dec:.3f} ms/token "
             f"({MAX_NEW} tokens)")
+        stage_s = float(np.median(np.add(t["prefill_s"], t["decode_s"])))
         out["engines"][e] = dict(invocations=len(t["prefill_s"]),
-                                 prefill_ms=pre, decode_ms_per_token=dec)
+                                 prefill_ms=pre, decode_ms_per_token=dec,
+                                 stage_s=stage_s)
     out["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
     log(f"torch.cuda.max_memory_allocated: "
         f"{out['max_memory_allocated_gb']:.2f} GB")
@@ -1207,33 +1296,19 @@ def _serve_cohort(path, engines, cohort, rec, args):
             _profile_generate(f"{path} {ename}", eng, rec)
 
 
-def _profile_round(cohort):
-    """After the last serve phase, since a profiler session leaves later
-    launches slower: one round of the cohort's fleet replan, as `run_fleet` makes it (the
-    planner's step on 16 lanes at the root, then one copy of the plan
-    back), under `torch.profiler`: its device work must be one trie_plan
-    kernel, one host-to-device copy and one device-to-host copy, and
-    nothing else (no fill).  The window idles 10 ms on either side of the
-    round, so the profiler's start and stop cannot cut it."""
+def _trace_one(label, fn):
+    """``fn()`` once under `torch.profiler`: its device work must be one
+    trie_plan kernel, one host-to-device copy and one device-to-host copy,
+    and nothing else (no fill).  The window idles 10 ms on either side of
+    the call, so the profiler's start and stop cannot cut it."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.core.controller_torch import (TrieDevice,
-                                                   make_fleet_planner,
-                                                   trie_engines)
-
-    tpl, trie, wl, ann, obj, reqs = cohort
-    step = make_fleet_planner(TrieDevice.build(trie, ann, device="cuda"),
-                              obj)
-    B, E = len(reqs), len(trie_engines(tpl))
-    lanes = (np.zeros(B, np.int32), np.zeros(B, np.float32),
-             np.zeros(B, np.float32), np.zeros((B, E), np.float32))
-    step(*lanes).cpu()  # the planner's buffers are made outside the window
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         time.sleep(0.01)
-        step(*lanes).cpu().numpy()
+        fn()
         time.sleep(0.01)
     ops = [e.name for e in prof.events()
            if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -1241,18 +1316,52 @@ def _profile_round(cohort):
              "host-to-device copy": [n for n in ops if "HtoD" in n],
              "device-to-host copy": [n for n in ops if "DtoH" in n]}
     other = [n for n in ops if not any(n in v for v in kinds.values())]
-    log(f"  one fleet round under torch.profiler: "
+    log(f"  {label} under torch.profiler: "
         + ", ".join(f"{len(v)} {k}" for k, v in kinds.items())
         + f", {len(other)} other device operations {other}")
     if any(len(v) != 1 for v in kinds.values()) or other:
-        raise AssertionError(f"a fleet round's device work is not one "
-                             f"kernel and two copies: {ops}")
+        raise AssertionError(f"{label}'s device work is not one kernel and "
+                             f"two copies: {ops}")
+
+
+def _profile_round(cohort, rec):
+    """After the last serve phase, since a profiler session leaves later
+    launches slower: one round of the cohort's fleet replan, as `run_fleet`
+    makes it (the planner's step on 16 lanes at the root, then one copy of
+    the plan back), and, when phase serve-events ran, one replan of its
+    resident planner (capacity lanes, class-shifted), each under
+    `torch.profiler` (`_trace_one`)."""
+    from repro_torch.core.controller_torch import (TrieDevice,
+                                                   make_fleet_planner,
+                                                   make_resident_planner,
+                                                   trie_engines)
+
+    tpl, trie, wl, ann, obj, reqs = cohort
+    td = TrieDevice.build(trie, ann, device="cuda")
+    step = make_fleet_planner(td, obj)
+    B, E = len(reqs), len(trie_engines(tpl))
+    lanes = (np.zeros(B, np.int32), np.zeros(B, np.float32),
+             np.zeros(B, np.float32), np.zeros((B, E), np.float32))
+    step(*lanes).cpu()  # the planner's buffers are made outside the window
+    _trace_one("one fleet round", lambda: step(*lanes).cpu().numpy())
+    ev = rec.get("events_planner")
+    if ev is None:
+        return
+    C = ev["capacity"]
+    planner = make_resident_planner(td, dataclasses.replace(obj, lat_cap=None),
+                                    C, lat_cap=ev["lat_cap"])
+    planner.update(np.arange(C), np.zeros(C, np.int32),
+                   np.where(np.arange(C) % 2, -np.inf, 0.0),
+                   np.zeros(C, np.float32))
+    row = np.zeros(E, np.float32)
+    planner.replan(row)  # the first replan runs outside the window
+    _trace_one("one resident replan (events)", lambda: planner.replan(row))
 
 
 def _replan_summary(rec):
     """The serve phases' replan wall time per fleet round, in µs."""
     rounds = [x for p in rec["paths"].values()
-              for x in p["replan_s_per_round"]]
+              for x in p.get("replan_s_per_round", ())]
     us = np.array(rounds) * 1e6
     rec["replan_us_per_round"] = dict(
         rounds=len(us), median=float(np.median(us)), min=float(us.min()),
@@ -1313,9 +1422,256 @@ def phase_serve(args, rec):
         f"{time.perf_counter() - t0:.1f} s")
     _model_check(engines["engine-a"].model, rec, "yi-9b engine-a", 100)
     _serve_cohort("yi-9b", engines, cohort, rec, args)
-    if "serve-ssm" not in args.phases.split(","):
-        _replan_summary(rec)
-        _profile_round(cohort)
+    if "serve-events" in args.phases.split(","):
+        rec["yi_engines"] = engines  # phase serve-events serves on them
+    _after_serving(args, rec, "serve", cohort)
+
+
+def _events_setup(cohort, engines, rec):
+    """The knobs of phase serve-events (see `phase_serve_events`)."""
+    from repro_torch.core.faults import FaultSchedule
+    from repro_torch.core.workload import SLOClass, poisson_arrivals
+    from repro_torch.serving.loadsim import EngineLoadModel, FleetLoadModel
+
+    tpl, trie, wl, ann, obj, reqs = cohort
+    served = rec["paths"]["yi-9b"]["engines"]
+    missing = [e for e in engines if e not in served]
+    if missing:
+        raise AssertionError(f"phase serve made no stage invocation on "
+                             f"{missing}: no service time to model")
+    load = FleetLoadModel(
+        engines={e: EngineLoadModel(e, concurrency=1, jitter=0.0)
+                 for e in engines},
+        mean_service_s={e: served[e]["stage_s"] for e in engines})
+    arrivals = poisson_arrivals(N_REQUESTS, rate=2.0, seed=11)
+    # class deadlines replace the objective's cap, which is dropped so the
+    # weight-1 class has none at all: its lanes reach the kernel at -inf
+    specs = (SLOClass("interactive", deadline_s=obj.lat_cap, weight=2.0),
+             SLOClass("batch", deadline_s=None, weight=1.0))
+    faults = FaultSchedule(
+        outages=(("engine-b", float(arrivals[3]), float(arrivals[10])),),
+        timeout_k=4.0)
+    return dict(
+        arrivals=arrivals, capacity=4, policy="dynamic_load_aware",
+        fleet_load=load, admission="feasibility",
+        classes=np.arange(N_REQUESTS) % 2, class_specs=specs, preempt=True,
+        annotation_schedule=[(float(arrivals[7]), ann.scaled(lat=1.3))],
+        explore=dict(epsilon=0.25, seed=5), faults=faults)
+
+
+def _counting_planners(counts):
+    """Wrap the event runtime's planner factory so each replan is counted
+    by whether it carried the blocked column, and `planner_builds()` is
+    read just after the planner is made; returns the function that
+    restores it."""
+    import repro_torch.core.events as ev
+    from repro_torch.core.controller_torch import planner_builds
+
+    real = ev.make_resident_planner
+
+    def make(*a, **kw):
+        planner = real(*a, **kw)
+        counts["builds_at_make"] = planner_builds()
+        replan = planner.replan
+
+        def counted(row, blocked=None):
+            out = replan(row, blocked=blocked)
+            counts["blocked" if blocked is not None else "open"] += 1
+            return out
+
+        planner.replan = counted
+        return planner
+
+    ev.make_resident_planner = make
+    return lambda: setattr(ev, "make_resident_planner", real)
+
+
+def _events_record(res, stats):
+    """What the CPU replay must reproduce exactly."""
+    return dict(
+        outcome=[r.outcome for r in res], models=[r.models for r in res],
+        cost=[r.total_cost for r in res], lat=[r.total_lat for r in res],
+        stage_versions=[list(map(int, v)) for v in stats.stage_versions],
+        done_t=stats.done_t.tolist(), admit_t=stats.admit_t.tolist(),
+        counts={k: getattr(stats, k) for k in (
+            "admitted", "rejected", "shed", "failed", "preemptions",
+            "resumed", "explored", "annotation_swaps", "engine_outages",
+            "engine_recoveries", "checkpointed", "timeouts", "replans",
+            "events")})
+
+
+def _us_str(xs):
+    return (f"median {np.median(xs):.1f} us (first {xs[0]:.1f}, min "
+            f"{min(xs):.1f}, max {max(xs):.1f}, n {len(xs)})")
+
+
+def _time_planner_build(cohort, obj, capacity, lat_cap, reps=20):
+    """Host wall time, in µs and synchronized, of making a resident
+    planner at the served shape (its own acc/cost/lat copies and both
+    bound layouts), of its first and of a warm replan, and of one
+    `LanePlanner` made, bound and run once against its warm round; over
+    ``reps`` fresh planners on a trie device built for the purpose."""
+    import torch
+
+    from repro_torch.core.controller_torch import (LanePlanner, TrieDevice,
+                                                   make_resident_planner)
+
+    _, trie, _, ann, _, _ = cohort
+    td = TrieDevice.build(trie, ann, device="cuda")
+    C, E = capacity, td.n_engines
+    row = np.zeros(E, np.float32)
+    u = np.zeros(C, np.int32)
+    el = np.where(np.arange(C) % 2, -np.inf, 0.0).astype(np.float32)
+    lanes = (u, el, None, np.zeros((C, E), np.float32))
+    lane_obj = dataclasses.replace(obj, lat_cap=lat_cap)
+    t = {k: [] for k in ("make", "first_replan", "warm_replan", "lane_bind",
+                         "lane_round")}
+
+    def clock(key, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        t[key].append((time.perf_counter() - t0) * 1e6)
+        return out
+
+    def bind():
+        lp = LanePlanner(td, lane_obj)
+        lp(*lanes).cpu()
+        return lp
+
+    for _ in range(reps):
+        p = clock("make", lambda: make_resident_planner(td, obj, C,
+                                                        lat_cap=lat_cap))
+        p.update(np.arange(C), u, el, np.zeros(C, np.float32))
+        clock("first_replan", lambda: p.replan(row))
+        clock("warm_replan", lambda: p.replan(row))
+        lp = clock("lane_bind", bind)
+        clock("lane_round", lambda: lp(*lanes).cpu())
+    return t
+
+
+def phase_serve_events(args, rec):
+    """The cohort as an open-arrival stream through the port's
+    `run_events` on the card, on phase serve's two Yi-9B engines: Poisson
+    arrivals (2 rps, seed 11) into 4 slots, the load-aware policy with
+    concurrency-1 engines whose service times are phase serve's median
+    stage times, the feasibility gate, two priority classes (weight 2
+    with the objective's cap as its deadline, weight 1 with none) with
+    preemption, one annotation swap (latency x 1.3) at the 8th arrival,
+    the exploration lane, and an outage of engine-b inside the run with
+    timeouts on.  The executor records every stage call; a replay of the
+    same event sequence through `run_events(device="cpu")` must give the
+    identical run.  trie_plan launches must equal the replans and the
+    engines' launches the stage invocations."""
+    import torch
+
+    from repro_torch.core.controller_torch import planner_builds
+    from repro_torch.core.events import run_events
+    from repro_torch.kernels import _build
+
+    engines = rec.get("yi_engines")
+    if engines is None:
+        raise AssertionError("phase serve-events serves on phase serve's "
+                             "engines: run it with phase serve")
+    cohort = _cohort()
+    tpl, trie, wl, ann, obj, reqs = cohort
+    kw = _events_setup(cohort, engines, rec)
+    obj_ev = dataclasses.replace(obj, lat_cap=None)
+    tel = {e: {"prefill_s": [], "decode_s": []} for e in engines}
+    execute = _engine_executor(engines, tpl, wl, tel)
+    calls = []
+
+    def recording(q, depth, model_idx, t_now=0.0):
+        out = execute(q, depth, model_idx, t_now)
+        calls.append(((int(q), int(depth), int(model_idx)), out))
+        return out
+
+    counts = {"blocked": 0, "open": 0}
+    restore = _counting_planners(counts)
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        res, stats = run_events(trie, ann, obj_ev, reqs, recording,
+                                device="cuda", **kw)
+    finally:
+        restore()
+    wall = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    builds_end = planner_builds()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    expect = {k: 0 for k in launches}
+    expect["trie_plan"] = stats.replans
+    _check_engine_launches("events", launches, expect, engines, tel)
+    if stats.annotation_swaps != 1 or stats.engine_outages != 1 or \
+            counts["blocked"] < 1:
+        raise AssertionError(
+            f"serve-events missed a path: {stats.annotation_swaps} swaps, "
+            f"{stats.engine_outages} outages, {counts['blocked']} replans "
+            f"with the blocked column")
+    if builds_end != counts["builds_at_make"]:
+        raise AssertionError(f"planner_builds grew during the run: "
+                             f"{counts['builds_at_make']} -> {builds_end}")
+    if counts["blocked"] + counts["open"] != stats.replans:
+        raise AssertionError("replans counted twice or missed")
+
+    # the same event sequence on the CPU, through the plain planner
+    replay = iter(calls)
+
+    def replaying(q, depth, model_idx, t_now=0.0):
+        key, out = next(replay)
+        if key != (int(q), int(depth), int(model_idx)):
+            raise AssertionError(f"the CPU replay asked for stage {key} "
+                                 f"as {(q, depth, model_idx)}")
+        return out
+
+    cres, cstats = run_events(trie, ann, obj_ev, reqs, replaying,
+                              device="cpu", **kw)
+    if next(replay, None) is not None:
+        raise AssertionError("the CPU replay made fewer stage calls")
+    got, want = _events_record(res, stats), _events_record(cres, cstats)
+    diff = [k for k in got if got[k] != want[k]]
+    if diff:
+        raise AssertionError(f"serve-events on the card differs from its "
+                             f"CPU replay in {diff}")
+
+    smi = rec["smi"]
+    us = np.array(stats.replan_s) * 1e6
+    fleet = np.array(rec["paths"]["yi-9b"]["replan_s_per_round"]) * 1e6
+    outcomes = {o: got["outcome"].count(o) for o in sorted(set(got["outcome"]))}
+    log(f"[{smi}] served {len(res)} NL2SQL-2 requests as an open-arrival "
+        f"stream in {wall:.2f} s wall, {stats.events} events, "
+        f"{stats.replans} replans ({counts['blocked']} with engine-b down); "
+        f"CPU replay identical")
+    log(f"[{smi}] replan per event: median {np.median(us):.1f} us (min "
+        f"{us.min():.1f}, max {us.max():.1f}) over {len(us)} replans at "
+        f"capacity {stats.capacity}; fleet round (phase serve): median "
+        f"{np.median(fleet):.1f} us (min {fleet.min():.1f}, max "
+        f"{fleet.max():.1f}) over {len(fleet)} rounds")
+    log(f"[{smi}] queue wait: mean {stats.mean_queue_wait_s:.4f} s, max "
+        f"{float(stats.queue_wait_s.max()):.4f} s (virtual)")
+    log(f"[{smi}] outcomes {outcomes}; " + ", ".join(
+        f"{k} {v}" for k, v in got["counts"].items()))
+    log(f"[{smi}] torch.cuda.max_memory_allocated: {peak_gb:.2f} GB")
+    log(f"plans: {[[tpl.models[m].name for m in r.models] for r in res]}")
+    log(f"stage versions: {got['stage_versions']}")
+    lat_cap = float(kw["class_specs"][0].deadline_s)
+    build_us = _time_planner_build(cohort, obj_ev, stats.capacity, lat_cap)
+    log(f"[{smi}] a resident planner made (own acc/cost/lat copies, both "
+        f"layouts bound): {_us_str(build_us['make'])}; its first replan "
+        f"{_us_str(build_us['first_replan'])}, a warm one "
+        f"{_us_str(build_us['warm_replan'])}; one LanePlanner made, bound "
+        f"and run once {_us_str(build_us['lane_bind'])}, a warm round "
+        f"{_us_str(build_us['lane_round'])} (host wall, synchronized)")
+    rec.setdefault("paths", {})["events"] = dict(
+        launches=launches, wall_s=wall, replan_s=list(stats.replan_s),
+        blocked_replans=counts["blocked"], counts=got["counts"],
+        outcomes=outcomes, mean_queue_wait_s=stats.mean_queue_wait_s,
+        max_memory_allocated_gb=peak_gb, planner_build_us=build_us)
+    rec["events_planner"] = dict(capacity=stats.capacity, lat_cap=lat_cap)
+    _after_serving(args, rec, "serve-events", cohort)
 
 
 def phase_serve_ssm(args, rec):
@@ -1323,6 +1679,7 @@ def phase_serve_ssm(args, rec):
 
     from repro_torch.configs import get_config
 
+    rec.pop("yi_engines", None)
     torch.cuda.empty_cache()  # the dense path's engines are gone
     cohort = _cohort()
     t0 = time.perf_counter()
@@ -1339,12 +1696,24 @@ def phase_serve_ssm(args, rec):
                      f" layers", 300)
         del small
     _serve_cohort("ssm", engines, cohort, rec, args)
-    _replan_summary(rec)
-    _profile_round(cohort)
+    _after_serving(args, rec, "serve-ssm", cohort)
 
 
 PHASES = {"device": phase_device, "kernels": phase_kernels,
-          "serve": phase_serve, "serve-ssm": phase_serve_ssm}
+          "serve": phase_serve, "serve-events": phase_serve_events,
+          "serve-ssm": phase_serve_ssm}
+SERVE_PHASES = ("serve", "serve-events", "serve-ssm")
+
+
+def _after_serving(args, rec, name, cohort):
+    """After the last serve phase that runs: the replan summary over the
+    fleet rounds and the profiled replans (a profiler session leaves
+    later launches slower, so it comes last)."""
+    phases = args.phases.split(",")
+    if any(p in phases for p in SERVE_PHASES[SERVE_PHASES.index(name) + 1:]):
+        return
+    _replan_summary(rec)
+    _profile_round(cohort, rec)
 ON_REQUEST = {"parts": phase_parts}  # run only when named
 
 

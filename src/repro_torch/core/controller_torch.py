@@ -17,8 +17,11 @@ The replan variant is an argument, never an environment variable: "cuda"
 version, the default on the CPU) or "dense" (the plain oracle).  All pick
 the identical node.
 
-`ResidentPlanner`, the admission probe and annotation versioning arrive
-with the event-driven runtime.
+The event-driven runtime plans through `ResidentPlanner`, a host mirror
+of its slot state whose every replan is one `LanePlanner` round over all
+capacity lanes.  A replan is bound to its operands once (`planner_builds`
+counts the bindings): a resident planner binds when it is made, and an
+annotation swap copies columns into its own instead of binding anew.
 """
 from __future__ import annotations
 
@@ -74,10 +77,43 @@ class TrieDevice:
     engine_of_model: torch.Tensor  # (M,) int32
     n_engines: int = 0
 
+    # annotation-version bookkeeping (online estimator refresh): plain
+    # class attributes, not dataclass fields, which instances published by
+    # `TrieAnnotator.publish` override per object
+    version = 0           # 0 = unversioned (built outside the annotator)
+    superseded_by = None  # version that replaced this device's annotations
+
     @property
     def device(self) -> torch.device:
         """The device every column lies on."""
         return self.terminal.device
+
+    def columns(self) -> tuple:
+        """The nine device columns, in `TrieDevice` field order."""
+        return (self.terminal, self.depth, self.acc, self.cost, self.lat,
+                self.subtree_size, self.path_models, self.path_counts,
+                self.engine_of_model)
+
+    def check_live(self) -> None:
+        """Raise a descriptive error once a newer published version has
+        superseded this device's annotations (`supersede`), so a stale
+        holder fails with the version API spelled out instead of planning
+        on old annotations."""
+        if self.superseded_by is not None:
+            raise RuntimeError(
+                f"TrieDevice annotation columns (version {self.version}) "
+                f"were superseded by version {self.superseded_by} when "
+                "the online annotator published a refresh.  Use the "
+                "TrieDevice returned by TrieAnnotator.publish() — and "
+                "hand it to ResidentPlanner.swap_device(new_td) — "
+                "instead of a superseded version.")
+
+    def supersede(self, new_version: int) -> None:
+        """Mark this device's annotations as replaced by ``new_version``:
+        every later `check_live` raises.  The columns themselves stay
+        allocated (torch has no buffer donation); the structural columns
+        are shared across versions."""
+        self.superseded_by = new_version
 
     @staticmethod
     def build(trie: Trie, ann: TrieAnnotations,
@@ -140,6 +176,21 @@ def _objective_scalars(obj: Objective):
     return float(acc_floor), float(cost_cap), float(lat_cap)
 
 
+_BUILDS = 0  # LanePlanner bindings made in this process
+
+
+def planner_builds() -> int:
+    """Bound replans made in this process, over every `LanePlanner`.
+
+    A binding checks the operands and fixes the launch plan once for a
+    (lanes, engines, blocked or not) shape; every later round of that
+    shape reuses it.  The event-driven runtime's planner
+    (`ResidentPlanner`) binds both of its layouts when it is made and
+    swaps annotations by copying columns, so within a run, annotation
+    swaps and refreshes included, this count stays flat."""
+    return _BUILDS
+
+
 class LanePlanner:
     """The launch path of one replan: host lane state in, (2, B) plan out.
 
@@ -172,9 +223,11 @@ class LanePlanner:
     def _layout(self, b: int, e: int, blocked: bool):
         """(host words as numpy, host slice, device slice, the bound
         replan) for this shape."""
+        global _BUILDS
         key = (b, e, blocked)
         if key in self._layouts:
             return self._layouts[key]
+        _BUILDS += 1
         n = self.td.terminal.shape[0]
         words = b * (2 + e) + (n if blocked else 0)
         if self._host is None or self._host.numel() < words:
@@ -202,22 +255,28 @@ class LanePlanner:
                  blocked=None):
         """(2, B) int32 tensor on the trie's device whose rows are the
         targets and the next models (it unpacks as that pair) of B lanes
-        at ``prefixes`` with ``elapsed_lat`` spent and (B, E) live
-        ``delays``; ``blocked``, a node column, masks nodes whose path
-        meets a down engine."""
+        at ``prefixes`` with ``elapsed_lat`` spent and live ``delays``,
+        (B, E) or one (E,) row every lane shares; ``blocked``, a node
+        column, masks nodes whose path meets a down engine."""
         del elapsed_cost  # cost budgets are expectation-based
         n = self.td.terminal.shape[0]
         prefixes = np.asarray(prefixes)
         delays = np.asarray(delays)
-        b, e = delays.shape
-        if prefixes.shape != (b,) or (b and (prefixes.min() < 0 or
-                                             prefixes.max() >= n)):
+        b = prefixes.shape[0]
+        if prefixes.ndim != 1 or delays.shape[:-1] not in ((b,), ()) or \
+                (b and (prefixes.min() < 0 or prefixes.max() >= n)):
             raise ValueError(f"prefix nodes must lie in [0, {n}), one a lane")
+        return self.round(prefixes, elapsed_lat, delays, blocked)
+
+    def round(self, prefixes, elapsed_lat, delays, blocked=None):
+        """`__call__` without its checks, for a caller that keeps its
+        lanes valid (`ResidentPlanner`)."""
+        b, e = prefixes.shape[0], delays.shape[-1]
         h, host, dev, launch = self._layout(b, e, blocked is not None)
         f = h.view(np.float32)
         h[:b] = prefixes
         f[b:2 * b] = elapsed_lat
-        f[2 * b:b * (2 + e)] = delays.reshape(-1)
+        f[2 * b:b * (2 + e)].reshape(b, e)[:] = delays
         if blocked is not None:
             f[b * (2 + e):] = blocked
         if self._pinned:
@@ -236,10 +295,7 @@ def make_batched_planner(td: TrieDevice, obj: Objective,
 
     def plan(prefixes, elapsed_lat, elapsed_cost, engine_delays,
              blocked=None):
-        b = np.asarray(prefixes).shape[0]
-        row = np.asarray(engine_delays, dtype=np.float32)
-        return planner(prefixes, elapsed_lat, elapsed_cost,
-                       np.broadcast_to(row[None, :], (b, row.shape[0])),
+        return planner(prefixes, elapsed_lat, elapsed_cost, engine_delays,
                        blocked)[0]
 
     return plan
@@ -254,6 +310,199 @@ def make_fleet_planner(td: TrieDevice, obj: Objective,
     ``engine_delays`` has shape (B, E), one live delay vector per request;
     inputs are host arrays.  ``elapsed_cost`` is accepted and not read."""
     return LanePlanner(td, obj, variant)
+
+
+def make_admission_probe(td: TrieDevice, obj: Objective,
+                         variant: str | None = None):
+    """Batched admission-feasibility probe for the load-shedding layer.
+
+    Returns feasible(prefixes, elapsed_lat, elapsed_cost, engine_delays,
+    blocked=None) -> (B,) bool numpy array: True where at least one
+    terminating plan in the request's remaining subtrie fits its
+    remaining budgets under the live (B, E) per-engine delays.  This is
+    ``targets >= 0`` of one `LanePlanner` round, the fleet planner's own
+    launch path; the event-driven runtime gets the same answer from its
+    resident planner's lanes, and this wrapper serves external gates."""
+    planner = LanePlanner(td, obj, variant)
+
+    def feasible(prefixes, elapsed_lat, elapsed_cost, engine_delays,
+                 blocked=None):
+        if blocked is not None:
+            blocked = np.asarray(blocked, dtype=np.float32)
+        tgt = planner(np.asarray(prefixes, dtype=np.int32),
+                      np.asarray(elapsed_lat, dtype=np.float32),
+                      elapsed_cost,
+                      np.asarray(engine_delays, dtype=np.float32),
+                      blocked)[0]
+        return tgt.cpu().numpy() >= 0
+
+    return feasible
+
+
+class ResidentPlanner:
+    """Fleet replanner of the event-driven runtime (`core.events`).
+
+    The event loop holds the authoritative per-slot control state on the
+    host and mirrors the lanes each event touches into this planner with
+    `update`; `replan` then plans every capacity lane at once.  The slot
+    state (prefix int32, elapsed latency and cost float32, ``capacity``
+    lanes) is a host mirror, so a replan is one `LanePlanner` round: the
+    C lanes and the delay row, broadcast on the host, go to the device in
+    one copy, the replan runs once, and the (2, C) plan comes back in one
+    copy.  Lanes not updated since their last replan keep their old
+    values; the loop reads only lanes it just updated, so that is never
+    observable, and the lanes it reads hold exactly what `repro`'s
+    scattered device buffers hold, since both receive the same updates.
+
+    Per-slot deadlines (priority classes) ride on the lanes: ``lat_cap``
+    overrides the objective's latency cap with the *largest* class
+    deadline, and the caller shifts each lane's elapsed latency by
+    ``lat_cap - class_deadline`` (``-inf`` for deadline-free classes), so
+    the replan's ``d_lat <= lat_cap - elapsed`` test holds every lane to
+    its own deadline.
+
+    The planner owns copies of the acc, cost and lat columns and binds its
+    two layouts (with and without the blocked column) to them when it is
+    made, so no replan binds.  `swap_device` copies a re-annotated
+    device's acc/cost/lat into those columns, so a swap binds nothing
+    either (`planner_builds`).
+    ``mesh`` (lane-sharded planning across devices) is not ported yet.
+    """
+
+    def __init__(self, td: TrieDevice, obj: Objective, capacity: int,
+                 variant: str | None = None, lat_cap: float | None = None,
+                 mesh=None):
+        if mesh is not None:
+            raise NotImplementedError(
+                "lane-sharded resident planning (mesh=) is not ported yet: "
+                "ROADMAP.md queue 1 item 6")
+        self.capacity = int(capacity)
+        if self.capacity < 1:
+            raise ValueError("capacity must be >= 1")
+        if lat_cap is not None:
+            obj = dataclasses.replace(obj, lat_cap=float(lat_cap))
+        self._td = td
+        own = dataclasses.replace(td, acc=td.acc.clone(),
+                                  cost=td.cost.clone(), lat=td.lat.clone())
+        self._lanes = LanePlanner(own, obj, variant)
+        # the blocked layout first: it sizes the shared lane buffer, so
+        # binding the unblocked one after it never reallocates
+        self._lanes._layout(self.capacity, td.n_engines, True)
+        self._lanes._layout(self.capacity, td.n_engines, False)
+        self.variant = self._lanes.variant
+        self._scalars = self._lanes.scalars
+        self._n_engines = td.n_engines
+        self._n = td.terminal.shape[0]
+        self._materialize()
+
+    def _materialize(self) -> None:
+        c = self.capacity
+        self._u = np.zeros(c, dtype=np.int32)
+        self._el = np.zeros(c, dtype=np.float32)
+        self._ec = np.zeros(c, dtype=np.float32)
+
+    def _check_live(self) -> None:
+        self._td.check_live()  # superseded annotation versions fail loudly
+
+    def reset(self) -> None:
+        """Zero every slot lane (the loop re-mirrors each lane it reads
+        before reading it, so serving resumes correctly)."""
+        self._materialize()
+
+    @property
+    def device_version(self) -> int:
+        """Annotation version of the trie device currently planned
+        against (0 when the device was built outside the annotator)."""
+        return self._td.version
+
+    @property
+    def scalars(self):
+        """The objective scalars ``(acc_floor, cost_cap, lat_cap)``
+        (float32 values) every replan is fed — under per-class deadline
+        serving ``lat_cap`` is the largest finite class cap.  Host-side
+        guards (the exploration lane's float32 feasibility check in
+        `core.events`) read these to reproduce the device arithmetic."""
+        return self._scalars
+
+    def swap_device(self, td: TrieDevice) -> TrieDevice:
+        """Swap in a re-annotated `TrieDevice` (online estimator refresh).
+
+        The new device must have the identical column structure (same
+        trie, annotations only: shapes, dtypes, device); its acc, cost
+        and lat are copied into the columns the bound launch reads, so
+        the swap binds nothing new.  Returns the device swapped out."""
+        old_sig = [(tuple(c.shape), c.dtype, c.device)
+                   for c in self._td.columns()]
+        new_sig = [(tuple(c.shape), c.dtype, c.device) for c in td.columns()]
+        if old_sig != new_sig or td.n_engines != self._td.n_engines:
+            raise ValueError(
+                "swap_device requires a TrieDevice with the identical "
+                "column structure (same trie, annotations only) — a "
+                f"structure change would need a new binding. got {new_sig} "
+                f"/ {td.n_engines} engines, expected {old_sig} / "
+                f"{self._td.n_engines} engines")
+        td.check_live()
+        old = self._td
+        self._td = td
+        own = self._lanes.td
+        own.acc.copy_(td.acc)
+        own.cost.copy_(td.cost)
+        own.lat.copy_(td.lat)
+        return old
+
+    def update(self, slots, u_vals, el_vals, ec_vals) -> None:
+        """Mirror host-side state for ``slots`` into the slot lanes."""
+        self._check_live()
+        slots, u_vals = np.asarray(slots), np.asarray(u_vals)
+        if slots.size and (slots.min() < 0 or slots.max() >= self.capacity
+                           or u_vals.min() < 0 or u_vals.max() >= self._n):
+            raise ValueError(f"slots must lie in [0, {self.capacity}) and "
+                             f"prefixes in [0, {self._n})")
+        self._u[slots] = u_vals
+        self._el[slots] = el_vals
+        self._ec[slots] = ec_vals
+
+    def update_loads(self, slots, engine_ids, weights) -> None:
+        """Lane-to-engine occupancy columns of the sharded planner."""
+        raise NotImplementedError(
+            "update_loads needs the lane-sharded planner (mesh=), which "
+            "is not ported yet: ROADMAP.md queue 1 item 6")
+
+    def replan(self, delay_row,
+               blocked=None) -> tuple[np.ndarray, np.ndarray]:
+        """One replan over all capacity lanes; returns host (targets,
+        next_models), each (C,) int32.  ``delay_row`` is the (E,) shared
+        delta_e vector for this instant; ``blocked`` is the (N,)
+        ``blocked_depth`` availability column (None = every engine up)."""
+        self._check_live()
+        row = np.asarray(delay_row, dtype=np.float32)
+        if row.shape != (self._n_engines,):
+            raise ValueError(f"delay_row shape {row.shape} != "
+                             f"({self._n_engines},)")
+        if blocked is not None:
+            blocked = np.asarray(blocked, dtype=np.float32)
+        tgt, nxt = self._lanes.round(self._u, self._el, row,
+                                     blocked).cpu().numpy()
+        return tgt, nxt
+
+    def replan_coupled(self, conc, ms, hasm, blocked=None):
+        """Load-coupled replan of the sharded planner."""
+        raise NotImplementedError(
+            "replan_coupled needs the lane-sharded planner (mesh=), which "
+            "is not ported yet: ROADMAP.md queue 1 item 6")
+
+
+def make_resident_planner(td: TrieDevice, obj: Objective, capacity: int,
+                          variant: str | None = None,
+                          lat_cap: float | None = None,
+                          mesh=None) -> ResidentPlanner:
+    """Resident fleet replanner for the event-driven runtime.
+
+    ``lat_cap`` overrides the objective's latency cap with the effective
+    (largest) per-class deadline so priority classes can express per-slot
+    deadlines through elapsed-latency shifts — see `ResidentPlanner`.
+    ``mesh`` raises: lane-sharded planning is not ported yet."""
+    return ResidentPlanner(td, obj, capacity, variant, lat_cap, mesh)
 
 
 def next_model_for(trie: Trie, u: int, target: int) -> int:

@@ -33,8 +33,7 @@ planner tie-breaks exactly like the host search.
 
 Load coupling is duck-typed (`fleet_load` needs `.delays(inflight)` and
 `.slowdown(engine, n_others)`) so `core` does not depend on `serving`;
-the standard implementation is `repro.serving.loadsim.FleetLoadModel`,
-whose port arrives with the load simulator.
+the standard implementation is `serving.loadsim.FleetLoadModel`.
 """
 from __future__ import annotations
 

@@ -139,17 +139,25 @@ def run_cohort(
                  in `examples/serve_workflow.py` uses for small cohorts).
       "fleet"  — `core.fleet.run_fleet`: the whole cohort replans in
                  lockstep with one batched device planner call per round.
-      "events" — open-arrival event-driven serving (`repro.core.events`);
-                 not ported yet: it raises NotImplementedError until the
-                 events slice lands.
+      "events" — `core.events.run_events`: open-arrival event-driven
+                 serving on a virtual clock (``arrivals=``/``capacity=``);
+                 SLO latency is measured from each request's arrival,
+                 ``admission=`` selects an admission-control/load-shedding
+                 policy ("always", "feasibility", "predictive",
+                 "cost_aware", or an `core.admission.AdmissionPolicy`
+                 instance), and ``class_specs=``/``classes=``/``preempt=``
+                 enable priority-class serving (per-class deadlines and
+                 weights, weighted processor sharing, preemption).
       "auto"   — events whenever ``arrivals``/``capacity``/``admission``/
                  ``class_specs`` is given, else fleet for dynamic policies
                  on cohorts of at least 8 requests (where the batched
                  planner amortizes its call overhead), scalar otherwise.
                  The "static" policy plans once per request, so there is
                  nothing to batch.
-    The scalar and fleet paths produce identical per-request results for
-    dynamic policies; they differ only in how `replan_overhead_s` is spent.
+    The scalar, fleet, and (closed-cohort, full-capacity) events paths
+    produce identical per-request results for dynamic policies; they
+    differ only in how `replan_overhead_s` is spent and, for open
+    arrivals, in queueing delay.
     """
     dev = resolve_device(device)
     if engine not in ("auto", "fleet", "scalar", "events"):
@@ -166,10 +174,11 @@ def run_cohort(
                 len(requests) >= _FLEET_MIN_BATCH or "fleet_load" in kw)
             engine = "fleet" if use_fleet else "scalar"
     if engine == "events":
-        raise NotImplementedError(
-            "the events engine (open-arrival serving, admission, priority "
-            "classes) is not ported yet: it comes with the event-driven "
-            "runtime slice of repro_torch")
+        from repro_torch.core.events import run_events
+
+        results, _ = run_events(trie, ann, obj, requests, executor,
+                                device=dev, **kw)
+        return results
     for k in _events_kw:
         if k in kw:
             raise ValueError(

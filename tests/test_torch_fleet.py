@@ -9,6 +9,7 @@ import pytest
 
 from repro_torch.core import presets
 from repro_torch.core.controller import Objective
+from repro_torch.core.events import run_events
 from repro_torch.core.fleet import run_fleet
 from repro_torch.core.runtime import make_workload_executor, run_cohort, summarize
 from repro_torch.core.trie import Trie
@@ -64,7 +65,20 @@ def test_fleet_stats_and_plan_variants(variant):
 
 
 def test_events_engine_waits_for_its_slice():
+    """The events engine is ported: `run_cohort(engine="events")` serves
+    the closed cohort with the golden plans, and "auto" with open-arrival
+    keywords routes there."""
     tpl, trie, wl, ann, obj, reqs = _port_serve("nl2sql_2")
-    with pytest.raises(NotImplementedError, match="events"):
-        run_cohort(trie, ann, obj, reqs, make_workload_executor(wl),
-                   engine="events", device="cpu")
+    execu = make_workload_executor(wl)
+    res = run_cohort(trie, ann, obj, reqs, execu, engine="events",
+                     device="cpu")
+    assert [[tpl.models[m].name for m in r.models] for r in res] == \
+        GOLDEN["nl2sql_2"]["models"]
+    arrivals = np.linspace(0.0, 3.0, len(reqs))
+    auto = run_cohort(trie, ann, obj, reqs, execu, engine="auto",
+                      arrivals=arrivals, capacity=2, device="cpu")
+    direct, stats = run_events(trie, ann, obj, reqs, execu,
+                               arrivals=arrivals, capacity=2, device="cpu")
+    assert stats.replans > 0 and stats.capacity == 2
+    assert [(r.models, r.total_lat, r.outcome) for r in auto] == \
+        [(r.models, r.total_lat, r.outcome) for r in direct]

@@ -15,8 +15,11 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.core import presets
 from repro_torch.core.controller import Objective
-from repro_torch.core.controller_torch import TrieDevice
+from repro_torch.core.controller_torch import TrieDevice, make_resident_planner
+from repro_torch.core.estimators import OnlineEstimators, TrieAnnotator
+from repro_torch.core.events import run_events
 from repro_torch.core.fleet import run_fleet
+from repro_torch.core.profiler import profile_cascade
 from repro_torch.core.runtime import make_workload_executor, run_cohort
 from repro_torch.core.trie import Trie
 from repro_torch.core.workload import generate_workload
@@ -67,18 +70,30 @@ def _small():
     return trie, wl, wl.exact_annotations(trie)
 
 
+def _annotator(trie, wl, **kw):
+    est = OnlineEstimators.from_profile(
+        trie, profile_cascade(wl, trie, 0.2, seed=0))
+    return TrieAnnotator(trie, est, **kw)
+
+
 def test_entry_points_refuse_the_cpu_unasked(no_cuda):
     trie, wl, ann = _small()
     obj = Objective("max_acc")
     execu = make_workload_executor(wl)
     reqs = np.arange(4)
+    annot = _annotator(trie, wl)
     cfg = dataclasses.replace(get_config("yi-9b", smoke=True),
                               dtype="float32")
     calls = [
         lambda: run_cohort(trie, ann, obj, reqs, execu, engine="fleet"),
         lambda: run_cohort(trie, ann, obj, reqs, execu, engine="scalar"),
+        lambda: run_cohort(trie, ann, obj, reqs, execu, engine="events"),
         lambda: run_fleet(trie, ann, obj, reqs, execu),
+        lambda: run_events(trie, ann, obj, reqs, execu),
+        lambda: run_events(trie, ann, obj, reqs[:0], execu),
+        lambda: make_resident_planner(TrieDevice.build(trie, ann), obj, 4),
         lambda: TrieDevice.build(trie, ann),
+        annot.publish,
         lambda: Model(cfg),
         lambda: params_from_jax(cfg, {}),
         lambda: ServingEngine("e", Model(cfg, device="cpu")),
@@ -98,8 +113,17 @@ def test_entry_points_run_on_the_cpu_when_asked(no_cuda):
     res = run_cohort(trie, ann, obj, np.arange(4), make_workload_executor(wl),
                      engine="fleet", device="cpu")
     assert len(res) == 4 and all(r.n_stages >= 1 for r in res)
+    res, stats = run_events(trie, ann, obj, np.arange(4),
+                            make_workload_executor(wl),
+                            arrivals=np.array([0.0, 0.5, 1.0, 1.5]),
+                            capacity=2, device="cpu")
+    assert len(res) == 4 and stats.replans > 0
     td = TrieDevice.build(trie, ann, device="cpu")
     assert td.device.type == "cpu"
+    planner = make_resident_planner(td, obj, 4)
+    assert planner.replan(np.zeros(td.n_engines))[0].shape == (4,)
+    pub = _annotator(trie, wl, device="cpu").publish()
+    assert pub.device.type == "cpu" and pub.version == 1
     cfg = dataclasses.replace(get_config("yi-9b", smoke=True),
                               dtype="float32")
     model = Model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
