@@ -3,25 +3,32 @@
 
     python3 chip_smoke.py                       # every phase
     python3 chip_smoke.py --phases device,kernels --verbose-build
+    python3 chip_smoke.py --phases device,train,train-ssm,zoo
     python3 chip_smoke.py --phases device,serve,serve-events
 
 Phases (any failure exits non-zero and prints no result):
 
 1. device    — require CUDA, print the card's name and power limit, build
-               the five CUDA kernels from `src/repro_torch/kernels/csrc/`;
+               the six CUDA kernels from `src/repro_torch/kernels/csrc/`;
 2. kernels   — hold each kernel against its plain PyTorch version on the
-               card at the shapes of both serving paths, and time kernel,
-               plain version and the nearest single PyTorch call (CUDA
-               graphs of back-to-back calls, timed with CUDA events; inputs
-               stay warm in L2, and the attention, SSD and replan kernels
-               are also timed cold, rotating over 64 MB of input copies;
-               decode attention, the SSD scan and the replan time every
-               launch plan their wrappers weigh).  The replan runs at six
-               shapes (`PLAN_SHAPES`, from the served cohort to 256 lanes
-               on a 5461-node trie), exact against its plain versions and
-               the host search, and in the event runtime's lane forms
-               (`CLASS_SHAPES`: class-shifted lanes, some at -inf, with and
-               without a blocked column);
+               card at the shapes of the serving and training paths, and
+               time kernel, plain version and the nearest single PyTorch
+               call (CUDA graphs of back-to-back calls, timed with CUDA
+               events; inputs stay warm in L2, and the attention, SSD and
+               replan kernels are also timed cold, rotating over 64 MB of
+               input copies; decode attention, the SSD scan and the replan
+               time every launch plan their wrappers weigh).  The replan
+               runs at six shapes (`PLAN_SHAPES`, from the served cohort to
+               256 lanes on a 5461-node trie), exact against its plain
+               versions and the host search, and in the event runtime's
+               lane forms (`CLASS_SHAPES`).  The flash backward runs at the
+               training shapes (`BWD_SHAPES`) from the forward's own output
+               and log-sum-exp (held against `ref.attention_fwd`), against
+               `ref.attention_bwd` and beside SDPA's backward; the
+               attention kernels also at the zoo's head dims 16 and 32 in
+               float32; a gradient through each autograd `Function` of
+               `kernels.ops` is held against autograd through the plain
+               version (`check_autograd`);
 3. serve     — an NL2SQL-2 cohort through the fleet runtime: first with the
                workload's stage tables on "cuda" and on "cpu" (identical
                results), then served by two full-width Yi-9B engines
@@ -41,13 +48,28 @@ Phases (any failure exits non-zero and prints no result):
                under `torch.profiler`, each of which must be one kernel and
                two copies (after the last serve phase that runs: a
                profiler session slows later launches).
+6. train     — Yi-9B at full width, 12 layers (2.60B parameters), float32
+               masters, AdamW, remat, a (2, 2048) batch from a 256-symbol
+               Markov source, 4 steps: every gradient present and nonzero,
+               the loss falling, a 2-layer copy's loss and gradients
+               against its float32 CPU copy, launches per step exact; step
+               time, tokens/s, model-FLOP share, peak memory, and one step
+               under `torch.profiler`;
+7. train-ssm — the same for Mamba2-1.3B at full width and depth, (1, 2048),
+               3 steps (the SSD kernel forward, the plain recompute back);
+8. zoo       — `build_zoo` with `repro`'s ladder on the card (its launches
+               exact), held-out accuracy rising from zoo-s to zoo-m to
+               zoo-l, then the end-to-end example's loop
+               (`repro_torch.examples.serve_workflow`, ``--requests 24
+               --profile-runs 80``) with its launches counted;
 
 On request: `profile` traces one generate per engine after each serve
 phase; `parts` (`--phases device,parts`) times copies of the bf16 SSD
 kernel with one part taken out or a design alternative put in.
 
-The last three lines of output are the `{"kernels": [...]}` JSON line, the
-card's `nvidia-smi` line and `{"ok": true, ...}`.
+The last three lines of output are the `{"kernels": [...]}` JSON line (its
+launches summed over the train, zoo and serve paths), the card's
+`nvidia-smi` line and `{"ok": true, ...}`.
 Needs one card, no network, and no JAX.
 """
 from __future__ import annotations
@@ -94,6 +116,9 @@ KERNELS = {
                   "src/repro/kernels/trie_plan.py:285"),
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:106"),
+    "flash_attention_bwd": (
+        "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "src/repro/kernels/xla_flash.py:88"),
     "decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",
                          "src/repro/kernels/decode_attention.py:99"),
     "rms_norm": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
@@ -104,6 +129,13 @@ KERNELS = {
 # (heads, kv heads, head dim, decode window) of the attention in each
 # serving path: zamba2's shared block decodes with its window of 4096
 ATTN_SHAPES = {"yi-9b": (32, 4, 128, 0), "zamba2-2.7b": (32, 32, 80, 4096)}
+# the zoo's attention (repro's ladder: head dims 16, 16, 32; float32)
+ZOO_ATTN = {"zoo-s": (2, 2, 16), "zoo-m": (4, 4, 16), "zoo-l": (4, 4, 32)}
+# the flash backward at the training shapes: (label, dtype, B, H, KV, S, D)
+BWD_SHAPES = (("yi-9b train", "bfloat16", 2, 32, 4, 2048, 128),
+              ("zamba2-2.7b train", "bfloat16", 1, 32, 32, 2048, 80),
+              ("zoo-s", "float32", 16, 2, 2, 32, 16),
+              ("zoo-l", "float32", 16, 4, 4, 32, 32))
 
 
 def log(*a):
@@ -598,8 +630,123 @@ def check_flash(rec):
                 f"kernel {ms:.4f} ms (cold L2 {cold_ms:.4f}), plain "
                 f"{plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms (cold L2 "
                 f"{lib_cold_ms:.4f}), bound {b_ms:.6f} ms ({b_by})")
+    # the zoo's head dims, float32 (the zoo's dtype) and bf16, ragged too
+    for arch, (H, KV, D) in ZOO_ATTN.items():
+        for dt, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
+            for S in (32, 100):
+                q = torch.randn(2, H, S, D, generator=g, device="cuda").to(dt)
+                k = torch.randn(2, KV, S, D, generator=g, device="cuda").to(dt)
+                v = torch.randn(2, KV, S, D, generator=g, device="cuda").to(dt)
+                out = flash_attention(q, k, v, causal=True)
+                torch.cuda.synchronize()
+                want = ref.attention(q, k, v, causal=True)
+                err = max(err, check_close("flash_attention", out, want, tol))
+                log(f"  flash_attention {arch} {str(dt)[6:]} (2,{H},{S},{D})"
+                    f" kv {KV}: {err_str(out, want, tol)}")
     rec["kernels"]["flash_attention"]["max_abs_err"] = err
     log(f"flash_attention: ok, max abs err {err:.3g}")
+
+
+def _sdpa_bwd_ms(q, k, v, do, reps: int = 10) -> float:
+    """Milliseconds of SDPA's backward alone on the card: K and V expanded
+    to H heads as leaves, the forward run once, then `autograd.grad` of
+    its output timed between CUDA events (mean over ``reps`` calls)."""
+    import torch
+    import torch.nn.functional as F
+
+    G = q.shape[1] // k.shape[1]
+    leaves = [t.detach().clone().requires_grad_(True) for t in (
+        q, k.repeat_interleave(G, dim=1), v.repeat_interleave(G, dim=1))]
+    out = F.scaled_dot_product_attention(*leaves, is_causal=True)
+
+    def grad():
+        torch.autograd.grad(out, leaves, do, retain_graph=True)
+
+    for _ in range(2):
+        grad()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+        enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        grad()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def check_flash_bwd(rec):
+    """The flash backward against `ref.attention_bwd` at the training
+    shapes (and windowed, ragged and GQA cases at small sizes), from the
+    forward's own output and log-sum-exp, which is held against
+    `ref.attention_fwd` first; timed warm and cold beside its bound, the
+    plain version and SDPA's backward."""
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    err = 0.0
+    small = [(f"small G={H // KV} S={S} window={w}", dt, 2, H, KV, S, D, w)
+             for dt in ("bfloat16", "float32")
+             for H, KV, S, D, w in ((8, 2, 100, 64, 0), (8, 2, 100, 64, 48),
+                                    (4, 1, 130, 128, 0), (4, 4, 77, 80, 16),
+                                    (2, 2, 40, 16, 0), (4, 2, 33, 32, 8))]
+    cases = [c + (0,) for c in BWD_SHAPES] + small
+    for label, dts, B, H, KV, S, D, window in cases:
+        dt = getattr(torch, dts)
+        tol = BF16_TOL if dt == torch.bfloat16 else F32_TOL
+
+        def rn(*shape):
+            return torch.randn(*shape, generator=g, device="cuda").to(dt)
+
+        q, k, v, do = rn(B, H, S, D), rn(B, KV, S, D), rn(B, KV, S, D), \
+            rn(B, H, S, D)
+        o, lse = flash_attention(q, k, v, causal=True, window=window,
+                                 return_lse=True)
+        torch.cuda.synchronize()
+        _, want_lse = ref.attention_fwd(q, k, v, causal=True, window=window)
+        check_close("flash_attention lse", lse, want_lse, F32_TOL)
+        got = flash_attention_bwd(q, k, v, o, lse, do, causal=True,
+                                  window=window)
+        torch.cuda.synchronize()
+        want = ref.attention_bwd(q, k, v, o, lse, do, causal=True,
+                                 window=window)
+        for name, a, b in zip(("dq", "dk", "dv"), got, want):
+            err = max(err, check_close(f"flash_attention_bwd {name}", a, b,
+                                       tol))
+        log(f"  flash_attention_bwd {label} {dts} ({B},{H},{S},{D}) kv {KV}: "
+            f"lse {err_str(lse, want_lse, F32_TOL)}; "
+            + "; ".join(f"{n} {err_str(a, b, tol)}"
+                        for n, a, b in zip(("dq", "dk", "dv"), got, want)))
+        del want
+        if label.startswith("small"):
+            continue
+        ms = graph_ms(lambda: flash_attention_bwd(q, k, v, o, lse, do))
+        plain_ms = graph_ms(lambda: ref.attention_bwd(q, k, v, o, lse, do),
+                            calls=3)
+        lib_ms = _sdpa_bwd_ms(q, k, v, do)
+        cold = cold_inputs(q, k, v, o, lse, do)
+        cold_ms = graph_ms(lambda *a: flash_attention_bwd(*a), inputs=cold)
+        del cold
+        isz = q.element_size()
+        nbytes = isz * (4 * q.numel() + 4 * k.numel()) + 4 * lse.numel()
+        ops = 10.0 * _attn_pairs(S, S, True, 0) * D * H * B
+        b_ms, b_by = bound(nbytes, ops,
+                           BF16_OPS if dt == torch.bfloat16 else F32_OPS)
+        case = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                    library_ms=lib_ms, cold_ms=cold_ms, tol=tol)
+        rec.setdefault("timing_cases", {})[
+            f"flash_attention_bwd {label} ({B},{H},{S},{D}) kv {KV}"] = case
+        if "flash_attention_bwd" not in rec["kernels"]:
+            rec["kernels"]["flash_attention_bwd"] = case  # yi-9b heads
+        log(f"  flash_attention_bwd {label} ({B},{H},{S},{D}) kv {KV} "
+            f"causal: kernel {ms:.4f} ms (cold L2 {cold_ms:.4f}), plain "
+            f"{plain_ms:.4f} ms, SDPA backward {lib_ms:.4f} ms, bound "
+            f"{b_ms:.6f} ms ({b_by})")
+    rec["kernels"]["flash_attention_bwd"]["max_abs_err"] = err
+    log(f"flash_attention_bwd: ok, max abs err {err:.3g}")
 
 
 def _plan_str(p) -> str:
@@ -674,6 +821,12 @@ def check_decode(rec):
             for w in (0, 48):
                 err = max(err, check(f"G={H // KV} lens=(1,33,{S})", q, kc,
                                      vc, lens, w, tol)[0])
+        # the zoo's head dims (its engines decode in float32)
+        for arch, (H, KV, D) in ZOO_ATTN.items():
+            q, kc, vc = rn(2, H, D, dt=dt), rn(2, KV, 48, D, dt=dt), \
+                rn(2, KV, 48, D, dt=dt)
+            lens = torch.tensor([17, 24], dtype=torch.int32, device="cuda")
+            err = max(err, check(arch, q, kc, vc, lens, 0, tol)[0])
         # a cache of one tile: one split, no merge
         H, KV, D, _ = ATTN_SHAPES["zamba2-2.7b"]
         q, kc, vc = rn(2, H, D, dt=dt), rn(2, KV, 32, D, dt=dt), \
@@ -951,10 +1104,68 @@ def check_ssd_scan(rec):
     log(f"ssd_scan: ok, max abs err {err:.3g}")
 
 
+def check_autograd(rec):
+    """A gradient through each autograd `Function` of `kernels.ops` (the
+    kernel forward, and for attention the backward kernel) against
+    autograd through the plain version, at the training shapes: Yi-9B's
+    attention, its RMSNorm rows, Mamba2's SSD scan.  The RMSNorm and SSD
+    backwards recompute the plain version, so their gradients must agree
+    to float32 rounding; attention's plain path rounds its probabilities
+    to bf16, so its gradients agree within BF16_TOL."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 6)
+
+    def rn(*shape, dt=torch.bfloat16, scale=1.0):
+        return (scale * torch.randn(*shape, generator=g, device="cuda")).to(
+            dt).requires_grad_(True)
+
+    def grads(fn, leaves, w):
+        out = fn(*leaves)
+        out = out if isinstance(out, tuple) else (out,)
+        loss = sum((o.float() * wi).sum() for o, wi in zip(out, w))
+        return out, torch.autograd.grad(loss, leaves)
+
+    def compare(name, fn, plain, leaves, tols):
+        out = fn(*leaves)
+        out = out if isinstance(out, tuple) else (out,)
+        w = [torch.randn(o.shape, generator=g, device="cuda") for o in out]
+        got_o, got = grads(fn, leaves, w)
+        want_o, want = grads(plain, leaves, w)
+        torch.cuda.synchronize()
+        for i, (a, b) in enumerate(zip(got, want)):
+            check_close(f"{name} grad {i}", a, b, tols[i])
+        log(f"  autograd {name}: "
+            + "; ".join(f"d{i} {err_str(a, b, tols[i])}"
+                        for i, (a, b) in enumerate(zip(got, want))))
+
+    q, k, v = rn(2, 32, 2048, 128), rn(2, 4, 2048, 128), rn(2, 4, 2048, 128)
+    compare("attention yi-9b (2,32,2048,128) kv 4",
+            lambda q, k, v: ops.attention(q, k, v, causal=True),
+            lambda q, k, v: ref.attention(q, k, v, causal=True), (q, k, v),
+            (BF16_TOL,) * 3)
+    del q, k, v
+    x, s = rn(2 * 2048, 4096, scale=3.0), rn(4096, dt=torch.float32)
+    compare("rms_norm (4096,4096)", ops.rms_norm, ref.rms_norm, (x, s),
+            (BF16_TOL, F32_TOL))
+    del x, s
+    S, Hn, P, N = 2048, 64, 64, 128
+    x, Bm, Cm = rn(1, S, Hn, P), rn(1, S, N), rn(1, S, N)
+    dt = torch.nn.functional.softplus(torch.randn(
+        1, S, Hn, generator=g, device="cuda")).requires_grad_(True)
+    A = (-torch.linspace(1.0, 16.0, Hn, device="cuda")).requires_grad_(True)
+    compare("ssd_scan mamba2 (1,2048,64,64) N 128",
+            lambda *a: ops.ssd_scan(*a, chunk=256, return_state=True),
+            lambda *a: ref.ssd_scan_chunked(*a, chunk=256, return_state=True),
+            (x, dt, A, Bm, Cm), (F32_TOL,) * 5)
+
+
 def phase_kernels(args, rec):
     rec["kernels"] = {}
-    for check in (check_trie_plan, check_flash, check_decode, check_rms_norm,
-                  check_ssd_scan):
+    for check in (check_trie_plan, check_flash, check_flash_bwd, check_decode,
+                  check_rms_norm, check_ssd_scan, check_autograd):
         check(rec)
     log("kernels: " + ", ".join(f"{k} ok (max abs err "
                                 f"{v['max_abs_err']:.3g}, tol {v['tol']})"
@@ -1126,10 +1337,11 @@ def _reduced_copy(model, n_layers):
 
 
 def _kernel_family(name: str) -> str:
-    """Our five kernels by name, cuBLAS's matmuls (``nvjet``/``gemv``/
+    """Our six kernels by name, cuBLAS's matmuls (``nvjet``/``gemv``/
     ``gemm``/``xmma`` kernels), and everything else."""
     low = name.lower()
     for key, fam in (("trie_plan", "trie_plan"),
+                     ("flash_bwd", "flash_attention_bwd"),
                      ("flash_kernel", "flash_attention"),
                      ("decode_kernel", "decode_attention"),
                      ("rmsnorm", "rms_norm"),
@@ -1143,19 +1355,26 @@ def _kernel_family(name: str) -> str:
 
 def _profile_generate(name, eng, rec):
     """Where one stage invocation's time goes: one `generate` of engine
-    ``name`` under `torch.profiler`, its device kernels summed by family
-    against the profiled wall time (the profiler's own host cost included,
-    so the busy share is a lower bound)."""
+    ``name`` under `torch.profiler` (see `_profile_call`)."""
+    prompt = np.random.default_rng(SEED).integers(
+        0, eng.model.cfg.vocab, (1, PROMPT))
+    _profile_call(name, lambda: eng.generate(prompt, max_new=MAX_NEW), rec,
+                  f"one generate ({PROMPT} + {MAX_NEW} tokens)")
+
+
+def _profile_call(name, fn, rec, what):
+    """``fn()`` once under `torch.profiler`: its device kernels summed by
+    family against the profiled wall time (the profiler's own host cost
+    included, so the busy share is a lower bound)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    prompt = np.random.default_rng(SEED).integers(
-        0, eng.model.cfg.vocab, (1, PROMPT))
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        eng.generate(prompt, max_new=MAX_NEW)
+        fn()
+        torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     fam, by_name = {}, {}
     for e in prof.events():
@@ -1167,18 +1386,17 @@ def _profile_generate(name, eng, rec):
     busy = sum(fam.values())
     rec.setdefault("profile", {})[name] = dict(
         wall_ms=wall_ms, device_ms=busy, by_family_ms=fam)
-    log(f"  profile {name}: one generate ({PROMPT} + {MAX_NEW} tokens) "
-        f"wall {wall_ms:.1f} ms, device kernels {busy:.1f} ms, busy share "
-        f"{busy / wall_ms:.3f}")
+    log(f"  profile {name}: {what} wall {wall_ms:.1f} ms, device kernels "
+        f"{busy:.1f} ms, busy share {busy / wall_ms:.3f}")
     for f, ms in sorted(fam.items(), key=lambda kv: -kv[1]):
         log(f"    {f}: {ms:.2f} ms ({ms / busy:.3f} of device time)")
     for n, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
         log(f"      {ms:8.2f} ms  {n[:90]}")
 
 
-def _expected_launches(cfg, invocations: int) -> dict:
+def _expected_launches(cfg, invocations: int, max_new: int = MAX_NEW) -> dict:
     """Kernel launches of ``invocations`` stage invocations (a prefill and
-    MAX_NEW decode steps each) on an engine of ``cfg``: per prefill, L
+    ``max_new`` decode steps each) on an engine of ``cfg``: per prefill, L
     flash launches (dense) or L SSD scans and L / attn_every flash launches
     (hybrid: its shared block); per decode step as many decode-attention
     launches; 2L + 1 RMSNorms per prefill and per step (block norms, or
@@ -1188,8 +1406,8 @@ def _expected_launches(cfg, invocations: int) -> dict:
     attn = L if cfg.family == "dense" else \
         L // cfg.hybrid.attn_every if cfg.family == "hybrid" else 0
     norms = 2 * L + 1 + (2 * attn if cfg.family == "hybrid" else 0)
-    per_run = {"flash_attention": attn, "decode_attention": attn * MAX_NEW,
-               "rms_norm": norms * (1 + MAX_NEW),
+    per_run = {"flash_attention": attn, "decode_attention": attn * max_new,
+               "rms_norm": norms * (1 + max_new),
                "ssd_scan": 0 if cfg.family == "dense" else L}
     return {k: v * invocations for k, v in per_run.items()}
 
@@ -1699,9 +1917,279 @@ def phase_serve_ssm(args, rec):
     _after_serving(args, rec, "serve-ssm", cohort)
 
 
+# ----------------------------------------------------------------------
+# phases train, train-ssm: a few steps of a full-width model on the card
+# ----------------------------------------------------------------------
+# phase -> (arch, layers (None: all), (batch, sequence), steps)
+TRAIN_PATHS = {"train": ("yi-9b", 12, (2, 2048), 4),
+               "train-ssm": ("mamba2-1.3b", None, (1, 2048), 3)}
+# the token source: MarkovLMData's V**kgram x V table cannot be built at a
+# real vocabulary (2.6e14 entries at Yi-9B's 64000), so the tokens come
+# from 256 symbols, kgram 2, and enter the full embedding; the loss still
+# runs over the whole padded vocabulary (a cut, PERF.md section 4)
+TRAIN_DATA = (256, 2)
+# the reduced copy held against float32 on the CPU: layers, (batch, seq)
+TRAIN_CHECK = (2, (1, 512))
+
+
+def _token_batch(B: int, S: int, seed: int) -> dict:
+    from repro_torch.data import DataConfig, MarkovLMData
+
+    vocab, kgram = TRAIN_DATA
+    return MarkovLMData(DataConfig(vocab=vocab, seq_len=S, batch=B,
+                                   seed=seed, kgram=kgram)).next_batch()
+
+
+def _train_launches(cfg) -> dict:
+    """Kernel launches of one train step of ``cfg``: the forward's (L
+    flash or SSD launches, 2L + 1 RMSNorms: each layer's two, then the
+    final norm), each layer's forward again under ``remat="full"`` (the
+    final norm sits outside the checkpointed layers), and one flash
+    backward a layer; the RMSNorm and SSD backwards recompute their plain
+    versions and launch nothing."""
+    L = cfg.n_layers
+    r = 2 if cfg.remat == "full" else 1
+    out = {k: 0 for k in KERNELS}
+    if cfg.family == "dense":
+        out.update(flash_attention=r * L, flash_attention_bwd=L,
+                   rms_norm=r * 2 * L + 1)
+    elif cfg.family == "ssm":
+        out.update(ssd_scan=r * L, rms_norm=r * 2 * L + 1)
+    else:
+        raise NotImplementedError(f"no launch count for {cfg.family}")
+    return out
+
+
+def _train_check(model, label, rec):
+    """A copy of ``model`` cut to its first TRAIN_CHECK layers (shared
+    weights whole) takes one loss-and-gradient on the card and on its
+    float32 CPU copy: the loss and every gradient leaf within
+    MODEL_REL_TOL, relative L2."""
+    import torch
+
+    from repro_torch.models.transformer import TrainModel
+    from repro_torch.train.step import value_and_grad
+
+    n, (B, S) = TRAIN_CHECK
+    cfg = dataclasses.replace(model.cfg, n_layers=n)
+    small = TrainModel(cfg, device="cuda")
+    cpu = TrainModel(dataclasses.replace(cfg, dtype="float32"), device="cpu")
+    with torch.no_grad():
+        for k, p in small.masters.items():
+            src = model.masters[k][:n] if k.startswith("layers@") else \
+                model.masters[k]
+            p.copy_(src)
+            cpu.masters[k].copy_(src.cpu())
+    batch = _token_batch(B, S, SEED + 1)
+    loss, _, grads = value_and_grad(small, batch)
+    want, _, wgrads = value_and_grad(cpu, batch)
+    errs = {"loss": abs(float(loss) - float(want)) / abs(float(want))}
+    for k, g in wgrads.items():
+        got = grads[k].float().cpu()
+        if not bool(got.isfinite().all()):
+            raise AssertionError(f"{label}: gradient {k} is not finite")
+        errs[k] = float((got - g).norm() / g.norm().clamp(min=1e-30))
+    worst = max(errs, key=errs.get)
+    rec.setdefault("train_rel_err", {})[label] = errs
+    log(f"  {label}: {n}-layer copy, one step on ({B},{S}) tokens vs its "
+        f"float32 CPU copy: loss {float(loss):.6f} vs {float(want):.6f}, "
+        f"relative L2 err: worst {worst} {errs[worst]:.3g} over "
+        f"{len(errs)} leaves (tol {MODEL_REL_TOL})")
+    if errs[worst] > MODEL_REL_TOL:
+        raise AssertionError(f"{label}: {worst} off its float32 CPU copy by "
+                             f"{errs[worst]:.3g}")
+    del small, cpu, grads, wgrads
+
+
+def _train_path(phase, rec, args):
+    """Train a full-width model on the card for a few steps on one repeated
+    batch: every gradient present, finite and nonzero, the loss falling,
+    launches per step exact; step time, tokens/s, model-FLOP share, peak
+    memory and one profiled step logged."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.models.transformer import TrainModel
+    from repro_torch.train import OptConfig, TrainConfig, make_train_step
+    from repro_torch.train.step import value_and_grad
+
+    arch, layers, (B, S), steps = TRAIN_PATHS[phase]
+    cfg = get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 20)
+    model = TrainModel(cfg, device="cuda").init(gen)
+    n_par = sum(p.numel() for p in model.masters.values())
+    n_mat = n_par - model.masters["embed"].numel()
+    torch.cuda.synchronize()
+    log(f"{phase}: {arch} at full width (d {cfg.d_model}, vocab {cfg.vocab}, "
+        f"bf16 compute, float32 masters), {cfg.n_layers} layers, "
+        f"{n_par / 1e9:.2f}B parameters, remat {cfg.remat}; init "
+        f"{time.perf_counter() - t0:.1f} s")
+    log(f"reduced: {'depth only, ' if layers else ''}tokens from "
+        f"MarkovLMData(vocab={TRAIN_DATA[0]}, kgram={TRAIN_DATA[1]}) into "
+        f"the full {cfg.padded_vocab}-row embedding; batch ({B},{S}); "
+        f"{steps} steps on one repeated batch")
+    _train_check(model, f"{phase} {arch}", rec)
+    batch = _token_batch(B, S, SEED)
+    init_state, step = make_train_step(model, TrainConfig(
+        opt=OptConfig(warmup_steps=1)))
+    params = model.params()
+    state = init_state(params)
+    expect = _train_launches(cfg)
+
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    _, _, grads = value_and_grad(model, batch)
+    torch.cuda.synchronize()
+    bad = [k for k, p in params.items() if p.grad is None or not bool(
+        p.grad.isfinite().all()) or not bool((p.grad != 0).any())]
+    if bad:
+        raise AssertionError(f"{phase}: gradients missing, zero or not "
+                             f"finite: {bad}")
+    if dict(_build.LAUNCHES) != expect:
+        raise AssertionError(f"{phase}: launches of a loss-and-gradient "
+                             f"{dict(_build.LAUNCHES)} != {expect}")
+    log(f"  every one of {len(params)} gradient leaves present, finite and "
+        f"nonzero; launches of one step {expect}")
+    del grads
+    for p in params.values():
+        p.grad = None
+
+    _build.reset_launches()
+    losses, times = [], []
+    for i in range(steps):
+        before = dict(_build.LAUNCHES)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        params, state, m = step(params, state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t1)
+        losses.append(float(m["loss"]))
+        got = {k: _build.LAUNCHES[k] - before[k] for k in before}
+        if got != expect:
+            raise AssertionError(f"{phase}: step {i + 1} launched {got}, "
+                                 f"expected {expect}")
+        log(f"  step {i + 1}: loss {losses[-1]:.6f} grad_norm "
+            f"{float(m['grad_norm']):.6g} lr {float(m['lr']):.3g} "
+            f"{times[-1] * 1e3:.1f} ms")
+    launches = dict(_build.LAUNCHES)
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"{phase}: the loss did not fall: {losses}")
+    step_s = float(np.median(times[1:]))
+    pairs = _attn_pairs(S, S, True, 0)
+    attn = 0 if cfg.family != "dense" else \
+        12.0 * pairs * cfg.head_dim * cfg.n_heads * cfg.n_layers * B
+    flops = 6.0 * n_mat * B * S + attn
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    out = dict(launches=launches, per_step=expect, losses=losses,
+               step_ms=step_s * 1e3, step_ms_all=[t * 1e3 for t in times],
+               tokens_per_s=B * S / step_s, model_flops=flops,
+               mfu=flops / step_s / BF16_OPS, max_memory_allocated_gb=peak,
+               params=n_par)
+    rec.setdefault("paths", {})[phase] = out
+    log(f"  {phase}: step {out['step_ms']:.1f} ms (median of steps 2-"
+        f"{steps}), {out['tokens_per_s']:.0f} tokens/s, model FLOPs "
+        f"{flops / 1e12:.2f} T a step = {out['mfu']:.3f} of 989 TFLOP/s, "
+        f"peak memory {peak:.2f} GB, losses {[round(x, 4) for x in losses]}")
+    _profile_call(f"{phase} step", lambda: step(params, state, batch), rec,
+                  "one train step")
+    del model, params, state, m
+    torch.cuda.empty_cache()
+
+
+def phase_train(args, rec):
+    _train_path("train", rec, args)
+
+
+def phase_train_ssm(args, rec):
+    _train_path("train-ssm", rec, args)
+
+
+# ----------------------------------------------------------------------
+# phase zoo: the trained ladder and the end-to-end example on the card
+# ----------------------------------------------------------------------
+ZOO_ARGS = ["--device", "cuda", "--requests", "24", "--profile-runs", "80"]
+
+
+def phase_zoo(args, rec):
+    """`build_zoo` with `repro`'s ladder on the card (its launches exact),
+    held-out accuracy rising from zoo-s to zoo-m to zoo-l, then the
+    example's main loop (cascade profiling with real invocations, the fleet
+    runtime against the Murakkab static plan) with its launches counted
+    as the serve paths count them."""
+    import torch
+
+    from repro_torch.data import DataConfig, MarkovLMData
+    from repro_torch.examples import serve_workflow as sw
+    from repro_torch.kernels import _build
+    from repro_torch.serving.zoo import _LADDER, build_zoo, sequence_accuracy
+
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    zoo = build_zoo(vocab=sw.VOCAB, seq_len=sw.SEQ, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    train_launches = dict(_build.LAUNCHES)
+    expect = {k: 0 for k in KERNELS}
+    for (name, *_, steps, _), eng in zip(_LADDER, zoo.values()):
+        for k, v in _train_launches(eng.model.cfg).items():
+            expect[k] += v * steps
+    log(f"zoo: {len(zoo)} rungs trained on the card in {build_s:.1f} s; "
+        f"launches {train_launches} (expected {expect})")
+    if train_launches != expect:
+        raise AssertionError("zoo training launches do not match its steps")
+    accs = {}
+    for name, eng in zoo.items():
+        data = MarkovLMData(DataConfig(vocab=sw.VOCAB, seq_len=sw.SEQ,
+                                       batch=32, seed=0, kgram=2))
+        data.state["step"] = 10_000  # a held-out region of the stream
+        accs[name] = sequence_accuracy(eng, data)
+    log(f"  held-out next-token accuracy: {accs}")
+    acc = list(accs.values())
+    if not all(a < b for a, b in zip(acc, acc[1:])):
+        raise AssertionError(f"zoo accuracy does not rise with size: {accs}")
+
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    out = sw.main(ZOO_ARGS, zoo=zoo)
+    wall = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    expect_run = {k: 0 for k in KERNELS}
+    expect_run["trie_plan"] = out["replans"]
+    for name, n in out["invocations"].items():
+        for k, v in _expected_launches(zoo[name].model.cfg, n,
+                                       max_new=sw.HORIZON).items():
+            expect_run[k] += v
+    log(f"launches on the zoo example path: {launches} (expected "
+        f"{expect_run}); invocations {out['invocations']}")
+    if launches != expect_run or launches["trie_plan"] <= 0:
+        raise AssertionError("zoo example launches do not match its stage "
+                             "invocations and replans")
+    v, mk = out["vine"], out["murakkab"]
+    log(f"  example ({' '.join(ZOO_ARGS)}) in {wall:.1f} s: VineLM acc "
+        f"{v['accuracy']:.4f} cost {v['mean_cost']:.6f} mean_lat "
+        f"{v['mean_lat']:.4f} s; static plan acc {mk['accuracy']:.4f} cost "
+        f"{mk['mean_cost']:.6f} mean_lat {mk['mean_lat']:.4f} s; "
+        f"{out['rounds']} fleet rounds")
+    rec.setdefault("paths", {})["zoo"] = dict(
+        launches={k: train_launches[k] + launches[k] for k in KERNELS},
+        accuracy=accs, build_s=build_s, example_wall_s=wall,
+        vine=v, murakkab=mk)
+    del zoo
+    torch.cuda.empty_cache()
+
+
 PHASES = {"device": phase_device, "kernels": phase_kernels,
           "serve": phase_serve, "serve-events": phase_serve_events,
-          "serve-ssm": phase_serve_ssm}
+          "serve-ssm": phase_serve_ssm,
+          # after the serve phases: a short trace taken after a train step's
+          # long one came back empty on the card (PERF.md section 7)
+          "train": phase_train, "train-ssm": phase_train_ssm,
+          "zoo": phase_zoo}
 SERVE_PHASES = ("serve", "serve-events", "serve-ssm")
 
 

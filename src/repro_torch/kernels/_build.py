@@ -6,7 +6,7 @@ under the repository root; nothing is built at import.  The kernels keep
 a plain C interface (`csrc/*.cu`), and `csrc/bindings.cpp` exposes them
 through pybind11 alone, taking raw device pointers and the stream as
 integers: no source includes PyTorch's headers, which keeps the build to
-seconds instead of minutes.  ninja compiles the six sources in parallel.
+seconds instead of minutes.  ninja compiles the seven sources in parallel.
 
 ``LAUNCHES`` counts the launches of each kernel: every wrapper adds one
 where it launches its kernel and nowhere else, so a run can show that its
@@ -21,12 +21,13 @@ import torch
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 SOURCES = ("bindings.cpp", "trie_plan.cu", "flash_attention.cu",
-           "decode_attention.cu", "rmsnorm.cu", "ssd_scan.cu")
+           "flash_attention_bwd.cu", "decode_attention.cu", "rmsnorm.cu",
+           "ssd_scan.cu")
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "torch_ext"
 CUDA_FLAGS = ("-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a")
 
-LAUNCHES = {"trie_plan": 0, "flash_attention": 0, "decode_attention": 0,
-            "rms_norm": 0, "ssd_scan": 0}
+LAUNCHES = {"trie_plan": 0, "flash_attention": 0, "flash_attention_bwd": 0,
+            "decode_attention": 0, "rms_norm": 0, "ssd_scan": 0}
 
 _EXT = None        # the build the wrappers launch
 _COPIES: dict = {}  # timing copies, by their macros

@@ -16,9 +16,13 @@ int repro_trie_plan(const void*, const void*, const void*, const void*,
                     const void*, const void*, const void*, const void*,
                     const void*, int, int, int, int, int, float, float, float,
                     int, int, int, void*, void*, void*, void*, void*);
-int repro_flash_attention(const void*, const void*, const void*, void*, int,
-                          int, int, int, int, int, float, int, int, int,
+int repro_flash_attention(const void*, const void*, const void*, void*, void*,
+                          int, int, int, int, int, int, float, int, int, int,
                           void*);
+int repro_flash_attention_bwd(const void*, const void*, const void*,
+                              const void*, const void*, const void*, void*,
+                              void*, void*, void*, int, int, int, int, int,
+                              int, float, int, int, int, void*);
 int repro_decode_attention(const void*, const void*, const void*, const void*,
                            void*, void*, void*, int, int, int, int, int, int,
                            int, int, int, float, int, int, void*);
@@ -66,12 +70,24 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
                 "trie_plan");
         });
   m.def("flash_attention",
-        [](ptr q, ptr k, ptr v, ptr o, int B, int H, int KV, int Sq, int Sk,
-           int D, float scale, int causal, int window, int dtype, ptr stream) {
-          check(repro_flash_attention(P(q), P(k), P(v), P(o), B, H, KV, Sq, Sk,
-                                      D, scale, causal, window, dtype,
+        [](ptr q, ptr k, ptr v, ptr o, ptr lse, int B, int H, int KV, int Sq,
+           int Sk, int D, float scale, int causal, int window, int dtype,
+           ptr stream) {
+          check(repro_flash_attention(P(q), P(k), P(v), P(o),
+                                      lse ? P(lse) : nullptr, B, H, KV, Sq,
+                                      Sk, D, scale, causal, window, dtype,
                                       P(stream)),
                 "flash_attention");
+        });
+  m.def("flash_attention_bwd",
+        [](ptr q, ptr k, ptr v, ptr o, ptr lse, ptr dout, ptr delta, ptr dq,
+           ptr dk, ptr dv, int B, int H, int KV, int Sq, int Sk, int D,
+           float scale, int causal, int window, int dtype, ptr stream) {
+          check(repro_flash_attention_bwd(P(q), P(k), P(v), P(o), P(lse),
+                                          P(dout), P(delta), P(dq), P(dk),
+                                          P(dv), B, H, KV, Sq, Sk, D, scale,
+                                          causal, window, dtype, P(stream)),
+                "flash_attention_bwd");
         });
   m.def("decode_attention",
         [](ptr q, ptr kc, ptr vc, ptr lens, ptr o, ptr ws, ptr counters,

@@ -457,6 +457,7 @@ int dispatch_decode(int D, const void* q, const void* kc, const void* vc,
                     int H, int KV, int S, int span, int nsplit, int ncs,
                     int hc, float scale, int window, cudaStream_t s) {
   switch (D) {
+    case 16: return launch_decode<T, 16>(q, kc, vc, lens, o, ws, cnt, B, H, KV, S, span, nsplit, ncs, hc, scale, window, s);
     case 32: return launch_decode<T, 32>(q, kc, vc, lens, o, ws, cnt, B, H, KV, S, span, nsplit, ncs, hc, scale, window, s);
     case 64: return launch_decode<T, 64>(q, kc, vc, lens, o, ws, cnt, B, H, KV, S, span, nsplit, ncs, hc, scale, window, s);
     case 80: return launch_decode<T, 80>(q, kc, vc, lens, o, ws, cnt, B, H, KV, S, span, nsplit, ncs, hc, scale, window, s);

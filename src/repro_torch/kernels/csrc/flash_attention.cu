@@ -55,8 +55,9 @@ constexpr int kFlashThreads = kFlashWarps * 32;
 template <typename T, int D>
 __global__ void __launch_bounds__(kFlashThreads)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, T* __restrict__ o, int H, int KV,
-             int Sq, int Sk, float scale, int causal, int window) {
+             const T* __restrict__ v, T* __restrict__ o,
+             float* __restrict__ lse, int H, int KV, int Sq, int Sk,
+             float scale, int causal, int window) {
   __shared__ float qs[kFlashBlockQ * D];
   __shared__ float ks[kTileKeys * (D + 1)];
   __shared__ float vs[kTileKeys * D];
@@ -118,6 +119,9 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int qi = q0 + warp * kFlashRows + r;
     if (qi >= Sq) continue;
     const float denom = l[r] == 0.f ? 1.f : l[r];
+    if (lse != nullptr && lane == 0) {
+      lse[static_cast<size_t>(bh) * Sq + qi] = l[r] == 0.f ? kNegInf : m[r] + logf(l[r]);
+    }
 #pragma unroll
     for (int c = 0; c < head_cols(D); ++c) {
       const int col = lane + 32 * c;
@@ -142,9 +146,9 @@ constexpr size_t flash_mma_smem_bytes() {
 template <int D>
 __global__ void __launch_bounds__(kMmaThreads)
 flash_kernel_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, bf16* __restrict__ o, int H,
-                 int KV, int Sq, int Sk, float scale_log2, int causal,
-                 int window) {
+                 const bf16* __restrict__ v, bf16* __restrict__ o,
+                 float* __restrict__ lse, int H, int KV, int Sq, int Sk,
+                 float scale_log2, int causal, int window) {
   constexpr int P = D + kMmaPad;  // shared row pitch (elements)
   constexpr int KSTEPS = D / 16;  // k-steps of Q.K^T
   constexpr int NT = D / 8;       // n-tiles of the output
@@ -314,6 +318,14 @@ flash_kernel_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
     l_r[i] += __shfl_xor_sync(0xffffffffu, l_r[i], 2);
   }
   const float d0 = l_r[0] == 0.f ? 1.f : l_r[0], d1 = l_r[1] == 0.f ? 1.f : l_r[1];
+  if (lse != nullptr && t4 == 0) {
+    // natural log of the row sum of exp(q.k scale): m_r and the sum are
+    // in log2 units, so log(l) + m ln 2 = (m + log2 l) ln 2
+    constexpr float kLn2 = 0.6931471805599453f;
+    float* lb = lse + static_cast<size_t>(bh) * Sq;
+    if (row0 < Sq) lb[row0] = l_r[0] == 0.f ? kNegInf : (m_r[0] + log2f(l_r[0])) * kLn2;
+    if (row1 < Sq) lb[row1] = l_r[1] == 0.f ? kNegInf : (m_r[1] + log2f(l_r[1])) * kLn2;
+  }
 #pragma unroll
   for (int j = 0; j < NT; ++j) {
     const int col = j * 8 + 2 * t4;
@@ -330,16 +342,16 @@ flash_kernel_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 template <int D>
 int launch_flash_mma(const void* q, const void* k, const void* v, void* o,
-                     int B, int H, int KV, int Sq, int Sk, float scale,
-                     int causal, int window, cudaStream_t s) {
+                     float* lse, int B, int H, int KV, int Sq, int Sk,
+                     float scale, int causal, int window, cudaStream_t s) {
   constexpr size_t smem = flash_mma_smem_bytes<D>();
   const int st = allow_smem(flash_kernel_mma<D>, smem);
   if (st) return st;
   dim3 grid(B * H, (Sq + kMmaBlockQ - 1) / kMmaBlockQ);
   flash_kernel_mma<D><<<grid, kMmaThreads, smem, s>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o), H, KV, Sq, Sk,
-      scale * 1.4426950408889634f, causal, window);
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, H, KV, Sq,
+      Sk, scale * 1.4426950408889634f, causal, window);
   return launch_status();
 }
 
@@ -347,16 +359,16 @@ int launch_flash_mma(const void* q, const void* k, const void* v, void* o,
 // float32 on the CUDA cores.
 template <typename T, int D>
 int launch_flash(const void* q, const void* k, const void* v, void* o,
-                 int B, int H, int KV, int Sq, int Sk, float scale,
-                 int causal, int window, cudaStream_t s) {
+                 float* lse, int B, int H, int KV, int Sq, int Sk,
+                 float scale, int causal, int window, cudaStream_t s) {
   if constexpr (std::is_same_v<T, bf16>) {
-    return launch_flash_mma<D>(q, k, v, o, B, H, KV, Sq, Sk, scale, causal, window, s);
+    return launch_flash_mma<D>(q, k, v, o, lse, B, H, KV, Sq, Sk, scale, causal, window, s);
   } else {
     dim3 grid(B * H, (Sq + kFlashBlockQ - 1) / kFlashBlockQ);
     flash_kernel<float, D><<<grid, kFlashThreads, 0, s>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(o), H, KV, Sq, Sk,
-        scale, causal, window);
+        static_cast<const float*>(v), static_cast<float*>(o), lse, H, KV, Sq,
+        Sk, scale, causal, window);
     return launch_status();
   }
 }
@@ -365,13 +377,14 @@ int launch_flash(const void* q, const void* k, const void* v, void* o,
 // nothing and returns kStatusBadHeadDim.
 template <typename T>
 int dispatch_flash(int D, const void* q, const void* k, const void* v,
-                   void* o, int B, int H, int KV, int Sq, int Sk,
+                   void* o, float* lse, int B, int H, int KV, int Sq, int Sk,
                    float scale, int causal, int window, cudaStream_t s) {
   switch (D) {
-    case 32: return launch_flash<T, 32>(q, k, v, o, B, H, KV, Sq, Sk, scale, causal, window, s);
-    case 64: return launch_flash<T, 64>(q, k, v, o, B, H, KV, Sq, Sk, scale, causal, window, s);
-    case 80: return launch_flash<T, 80>(q, k, v, o, B, H, KV, Sq, Sk, scale, causal, window, s);
-    case 128: return launch_flash<T, 128>(q, k, v, o, B, H, KV, Sq, Sk, scale, causal, window, s);
+    case 16: return launch_flash<T, 16>(q, k, v, o, lse, B, H, KV, Sq, Sk, scale, causal, window, s);
+    case 32: return launch_flash<T, 32>(q, k, v, o, lse, B, H, KV, Sq, Sk, scale, causal, window, s);
+    case 64: return launch_flash<T, 64>(q, k, v, o, lse, B, H, KV, Sq, Sk, scale, causal, window, s);
+    case 80: return launch_flash<T, 80>(q, k, v, o, lse, B, H, KV, Sq, Sk, scale, causal, window, s);
+    case 128: return launch_flash<T, 128>(q, k, v, o, lse, B, H, KV, Sq, Sk, scale, causal, window, s);
     default: return kStatusBadHeadDim;
   }
 }
@@ -379,14 +392,15 @@ int dispatch_flash(int D, const void* q, const void* k, const void* v,
 }  // namespace repro
 
 extern "C" int repro_flash_attention(const void* q, const void* k,
-                                     const void* v, void* o, int B, int H,
-                                     int KV, int Sq, int Sk, int D,
-                                     float scale, int causal, int window,
-                                     int dtype, void* stream) {
+                                     const void* v, void* o, void* lse,
+                                     int B, int H, int KV, int Sq, int Sk,
+                                     int D, float scale, int causal,
+                                     int window, int dtype, void* stream) {
   using namespace repro;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   if (dtype == kDtypeBF16) {
-    return dispatch_flash<__nv_bfloat16>(D, q, k, v, o, B, H, KV, Sq, Sk, scale, causal, window, s);
+    return dispatch_flash<__nv_bfloat16>(D, q, k, v, o, l, B, H, KV, Sq, Sk, scale, causal, window, s);
   }
-  return dispatch_flash<float>(D, q, k, v, o, B, H, KV, Sq, Sk, scale, causal, window, s);
+  return dispatch_flash<float>(D, q, k, v, o, l, B, H, KV, Sq, Sk, scale, causal, window, s);
 }

@@ -45,6 +45,64 @@ def attention(q, k, v, *, causal: bool = True, window: int = 0,
     return out.reshape(B, H, Sq, D).to(q.dtype)
 
 
+def _attn_mask(Sq, Sk, causal, window, device):
+    """(Sq, Sk) keys each query row sees, or None when it sees them all."""
+    if not causal:
+        return None
+    qpos = torch.arange(Sq, device=device)[:, None]
+    kpos = torch.arange(Sk, device=device)[None, :]
+    mask = kpos <= qpos
+    if window > 0:
+        mask &= kpos > qpos - window
+    return mask
+
+
+def attention_fwd(q, k, v, *, causal: bool = True, window: int = 0):
+    """`attention` and its per-row log-sum-exp: -> (o (B,H,Sq,D) in q's
+    dtype, lse (B,H,Sq) float32), the residual of `repro`'s
+    ``xla_flash._flash_fwd_impl``: the natural log of the row sum of
+    ``exp(q.k * D**-0.5)`` over the visible keys."""
+    B, H, Sq, D = q.shape
+    KV, Sk = k.shape[1], k.shape[2]
+    qg = q.reshape(B, KV, H // KV, Sq, D).float()
+    logits = torch.einsum("bkgqd,bkTd->bkgqT", qg, k.float()) * D ** -0.5
+    mask = _attn_mask(Sq, Sk, causal, window, q.device)
+    if mask is not None:
+        logits = torch.where(mask, logits, NEG_INF)
+    lse = torch.logsumexp(logits, dim=-1).reshape(B, H, Sq)
+    return attention(q, k, v, causal=causal, window=window), lse
+
+
+def attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
+                  window: int = 0):
+    """Plain flash backward (`repro.kernels.xla_flash._flash_bwd_impl`):
+    from the forward's output ``o`` and ``lse`` and the output's gradient
+    ``do`` -> (dq, dk, dv) in the operands' dtypes, float32 math:
+    ``D = rowsum(dO o)``, ``P = exp(S - lse)`` over the visible keys,
+    ``dV = P^T dO``, ``dS = P (dO V^T - D)``, ``dQ = dS K scale``,
+    ``dK = dS^T Q scale``; dK and dV sum over each kv head's query heads."""
+    B, H, Sq, D = q.shape
+    KV, Sk = k.shape[1], k.shape[2]
+    G = H // KV
+    scale = D ** -0.5
+    qg = q.reshape(B, KV, G, Sq, D).float()
+    dog = do.reshape(B, KV, G, Sq, D).float()
+    kf, vf = k.float(), v.float()
+    Dsum = (dog * o.reshape(B, KV, G, Sq, D).float()).sum(-1)
+    s = torch.einsum("bkgqd,bkTd->bkgqT", qg, kf) * scale
+    p = torch.exp(s - lse.reshape(B, KV, G, Sq, 1).float())
+    mask = _attn_mask(Sq, Sk, causal, window, q.device)
+    if mask is not None:
+        p = torch.where(mask, p, 0.0)
+    dv = torch.einsum("bkgqT,bkgqd->bkTd", p, dog)
+    dp = torch.einsum("bkgqd,bkTd->bkgqT", dog, vf)
+    ds = p * (dp - Dsum[..., None])
+    dq = torch.einsum("bkgqT,bkTd->bkgqd", ds, kf) * scale
+    dk = torch.einsum("bkgqT,bkgqd->bkTd", ds, qg) * scale
+    return (dq.reshape(B, H, Sq, D).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
 def decode_attention(q, k_cache, v_cache, cache_len, *, window: int = 0,
                      scale: float | None = None):
     """Single-token decode attention over a KV cache: (B,H,D) x

@@ -1,12 +1,17 @@
-"""Carry `repro`'s model weights into the port.
+"""Carry model weights between `repro` and the port.
 
 `params_from_jax` takes the pytree of `repro.models.transformer.Model.init`
 as nested dicts of numpy arrays (``jax.tree.map(np.asarray, params)``: no
-JAX type crosses over) and loads it into a port `Model`.  `repro` stacks
-each per-layer weight on a leading layer axis; the port holds one module
-per layer, so layer ``i`` takes slice ``i`` of every stacked array.  The
-SSM and hybrid trees carry ``layers.norm`` and ``layers.mamba.*``, and the
-hybrid's ``shared_attn`` (``norm``, ``attn``, ``mlp_norm``, ``mlp``).
+JAX type crosses over) and loads it into a port `Model` (serving) or
+`TrainModel` (training).  `repro` stacks each per-layer weight on a
+leading layer axis.  The serving `Model` holds one module per layer, so
+layer ``i`` takes slice ``i`` of every stacked array; the `TrainModel`
+keeps `repro`'s stacked leaves as its float32 masters.  The SSM and hybrid
+trees carry ``layers.norm`` and ``layers.mamba.*``, and the hybrid's
+``shared_attn`` (``norm``, ``attn``, ``mlp_norm``, ``mlp``).
+
+`params_to_numpy` goes back: either form to `repro`'s stacked tree of
+float32 numpy arrays, under `repro`'s keys.
 """
 from __future__ import annotations
 
@@ -14,7 +19,7 @@ import numpy as np
 import torch
 
 from repro_torch.models.config import ArchConfig
-from repro_torch.models.transformer import Model
+from repro_torch.models.transformer import Model, TrainModel
 
 
 def _load(dst: torch.Tensor, src) -> None:
@@ -25,12 +30,26 @@ def _load(dst: torch.Tensor, src) -> None:
     dst.copy_(torch.from_numpy(np.array(a, dtype=np.float32)))
 
 
+def _leaf(tree: dict, key: str):
+    for part in key.split("@"):
+        tree = tree[part]
+    return tree
+
+
 @torch.no_grad()
 def params_from_jax(cfg: ArchConfig, params: dict, *,
-                    device: str | torch.device = "cuda") -> Model:
-    """A `Model` on ``device`` holding ``params`` (embed, final_norm,
-    unembed, the stacked ``layers`` and, for the hybrid, ``shared_attn``),
-    each weight in the dtype the port keeps it in (see `Model`)."""
+                    device: str | torch.device = "cuda",
+                    train: bool = False) -> Model | TrainModel:
+    """A `Model` (or, with ``train``, a `TrainModel`) on ``device``
+    holding ``params`` (embed, final_norm, unembed, the stacked ``layers``
+    and, for the hybrid, ``shared_attn``).  The serving form keeps each
+    weight in its own dtype (see `Model`); the training form keeps every
+    leaf in float32, as `repro` does."""
+    if train:
+        model = TrainModel(cfg, device=device)
+        for key, p in model.masters.items():
+            _load(p, _leaf(params, key))
+        return model
     model = Model(cfg, device=device)
     _load(model.embed, params["embed"])
     _load(model.final_norm, params["final_norm"])
@@ -61,3 +80,35 @@ def _load_attn_mlp(blk, attn: dict, mlp: dict, i: int | None) -> None:
         for name in names:
             a = src[name] if i is None else src[name][i]
             _load(getattr(mod, name), a)
+
+
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    return np.array(t.detach().float().cpu())  # a copy, not a view
+
+
+def params_to_numpy(model: Model | TrainModel) -> dict:
+    """``model``'s weights as `repro`'s parameter tree: nested dicts of
+    float32 numpy arrays, each per-layer weight stacked on a leading layer
+    axis."""
+    tree: dict = {}
+
+    def put(key: str, a: np.ndarray) -> None:
+        node = tree
+        *path, last = key.split("@")
+        for part in path:
+            node = node.setdefault(part, {})
+        node[last] = a
+
+    if isinstance(model, TrainModel):
+        for key, p in model.masters.items():
+            put(key, _numpy(p))
+        return tree
+    for key in ("embed", "final_norm", "unembed"):
+        put(key, _numpy(getattr(model, key)))
+    for name, _ in model.layers[0].named_parameters():
+        put("layers@" + name.replace(".", "@"), np.stack(
+            [_numpy(blk.get_parameter(name)) for blk in model.layers]))
+    if model.shared_attn is not None:
+        for name, p in model.shared_attn.named_parameters():
+            put("shared_attn@" + name.replace(".", "@"), _numpy(p))
+    return tree

@@ -13,6 +13,11 @@ drawn or loaded where `repro` casts them at every use; the norm scales
 - ``forward``      : full-sequence hidden states
 - ``prefill``      : last-position logits and the decode cache
 - ``decode_step``  : one token per sequence against the cache
+
+`TrainModel` is the training form: float32 masters kept as `repro`'s
+stacked leaves, cast to the compute dtype at each use, with ``logits``
+and ``loss`` (the chunked cross-entropy included) and ``remat="full"`` as
+`torch.utils.checkpoint` per layer (and per group for the hybrid).
 """
 from __future__ import annotations
 
@@ -20,6 +25,8 @@ import dataclasses
 
 import torch
 from torch import nn
+from torch.func import functional_call
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
@@ -80,6 +87,12 @@ class Block(nn.Module):
         self.attn.init(generator)
         self.mlp.init(generator)
 
+    def forward(self, x, positions):
+        """x (B, S, d) -> (x (B, S, d), (k, v) (B, KV, S, hd))."""
+        a, kv = self.attn(L.rms_norm(x, self.attn_norm), positions)
+        x = x + a
+        return x + self.mlp(L.rms_norm(x, self.mlp_norm)), kv
+
 
 class MambaBlock(nn.Module):
     """Pre-norm Mamba2 layer: ``x + mamba(rms_norm(x, norm))``."""
@@ -94,6 +107,10 @@ class MambaBlock(nn.Module):
         """A unit norm; the Mamba block drawn from ``generator``."""
         self.norm.fill_(1.0)
         self.mamba.init(generator)
+
+    def forward(self, x, positions=None):
+        """x (B, S, d) -> x (B, S, d) (``positions`` unused: no rope)."""
+        return x + self.mamba(L.rms_norm(x, self.norm))
 
 
 class SharedAttnBlock(nn.Module):
@@ -132,6 +149,31 @@ class SharedAttnBlock(nn.Module):
         return x + self.mlp(L.rms_norm(x, self.mlp_norm))
 
 
+def _mask_pad(logits: torch.Tensor, vocab: int) -> torch.Tensor:
+    """``logits`` with the columns past ``vocab`` (vocabulary padding) at
+    -1e30."""
+    if logits.shape[-1] == vocab:
+        return logits
+    col = torch.arange(logits.shape[-1], device=logits.device)
+    return torch.where(col < vocab, logits, torch.tensor(
+        -1e30, dtype=logits.dtype, device=logits.device))
+
+
+def _check_ported(cfg: ArchConfig) -> None:
+    """Raise unless the port carries ``cfg``'s family and options."""
+    if cfg.family not in ("dense", "ssm", "hybrid") or \
+            cfg.attn_kind != "gqa" or cfg.moe is not None or \
+            cfg.vlm is not None or cfg.encdec is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: the port carries the dense GQA, SSM and hybrid "
+            f"families only")
+    if cfg.family == "hybrid" and cfg.n_layers % cfg.hybrid.attn_every:
+        raise ValueError(f"{cfg.name}: {cfg.n_layers} layers do not group"
+                         f" by attn_every {cfg.hybrid.attn_every}")
+    if cfg.tie_embeddings:
+        raise NotImplementedError("tied embeddings are not ported yet")
+
+
 class Model(nn.Module):
     """Decoder-only model of the dense GQA, SSM or hybrid family on
     ``device`` ("cuda" unless the caller asks for "cpu").  Construction
@@ -140,17 +182,7 @@ class Model(nn.Module):
 
     def __init__(self, cfg: ArchConfig, *, device: str | torch.device = "cuda"):
         super().__init__()
-        if cfg.family not in ("dense", "ssm", "hybrid") or \
-                cfg.attn_kind != "gqa" or cfg.moe is not None or \
-                cfg.vlm is not None or cfg.encdec is not None:
-            raise NotImplementedError(
-                f"{cfg.name}: the port carries the dense GQA, SSM and hybrid "
-                f"families only")
-        if cfg.family == "hybrid" and cfg.n_layers % cfg.hybrid.attn_every:
-            raise ValueError(f"{cfg.name}: {cfg.n_layers} layers do not group"
-                             f" by attn_every {cfg.hybrid.attn_every}")
-        if cfg.tie_embeddings:
-            raise NotImplementedError("tied embeddings are not ported yet")
+        _check_ported(cfg)
         self.cfg = cfg
         dev = resolve_device(device)
         dt = compute_dtype(cfg)
@@ -193,24 +225,17 @@ class Model(nn.Module):
         return self.unembed
 
     def _mask_pad(self, logits):
-        V = self.cfg.vocab
-        if logits.shape[-1] == V:
-            return logits
-        col = torch.arange(logits.shape[-1], device=logits.device)
-        return torch.where(col < V, logits, torch.tensor(
-            -1e30, dtype=logits.dtype, device=logits.device))
+        return _mask_pad(logits, self.cfg.vocab)
 
     def _layers_fwd(self, x, cache: KVCache | SSMCache | None = None):
         if self.cfg.family != "dense":
             return self._ssm_layers_fwd(x, cache)
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
         for i, blk in enumerate(self.layers):
-            a, (k, v) = blk.attn(L.rms_norm(x, blk.attn_norm), positions)
+            x, (k, v) = blk(x, positions)
             if cache is not None:
                 cache.k[i, :, :, : k.shape[2]] = k
                 cache.v[i, :, :, : v.shape[2]] = v
-            x = x + a
-            x = x + blk.mlp(L.rms_norm(x, blk.mlp_norm))
         return x
 
     def _ssm_layers_fwd(self, x, cache: SSMCache | None):
@@ -328,3 +353,264 @@ class Model(nn.Module):
         else:
             cache.len += 1
         return x
+
+
+# ----------------------------------------------------------------------
+# cross-entropy (repro.models.transformer._xent_full / _xent_chunked)
+# ----------------------------------------------------------------------
+NEG_INF = -1e30
+
+
+def _xent_full(x, w_out, labels, mask, valid_v=None):
+    """Mean next-token NLL over ``mask`` from the full (B, S, V) float32
+    logits, columns at or past ``valid_v`` masked out."""
+    logits = (x @ w_out).float()
+    if valid_v is not None and valid_v < w_out.shape[1]:
+        col = torch.arange(logits.shape[-1], device=logits.device)
+        logits = torch.where(col < valid_v, logits, NEG_INF)
+    lse = torch.logsumexp(logits, dim=-1)
+    lab = logits.gather(-1, labels.clamp(min=0)[..., None])[..., 0]
+    nll = (lse - lab) * mask
+    return nll.sum() / mask.sum().clamp(min=1.0)
+
+
+def _xent_stats(x, wp, labels, V, chunk, n):
+    """Streaming (log-sum-exp, label logit) over ``n`` vocabulary chunks of
+    the padded ``wp``: three (B, S) running stats, never a (B, S, V)
+    buffer."""
+    labc = labels.clamp(min=0)
+    B, S = labels.shape
+    m = torch.full((B, S), NEG_INF, device=x.device)
+    l = torch.zeros(B, S, device=x.device)
+    lab = torch.zeros(B, S, device=x.device)
+    for i in range(n):
+        lg = (x @ wp[:, i * chunk:(i + 1) * chunk]).float()
+        gidx = torch.arange(chunk, device=x.device) + i * chunk
+        lg = torch.where(gidx < V, lg, NEG_INF)
+        m_new = torch.maximum(m, lg.amax(-1))
+        l = l * torch.exp(m - m_new) + torch.exp(lg - m_new[..., None]).sum(-1)
+        m = m_new
+        lab = lab + torch.where(gidx == labc[..., None], lg, 0.0).sum(-1)
+    return m + torch.log(l.clamp(min=1e-30)), lab
+
+
+class _XentChunked(torch.autograd.Function):
+    """Memory-lean streaming cross-entropy whose backward is `repro`'s
+    analytic chunk loop: d logits = softmax - onehot, applied chunk by
+    chunk, so no (B, S, V) buffer is kept for it."""
+
+    @staticmethod
+    def forward(ctx, x, w_out, labels, mask, chunk, valid_v):
+        V = valid_v or w_out.shape[1]
+        n = -(-w_out.shape[1] // chunk)
+        wp = torch.nn.functional.pad(w_out, (0, n * chunk - w_out.shape[1]))
+        lse, lab = _xent_stats(x, wp, labels, V, chunk, n)
+        ctx.save_for_backward(x, wp, labels, mask, lse)
+        ctx.chunk, ctx.V, ctx.n, ctx.width = chunk, V, n, w_out.shape[1]
+        return ((lse - lab) * mask).sum() / mask.sum().clamp(min=1.0)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, wp, labels, mask, lse = ctx.saved_tensors
+        chunk = ctx.chunk
+        labc = labels.clamp(min=0)
+        scale = g * mask / mask.sum().clamp(min=1.0)           # (B, S)
+        dx = torch.zeros_like(x)
+        dw = torch.zeros_like(wp)
+        for i in range(ctx.n):
+            wchunk = wp[:, i * chunk:(i + 1) * chunk]
+            lg = (x @ wchunk).float()
+            gidx = torch.arange(chunk, device=x.device) + i * chunk
+            p = torch.where(gidx < ctx.V, torch.exp(lg - lse[..., None]), 0.0)
+            p = p - (gidx == labc[..., None]).float()
+            dlg = (p * scale[..., None]).to(x.dtype)           # (B, S, chunk)
+            dx = dx + dlg @ wchunk.T
+            dw[:, i * chunk:(i + 1) * chunk] = torch.einsum(
+                "bsd,bsc->dc", x, dlg).to(dw.dtype)
+        return dx, dw[:, :ctx.width], None, None, None, None
+
+
+def _xent_chunked(x, w_out, labels, mask, chunk: int, valid_v: int = 0):
+    """`_XentChunked` over vocabulary chunks of ``chunk`` columns."""
+    return _XentChunked.apply(x, w_out, labels, mask, chunk, valid_v)
+
+
+# ----------------------------------------------------------------------
+# the training form
+# ----------------------------------------------------------------------
+def _init_leaf(key: str, shape, generator, device) -> torch.Tensor:
+    """A float32 leaf drawn as `repro`'s ``Model.init`` draws it (another
+    generator, so other values): ``0.02 N(0, 1)`` for the embedding, unit
+    norms and ``D``, zero ``dt_bias`` and ``conv_b``, ``log(linspace(1,
+    16))`` for ``A_log``, ``0.1 N(0, 1)`` for ``conv_w`` and ``N(0, 1) /
+    sqrt(fan_in)`` for every other matrix (stacked leaves per layer)."""
+    name = key.split("@")[-1]
+
+    def randn():
+        return torch.randn(shape, generator=generator, device=device)
+
+    if key == "embed":
+        return 0.02 * randn()
+    if name in ("norm", "attn_norm", "mlp_norm", "final_norm", "D"):
+        return torch.ones(shape, device=device)
+    if name in ("dt_bias", "conv_b"):
+        return torch.zeros(shape, device=device)
+    if name == "A_log":
+        return torch.log(torch.linspace(1.0, 16.0, shape[-1],
+                                        device=device)).expand(shape).clone()
+    if name == "conv_w":
+        return 0.1 * randn()
+    return randn() / shape[-2] ** 0.5
+
+
+class TrainModel(nn.Module):
+    """The training form of `Model` on ``device`` ("cuda" unless the
+    caller asks for "cpu").
+
+    Its parameters are float32 masters, one `nn.Parameter` per leaf of
+    `repro`'s parameter tree under `repro`'s keys joined by ``@``
+    (``"embed"``, ``"layers@attn@wq"`` of shape (L, d, H hd), ...,
+    ``"shared_attn@mlp@w1"``), stacked on the layer axis as `repro` stacks
+    them, so that the optimizers apply `repro`'s leaf rules to the same
+    leaves.  Each use casts its slice to the dtype the serving `Model`
+    keeps that weight in (the compute dtype, or float32 for the norm
+    scales, ``A_log`` and ``dt_bias``), as `repro` casts ``p.astype(
+    x.dtype)``; the gradients reach the masters in float32.  The layers run
+    through one weightless block (on the meta device) called with each
+    layer's slices (`torch.func.functional_call`), so the serving code is
+    the training code.  `forward` records the graph for autograd; serve a
+    trained model through `models.convert` (``params_from_jax(cfg,
+    params_to_numpy(model))``)."""
+
+    def __init__(self, cfg: ArchConfig, *, device: str | torch.device = "cuda"):
+        super().__init__()
+        _check_ported(cfg)
+        self.cfg = cfg
+        dev = resolve_device(device)
+        dt = compute_dtype(cfg)
+        layer = Block if cfg.family == "dense" else MambaBlock
+        # weightless templates, kept out of the module tree
+        self.__dict__["_block"] = layer(cfg, device="meta", dtype=dt)
+        self.__dict__["_shared"] = (SharedAttnBlock(cfg, device="meta",
+                                                    dtype=dt)
+                                    if cfg.family == "hybrid" else None)
+        d, Vp = cfg.d_model, cfg.padded_vocab
+        specs = {"embed": ((Vp, d), dt), "final_norm": ((d,), torch.float32),
+                 "unembed": ((d, Vp), dt)}
+        self._layer_names = []
+        for n, p in self._block.named_parameters():
+            key = "layers@" + n.replace(".", "@")
+            specs[key] = ((cfg.n_layers,) + tuple(p.shape), p.dtype)
+            self._layer_names.append((n, key))
+        self._shared_names = []
+        if self._shared is not None:
+            for n, p in self._shared.named_parameters():
+                key = "shared_attn@" + n.replace(".", "@")
+                specs[key] = (tuple(p.shape), p.dtype)
+                self._shared_names.append((n, key))
+        self.use_dtype = {k: t for k, (_, t) in specs.items()}
+        self.masters = nn.ParameterDict({
+            k: nn.Parameter(torch.zeros(specs[k][0], device=dev))
+            for k in sorted(specs)})
+
+    @property
+    def device(self) -> torch.device:
+        """The device the masters lie on."""
+        return self.masters["embed"].device
+
+    def params(self) -> dict[str, torch.Tensor]:
+        """The masters by `repro`'s keys, in `repro`'s leaf order."""
+        return dict(self.masters.items())
+
+    @torch.no_grad()
+    def init(self, generator: torch.Generator) -> "TrainModel":
+        """Draw every master from ``generator`` (see `_init_leaf`)."""
+        for k, p in self.masters.items():
+            p.copy_(_init_leaf(k, p.shape, generator, p.device))
+        return self
+
+    def _use(self, key: str) -> torch.Tensor:
+        """Master ``key`` (unstacked) in the dtype it is used in."""
+        return self.masters[key].to(self.use_dtype[key])
+
+    def _layer(self, x, positions, *slices):
+        """One layer on ``slices``, its views of the stacked masters (in
+        ``_layer_names`` order), each cast to the dtype it is used in."""
+        w = {n: t.to(self.use_dtype[k])
+             for (n, k), t in zip(self._layer_names, slices)}
+        out = functional_call(self._block, w, (x, positions))
+        return out[0] if isinstance(out, tuple) else out
+
+    def _slices(self) -> list[tuple]:
+        """Per layer, its views of every stacked master.  One `unbind` a
+        leaf: its backward stacks the L layer gradients once, where
+        indexing layer by layer would add a zero-filled (L, ...) gradient
+        into the leaf's for every layer."""
+        per_leaf = [self.masters[k].unbind(0) for _, k in self._layer_names]
+        return list(zip(*per_leaf))
+
+    def _shared_block(self, x, positions, window: int):
+        w = {n: self._use(k) for n, k in self._shared_names}
+        return functional_call(self._shared, w, (x, positions),
+                               {"window": window})[0]
+
+    def _remat(self, fn, *args):
+        if self.cfg.remat == "full":
+            return checkpoint(fn, *args, use_reentrant=False)
+        return fn(*args)
+
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        """tokens (B, S) -> final-normed hidden states (B, S, d), with the
+        graph for autograd."""
+        cfg = self.cfg
+        x = self._use("embed")[tokens]
+        S = tokens.shape[1]
+        positions = torch.arange(S, device=x.device)[None, :]
+        slices = self._slices()
+        if cfg.family != "hybrid":
+            for ws in slices:
+                x = self._remat(self._layer, x, positions, *ws)
+        else:
+            every = cfg.hybrid.attn_every
+            window = cfg.hybrid.window if S > cfg.hybrid.window else 0
+
+            def group(x, *flat):
+                n = len(self._layer_names)
+                for j in range(every):
+                    x = self._remat(self._layer, x, positions,
+                                    *flat[j * n:(j + 1) * n])
+                return self._shared_block(x, positions, window)
+
+            for g in range(cfg.n_layers // every):
+                x = self._remat(group, x, *[t for ws in slices[
+                    g * every:(g + 1) * every] for t in ws])
+        return L.rms_norm(x, self.masters["final_norm"])
+
+    def unembed_matrix(self) -> torch.Tensor:
+        """(d, V) output projection in the compute dtype."""
+        return self._use("unembed")
+
+    def logits(self, tokens: torch.Tensor) -> torch.Tensor:
+        """tokens (B, S) -> (B, S, V) logits, padded columns at -1e30."""
+        return _mask_pad(self.forward(tokens) @ self.unembed_matrix(),
+                         self.cfg.vocab)
+
+    def loss(self, batch: dict):
+        """Mean next-token cross-entropy of ``batch`` ({"tokens", "labels"}
+        (B, S), numpy or tensors; labels < 0 are ignored) -> (loss,
+        {"nll", "aux"}), chunked over the vocabulary when
+        ``cfg.logit_chunk_vocab`` is set.  These families have no auxiliary
+        loss: ``aux`` is 0."""
+        cfg = self.cfg
+        tokens = torch.as_tensor(batch["tokens"], device=self.device).long()
+        labels = torch.as_tensor(batch["labels"], device=self.device).long()
+        x = self.forward(tokens)
+        mask = (labels >= 0).float()
+        w_out = self.unembed_matrix()
+        if cfg.logit_chunk_vocab > 0:
+            nll = _xent_chunked(x, w_out, labels, mask, cfg.logit_chunk_vocab,
+                                cfg.vocab)
+        else:
+            nll = _xent_full(x, w_out, labels, mask, cfg.vocab)
+        aux = torch.zeros((), device=self.device)
+        return nll + 0.01 * aux, {"nll": nll, "aux": aux}

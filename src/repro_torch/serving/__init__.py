@@ -3,7 +3,9 @@ counterpart); names resolve on first access, as in `repro_torch.core`."""
 import importlib
 
 _EXPORTS = {
-    "ServingEngine": "engine",
+    "ServingEngine": "engine", "ServingScheduler": "engine",
+    "RequestRecord": "engine", "build_zoo": "zoo",
+    "sequence_accuracy": "zoo",
     "EngineLoadModel": "loadsim", "EngineSim": "loadsim",
     "FleetEngineSim": "loadsim", "FleetLoadModel": "loadsim",
     "LoadTrace": "loadsim", "fit_slowdown_curve": "loadsim",

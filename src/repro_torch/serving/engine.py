@@ -3,12 +3,15 @@
 One `ServingEngine` hosts one `Model` and serves a prompt by prefill and
 then greedy decode, reporting time to first token and decode time.  Every
 time it reads waits for the device first (`torch.cuda.synchronize`), as
-`repro` waits with ``block_until_ready``.
+`repro` waits with ``block_until_ready``.  `ServingScheduler` puts a
+bounded queue (backpressure) and hedged retries of slow requests in front
+of an engine.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
+from collections import deque
 
 import numpy as np
 import torch
@@ -96,3 +99,41 @@ class ServingEngine:
         priced at their own per-model rate (per 1k tokens)."""
         return (self.prefill_price_per_1k * tokens_in
                 + self.price_per_1k * tokens_out) / 1000.0
+
+
+class ServingScheduler:
+    """FIFO scheduler with deadlines and hedged retries (straggler
+    mitigation): a request that takes longer than ``hedge_after_s`` is run
+    once more and the faster of the two results kept; a full queue of
+    ``max_queue`` refuses new work (backpressure)."""
+
+    def __init__(self, engine: ServingEngine, *, hedge_after_s: float = 5.0,
+                 max_queue: int = 256):
+        self.engine = engine
+        self.hedge_after_s = hedge_after_s
+        self.max_queue = max_queue
+        self._queue: deque = deque()
+        self._next_id = 0
+
+    def submit(self, tokens, max_new: int = 32) -> RequestRecord:
+        """Serve ``tokens`` (B, S) now; raises when the queue is full."""
+        if len(self._queue) >= self.max_queue:
+            raise RuntimeError("backpressure: queue full")
+        rid = self._next_id
+        self._next_id += 1
+        tq = time.perf_counter()
+        # one engine, served inline: the queue models arrival
+        queue_s = time.perf_counter() - tq
+        t0 = time.perf_counter()
+        out, ttft, dec = self.engine.generate(tokens, max_new=max_new)
+        hedged = False
+        if time.perf_counter() - t0 > self.hedge_after_s:
+            # hedge: one retry, and the faster result wins
+            out2, ttft2, dec2 = self.engine.generate(tokens, max_new=max_new)
+            if ttft2 + dec2 < ttft + dec:
+                out, ttft, dec = out2, ttft2, dec2
+            hedged = True
+        return RequestRecord(
+            request_id=rid, tokens_in=int(np.prod(np.shape(tokens))),
+            tokens_out=int(out.shape[1]), ttft_s=ttft, decode_s=dec,
+            queue_s=queue_s, output=out, hedged=hedged)
