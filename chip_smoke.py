@@ -5,6 +5,7 @@
     python3 chip_smoke.py --phases device,kernels --verbose-build
     python3 chip_smoke.py --phases device,train,train-ssm,zoo
     python3 chip_smoke.py --phases device,serve,serve-events
+    python3 chip_smoke.py --phases device,kernels,serve-dense,train-hybrid
 
 Phases (any failure exits non-zero and prints no result):
 
@@ -24,9 +25,10 @@ Phases (any failure exits non-zero and prints no result):
                lane forms (`CLASS_SHAPES`).  The flash backward runs at the
                training shapes (`BWD_SHAPES`) from the forward's own output
                and log-sum-exp (held against `ref.attention_fwd`), against
-               `ref.attention_bwd` and beside SDPA's backward; the
+               `ref.attention_bwd` and beside SDPA's backward, with the
+               forward's training form timed at each bf16 one; the
                attention kernels also at the zoo's head dims 16 and 32 in
-               float32; a gradient through each autograd `Function` of
+               float32 and at MLA's 96 (v padded from 64); a gradient through each autograd `Function` of
                `kernels.ops` is held against autograd through the plain
                version (`check_autograd`);
 3. serve     — an NL2SQL-2 cohort through the fleet runtime: first with the
@@ -48,16 +50,25 @@ Phases (any failure exits non-zero and prints no result):
                under `torch.profiler`, each of which must be one kernel and
                two copies (after the last serve phase that runs: a
                profiler session slows later launches).
-6. train     — Yi-9B at full width, 12 layers (2.60B parameters), float32
+6. serve-dense — the same cohort served by full-width, full-depth
+               MiniCPM3-4B (engine-a, MLA) and Mistral-NeMo-12B (engine-b)
+               engines, then one stage invocation of Qwen2-72B (QKV bias)
+               at 36 of its 80 layers, each engine's 2-layer copy held
+               against its float32 CPU copy, launches exact;
+7. train     — Yi-9B at full width, 12 layers (2.60B parameters), float32
                masters, AdamW, remat, a (2, 2048) batch from a 256-symbol
                Markov source, 4 steps: every gradient present and nonzero,
                the loss falling, a 2-layer copy's loss and gradients
                against its float32 CPU copy, launches per step exact; step
                time, tokens/s, model-FLOP share, peak memory, and one step
                under `torch.profiler`;
-7. train-ssm — the same for Mamba2-1.3B at full width and depth, (1, 2048),
+8. train-ssm — the same for Mamba2-1.3B at full width and depth, (1, 2048),
                3 steps (the SSD kernel forward, the plain recompute back);
-8. zoo       — `build_zoo` with `repro`'s ladder on the card (its launches
+9. train-hybrid — the same for Zamba2-2.7B at full width and depth, (1,
+               2048), 3 steps (checkpointed layers inside checkpointed
+               groups), then one step of a 2-layer full-width copy of each
+               dense family against its float32 CPU copy, launches exact;
+10. zoo      — `build_zoo` with `repro`'s ladder on the card (its launches
                exact), held-out accuracy rising from zoo-s to zoo-m to
                zoo-l, then the end-to-end example's loop
                (`repro_torch.examples.serve_workflow`, ``--requests 24
@@ -127,15 +138,23 @@ KERNELS = {
                  "src/repro/kernels/ssd_scan.py:91"),
 }
 # (heads, kv heads, head dim, decode window) of the attention in each
-# serving path: zamba2's shared block decodes with its window of 4096
-ATTN_SHAPES = {"yi-9b": (32, 4, 128, 0), "zamba2-2.7b": (32, 32, 80, 4096)}
+# serving path: zamba2's shared block decodes with its window of 4096;
+# mistral-nemo-12b decodes at G = 4, qwen2-72b at G = 8
+ATTN_SHAPES = {"yi-9b": (32, 4, 128, 0), "zamba2-2.7b": (32, 32, 80, 4096),
+               "mistral-nemo-12b": (32, 8, 128, 0),
+               "qwen2-72b": (64, 8, 128, 0)}
+# minicpm3-4b's MLA prefill: (heads, qk head dim, v head dim); v is padded
+# to the qk dim, kv heads = heads
+MLA_ATTN = ("minicpm3-4b", 40, 96, 64)
 # the zoo's attention (repro's ladder: head dims 16, 16, 32; float32)
 ZOO_ATTN = {"zoo-s": (2, 2, 16), "zoo-m": (4, 4, 16), "zoo-l": (4, 4, 32)}
 # the flash backward at the training shapes: (label, dtype, B, H, KV, S, D)
 BWD_SHAPES = (("yi-9b train", "bfloat16", 2, 32, 4, 2048, 128),
               ("zamba2-2.7b train", "bfloat16", 1, 32, 32, 2048, 80),
+              ("minicpm3-4b train", "bfloat16", 1, 40, 40, 2048, 96),
               ("zoo-s", "float32", 16, 2, 2, 32, 16),
-              ("zoo-l", "float32", 16, 4, 4, 32, 32))
+              ("zoo-l", "float32", 16, 4, 4, 32, 32),
+              ("mla float32", "float32", 2, 4, 4, 100, 96))
 
 
 def log(*a):
@@ -577,6 +596,43 @@ def _attn_pairs(Sq, Sk, causal, window):
     return int(m.sum())
 
 
+def _time_flash(rec, label, q, k, v, lse: bool = False):
+    """Time the causal flash forward on (q, k, v) warm and cold in L2 (with
+    ``lse``, in the training form that also writes the log-sum-exp),
+    beside the plain version, SDPA and the bound; record and return it."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    B, H, S, D = q.shape
+    ms = graph_ms(lambda: flash_attention(q, k, v, causal=True,
+                                          return_lse=lse))
+    plain_ms = graph_ms(lambda: ref.attention(q, k, v, causal=True),
+                        calls=20 if S <= PROMPT else 3)
+    lib_ms = graph_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True))
+    cold = cold_inputs(q, k, v)
+    cold_ms = graph_ms(lambda *a: flash_attention(*a, causal=True,
+                                                  return_lse=lse),
+                       inputs=cold)
+    lib_cold_ms = graph_ms(
+        lambda a, b, c: F.scaled_dot_product_attention(
+            a, b, c, is_causal=True, enable_gqa=True), inputs=cold)
+    del cold
+    nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
+    ops = 4.0 * D * H * B * _attn_pairs(S, S, True, 0)
+    b_ms, b_by = bound(nbytes, ops, BF16_OPS)
+    case = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib_ms, cold_ms=cold_ms,
+                library_cold_ms=lib_cold_ms, tol=BF16_TOL)
+    rec.setdefault("timing_cases", {})[f"flash_attention {label}"] = case
+    log(f"  flash_attention {label} causal: kernel {ms:.4f} ms (cold L2 "
+        f"{cold_ms:.4f}), plain {plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms "
+        f"(cold L2 {lib_cold_ms:.4f}), bound {b_ms:.6f} ms ({b_by})")
+    return case
+
+
 def check_flash(rec):
     import torch
     import torch.nn.functional as F
@@ -605,31 +661,30 @@ def check_flash(rec):
                 f"{KV} window={window}: {err_str(out, want, tol)}")
             if dt != torch.bfloat16 or S != PROMPT or window:
                 continue
-            ms = graph_ms(lambda: flash_attention(q, k, v, causal=True))
-            plain_ms = graph_ms(lambda: ref.attention(q, k, v, causal=True))
-            lib_ms = graph_ms(lambda: F.scaled_dot_product_attention(
-                q, k, v, is_causal=True, enable_gqa=True))
-            cold = cold_inputs(q, k, v)
-            cold_ms = graph_ms(lambda *a: flash_attention(*a, causal=True),
-                               inputs=cold)
-            lib_cold_ms = graph_ms(
-                lambda a, b, c: F.scaled_dot_product_attention(
-                    a, b, c, is_causal=True, enable_gqa=True), inputs=cold)
-            del cold
-            nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
-            ops = 4.0 * D * H * _attn_pairs(S, S, True, 0)
-            b_ms, b_by = bound(nbytes, ops, BF16_OPS)
-            case = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                        library_ms=lib_ms, cold_ms=cold_ms,
-                        library_cold_ms=lib_cold_ms, tol=BF16_TOL)
-            rec.setdefault("timing_cases", {})[
-                f"flash_attention {arch} (1,{H},{S},{D}) kv {KV}"] = case
+            case = _time_flash(rec, f"{arch} (1,{H},{S},{D}) kv {KV}", q, k, v)
             if arch == "yi-9b":  # the first path's shape heads the table
                 rec["kernels"]["flash_attention"] = case
-            log(f"  flash_attention {arch} (1,{H},{S},{D}) kv {KV} causal: "
-                f"kernel {ms:.4f} ms (cold L2 {cold_ms:.4f}), plain "
-                f"{plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms (cold L2 "
-                f"{lib_cold_ms:.4f}), bound {b_ms:.6f} ms ({b_by})")
+    # minicpm3-4b's MLA prefill: qk head dim 96, v padded from 64 to 96
+    # (the output's first 64 columns are kept), as many kv heads as heads
+    arch, H, D, dv = MLA_ATTN
+    for dt, tol, S in ((torch.bfloat16, BF16_TOL, PROMPT),
+                       (torch.bfloat16, BF16_TOL, 100),
+                       (torch.float32, F32_TOL, 100)):
+        q = torch.randn(1, H, S, D, generator=g, device="cuda").to(dt)
+        k = torch.randn(1, H, S, D, generator=g, device="cuda").to(dt)
+        v = F.pad(torch.randn(1, H, S, dv, generator=g, device="cuda"),
+                  (0, D - dv)).to(dt)
+        out = flash_attention(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        want = ref.attention(q, k, v, causal=True)
+        err = max(err, check_close("flash_attention", out, want, tol))
+        if not bool((out[..., dv:] == 0).all()):
+            raise AssertionError("flash_attention: the padded v columns "
+                                 "gave nonzero output")
+        log(f"  flash_attention {arch} MLA {str(dt)[6:]} (1,{H},{S},{D}) kv "
+            f"{H}, v padded {dv} -> {D}: {err_str(out, want, tol)}")
+        if dt == torch.bfloat16 and S == PROMPT:
+            _time_flash(rec, f"{arch} MLA (1,{H},{S},{D}) kv {H}", q, k, v)
     # the zoo's head dims, float32 (the zoo's dtype) and bf16, ragged too
     for arch, (H, KV, D) in ZOO_ATTN.items():
         for dt, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
@@ -692,7 +747,8 @@ def check_flash_bwd(rec):
              for dt in ("bfloat16", "float32")
              for H, KV, S, D, w in ((8, 2, 100, 64, 0), (8, 2, 100, 64, 48),
                                     (4, 1, 130, 128, 0), (4, 4, 77, 80, 16),
-                                    (2, 2, 40, 16, 0), (4, 2, 33, 32, 8))]
+                                    (4, 4, 77, 96, 0), (2, 2, 40, 16, 0),
+                                    (4, 2, 33, 32, 8))]
     cases = [c + (0,) for c in BWD_SHAPES] + small
     for label, dts, B, H, KV, S, D, window in cases:
         dt = getattr(torch, dts)
@@ -723,6 +779,9 @@ def check_flash_bwd(rec):
         del want
         if label.startswith("small"):
             continue
+        if dt == torch.bfloat16:  # the training form of the forward, too
+            _time_flash(rec, f"{label} ({B},{H},{S},{D}) kv {KV}", q, k, v,
+                        lse=True)
         ms = graph_ms(lambda: flash_attention_bwd(q, k, v, o, lse, do))
         plain_ms = graph_ms(lambda: ref.attention_bwd(q, k, v, o, lse, do),
                             calls=3)
@@ -906,13 +965,16 @@ def check_rms_norm(rec):
     g = torch.Generator(device="cuda").manual_seed(SEED + 2)
     err = 0.0
     # yi-9b rows (4096), the mamba2 / zamba2 block norms (2048, 2560) and
-    # their gated norms (4096, 5120), and a width that is no multiple of a
-    # 16-byte vector (100: element by element); bf16 is timed at one row
-    # (decode) at every serving width and at 448 rows (prefill) at yi-9b's
+    # their gated norms (4096, 5120), mistral-nemo-12b's (5120), qwen2-72b's
+    # (8192), minicpm3-4b's (2560) and its MLA norms (q 768, kv 256), and a
+    # width that is no multiple of a 16-byte vector (100: element by
+    # element); bf16 is timed at one row (decode) at every serving width
+    # and at 448 rows (prefill) at yi-9b's
     cases = [(dt, tol, rows, D)
              for dt, tol in ((torch.bfloat16, BF16_TOL),
                              (torch.float32, F32_TOL))
-             for D in (4096, 2048, 2560, 5120, 100) for rows in (PROMPT, 1)]
+             for D in (4096, 2048, 2560, 5120, 8192, 768, 256, 100)
+             for rows in (PROMPT, 1)]
     for dt, tol, rows, D in cases:
         x = (3 * torch.randn(rows, D, generator=g, device="cuda")).to(dt)
         s = torch.rand(D, generator=g, device="cuda") + 0.5
@@ -1399,14 +1461,18 @@ def _expected_launches(cfg, invocations: int, max_new: int = MAX_NEW) -> dict:
     ``max_new`` decode steps each) on an engine of ``cfg``: per prefill, L
     flash launches (dense) or L SSD scans and L / attn_every flash launches
     (hybrid: its shared block); per decode step as many decode-attention
-    launches; 2L + 1 RMSNorms per prefill and per step (block norms, or
-    block and gated norms, and the final norm) plus 2 per shared-block
-    application."""
+    launches, none for MLA (its absorbed decode has no kernel); 2L + 1
+    RMSNorms per prefill and per step (block norms, or block and gated
+    norms, and the final norm) plus 2 per shared-block application and 2
+    a layer for MLA (its q and kv latent norms)."""
     L = cfg.n_layers
     attn = L if cfg.family == "dense" else \
         L // cfg.hybrid.attn_every if cfg.family == "hybrid" else 0
-    norms = 2 * L + 1 + (2 * attn if cfg.family == "hybrid" else 0)
-    per_run = {"flash_attention": attn, "decode_attention": attn * max_new,
+    mla = cfg.attn_kind == "mla"
+    norms = 2 * L + 1 + (2 * attn if cfg.family == "hybrid" else 0) + \
+        (2 * L if mla else 0)
+    per_run = {"flash_attention": attn,
+               "decode_attention": 0 if mla else attn * max_new,
                "rms_norm": norms * (1 + max_new),
                "ssd_scan": 0 if cfg.family == "dense" else L}
     return {k: v * invocations for k, v in per_run.items()}
@@ -1917,12 +1983,148 @@ def phase_serve_ssm(args, rec):
     _after_serving(args, rec, "serve-ssm", cohort)
 
 
+# the dense families' path: two engines at full width and depth, then
+# qwen2-72b alone, depth cut to fit the card (80 layers of 0.89B would not)
+DENSE_ENGINES = {"engine-a": "minicpm3-4b", "engine-b": "mistral-nemo-12b"}
+QWEN_LAYERS = 36
+DENSE_CHECK_LAYERS = 2
+
+
+def _draw_biases(model, seed: int) -> None:
+    """Nonzero QKV biases (0.5 N(0, 1), layer i from seed + i), so that the
+    card's bias add is seen by the checks (`repro` inits them to zero)."""
+    import torch
+
+    with torch.no_grad():
+        for i, blk in enumerate(model.layers):
+            g = torch.Generator(device="cuda").manual_seed(seed + i)
+            for b in (blk.attn.bq, blk.attn.bk, blk.attn.bv):
+                b.copy_(0.5 * torch.randn(b.shape, generator=g,
+                                          device="cuda"))
+
+
+def _weight_bound(model):
+    """(ms, GB): the weights one decode step reads (all but the embedding,
+    of which it reads one row) over the card's memory rate."""
+    nbytes = sum(p.numel() * p.element_size() for n, p in
+                 model.named_parameters() if n != "embed")
+    return nbytes / HBM_BPS * 1e3, nbytes / 1e9
+
+
+def _dense_engine(tpl, ename, cfg, seed):
+    """`_engine` with QKV biases drawn where the config has them."""
+    eng = _engine(tpl, ename, cfg, seed)
+    if cfg.qkv_bias:
+        _draw_biases(eng.model, seed + 1000)
+    return eng
+
+
+def _engine_reading(eng, path, rec):
+    """Log and record an engine's prefill, decode per token, weight-read
+    bound and the path's peak memory (from `_serve_cohort`'s record)."""
+    out = rec["paths"][path]
+    e = out["engines"].get(eng.name)
+    if e is None:
+        return
+    b_ms, gb = _weight_bound(eng.model)
+    e.update(weight_bound_ms=b_ms, weight_gb=gb,
+             params=sum(p.numel() for p in eng.model.parameters()))
+    log(f"[{rec['smi']}] {eng.model.cfg.name} ({eng.model.cfg.n_layers} "
+        f"layers, {e['params'] / 1e9:.2f}B parameters): prefill {PROMPT} "
+        f"tokens {e['prefill_ms']:.2f} ms, decode "
+        f"{e['decode_ms_per_token']:.3f} ms/token, weight-read bound "
+        f"{b_ms:.3f} ms/token ({gb:.2f} GB), peak memory "
+        f"{out['max_memory_allocated_gb']:.2f} GB")
+
+
+def phase_serve_dense(args, rec):
+    """The cohort on minicpm3-4b (engine-a, MLA) and mistral-nemo-12b
+    (engine-b), both at full width and depth, with a 2-layer copy of each
+    held against its float32 CPU copy and the launches exact; then, with
+    both freed, qwen2-72b (QKV bias) at full width, depth cut to
+    QWEN_LAYERS, for one stage invocation: its 2-layer model (drawn from
+    the same seed before the engine, so the two never share the card)
+    against float32 on the CPU, and the invocation's launches exact."""
+    import gc
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+
+    rec.pop("yi_engines", None)
+    gc.collect()
+    torch.cuda.empty_cache()
+    cohort = _cohort()
+    tpl = cohort[0]
+    t0 = time.perf_counter()
+    engines = {e: _dense_engine(tpl, e, get_config(arch), SEED + 30 + i)
+               for i, (e, arch) in enumerate(sorted(DENSE_ENGINES.items()))}
+    torch.cuda.synchronize()
+    log(f"reduced: nothing (every layer, full width); weights random from "
+        f"seed {SEED + 30}; init {time.perf_counter() - t0:.1f} s")
+    for eng in engines.values():
+        small = _reduced_copy(eng.model, DENSE_CHECK_LAYERS)
+        _model_check(small, rec, f"{eng.model.cfg.name} {eng.name} first "
+                     f"{DENSE_CHECK_LAYERS} layers", 100)
+        del small
+    _serve_cohort("dense", engines, cohort, rec, args)
+    for eng in engines.values():
+        _engine_reading(eng, "dense", rec)
+    del engines, eng  # the loop's name holds an engine too
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    full = get_config("qwen2-72b")
+    cfg = dataclasses.replace(full, n_layers=QWEN_LAYERS)
+    seed = SEED + 40
+    small = _dense_engine(tpl, "engine-a", dataclasses.replace(
+        cfg, n_layers=DENSE_CHECK_LAYERS), seed).model
+    _model_check(small, rec, f"qwen2-72b first {DENSE_CHECK_LAYERS} layers",
+                 100)
+    del small
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  before qwen2-72b: {torch.cuda.memory_allocated() / 1e9:.2f} GB "
+        f"still allocated")
+    eng = _dense_engine(tpl, "engine-a", cfg, seed)
+    log(f"reduced: depth only, {QWEN_LAYERS} of {full.n_layers} layers (80 "
+        f"layers of bf16 weights, ~145 GB, do not fit the card's 80 GB); "
+        f"weights random from seed {seed}")
+    prompt = np.random.default_rng(SEED).integers(0, cfg.vocab, (1, PROMPT))
+    eng.generate(np.zeros((1, PROMPT), np.int64), max_new=2)  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    out, ttft, dec = eng.generate(prompt, max_new=MAX_NEW)
+    launches = dict(_build.LAUNCHES)
+    expect = {k: 0 for k in KERNELS}
+    expect.update(_expected_launches(cfg, 1))
+    log(f"  launches of one stage invocation on qwen2-72b: {launches} "
+        f"(expected {expect})")
+    if launches != expect or out.shape != (1, MAX_NEW) or \
+            out.min() < 0 or out.max() >= cfg.vocab:
+        raise AssertionError("qwen2-72b: the stage invocation's launches or "
+                             "tokens are off")
+    rec["paths"]["qwen2-72b"] = dict(
+        launches=launches, max_memory_allocated_gb=torch.cuda.
+        max_memory_allocated() / 1e9, engines={"engine-a": dict(
+            invocations=1, prefill_ms=ttft * 1e3,
+            decode_ms_per_token=dec * 1e3 / MAX_NEW, stage_s=ttft + dec)})
+    _engine_reading(eng, "qwen2-72b", rec)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    _after_serving(args, rec, "serve-dense", cohort)
+
+
 # ----------------------------------------------------------------------
-# phases train, train-ssm: a few steps of a full-width model on the card
+# phases train, train-ssm, train-hybrid: a few steps of a full-width model
+# on the card
 # ----------------------------------------------------------------------
 # phase -> (arch, layers (None: all), (batch, sequence), steps)
 TRAIN_PATHS = {"train": ("yi-9b", 12, (2, 2048), 4),
-               "train-ssm": ("mamba2-1.3b", None, (1, 2048), 3)}
+               "train-ssm": ("mamba2-1.3b", None, (1, 2048), 3),
+               "train-hybrid": ("zamba2-2.7b", None, (1, 2048), 3)}
 # the token source: MarkovLMData's V**kgram x V table cannot be built at a
 # real vocabulary (2.6e14 entries at Yi-9B's 64000), so the tokens come
 # from 256 symbols, kgram 2, and enter the full embedding; the loss still
@@ -1941,47 +2143,79 @@ def _token_batch(B: int, S: int, seed: int) -> dict:
 
 
 def _train_launches(cfg) -> dict:
-    """Kernel launches of one train step of ``cfg``: the forward's (L
-    flash or SSD launches, 2L + 1 RMSNorms: each layer's two, then the
-    final norm), each layer's forward again under ``remat="full"`` (the
-    final norm sits outside the checkpointed layers), and one flash
-    backward a layer; the RMSNorm and SSD backwards recompute their plain
-    versions and launch nothing."""
+    """Kernel launches of one loss-and-gradient of ``cfg``.  The forward
+    launches, a layer: dense, one flash and 2 RMSNorms (4 with MLA's
+    latent norms); SSM and hybrid, one SSD scan and 2 RMSNorms; and a
+    hybrid group's shared block one flash and 2 RMSNorms; then the final
+    norm, once.  ``remat="full"`` checkpoints each layer, so its forward
+    runs again in the backward; the hybrid checkpoints each group too, so
+    a group's forward runs once more (its layers' checkpointed bodies
+    included) and each Mamba layer runs three times, its shared block
+    twice (the final norm sits outside every checkpoint).  One flash
+    backward an attention; the RMSNorm and SSD backwards recompute their
+    plain versions and launch nothing."""
     L = cfg.n_layers
-    r = 2 if cfg.remat == "full" else 1
+    full = cfg.remat == "full"
     out = {k: 0 for k in KERNELS}
     if cfg.family == "dense":
+        r = 2 if full else 1
+        norms = 4 if cfg.attn_kind == "mla" else 2
         out.update(flash_attention=r * L, flash_attention_bwd=L,
-                   rms_norm=r * 2 * L + 1)
+                   rms_norm=r * norms * L + 1)
     elif cfg.family == "ssm":
+        r = 2 if full else 1
         out.update(ssd_scan=r * L, rms_norm=r * 2 * L + 1)
     else:
-        raise NotImplementedError(f"no launch count for {cfg.family}")
+        G = L // cfg.hybrid.attn_every
+        r_layer, r_group = (3, 2) if full else (1, 1)
+        out.update(ssd_scan=r_layer * L, flash_attention=r_group * G,
+                   flash_attention_bwd=G,
+                   rms_norm=r_layer * 2 * L + r_group * 2 * G + 1)
     return out
 
 
 def _train_check(model, label, rec):
-    """A copy of ``model`` cut to its first TRAIN_CHECK layers (shared
-    weights whole) takes one loss-and-gradient on the card and on its
-    float32 CPU copy: the loss and every gradient leaf within
-    MODEL_REL_TOL, relative L2."""
+    """A copy of ``model`` cut to its first TRAIN_CHECK layers (the
+    hybrid: one group of attn_every layers; shared weights whole), held by
+    `_hold_train_copy`."""
     import torch
 
     from repro_torch.models.transformer import TrainModel
-    from repro_torch.train.step import value_and_grad
 
-    n, (B, S) = TRAIN_CHECK
-    cfg = dataclasses.replace(model.cfg, n_layers=n)
-    small = TrainModel(cfg, device="cuda")
-    cpu = TrainModel(dataclasses.replace(cfg, dtype="float32"), device="cpu")
+    cfg = model.cfg
+    n = cfg.hybrid.attn_every if cfg.family == "hybrid" else TRAIN_CHECK[0]
+    small = TrainModel(dataclasses.replace(cfg, n_layers=n), device="cuda")
     with torch.no_grad():
         for k, p in small.masters.items():
-            src = model.masters[k][:n] if k.startswith("layers@") else \
-                model.masters[k]
-            p.copy_(src)
-            cpu.masters[k].copy_(src.cpu())
+            p.copy_(model.masters[k][:n] if k.startswith("layers@") else
+                    model.masters[k])
+    _hold_train_copy(small, label, rec, TRAIN_CHECK[1])
+    del small
+
+
+def _hold_train_copy(small, label, rec, shape):
+    """One loss-and-gradient of ``small`` on a ``shape`` batch on the card,
+    its launches exact (`_train_launches`), and on its float32 CPU copy:
+    the loss and every gradient leaf within MODEL_REL_TOL, relative L2."""
+    import torch
+
+    from repro_torch.kernels import _build
+    from repro_torch.models.transformer import TrainModel
+    from repro_torch.train.step import value_and_grad
+
+    B, S = shape
+    cpu = TrainModel(dataclasses.replace(small.cfg, dtype="float32"),
+                     device="cpu")
+    with torch.no_grad():
+        for k, p in small.masters.items():
+            cpu.masters[k].copy_(p.cpu())
     batch = _token_batch(B, S, SEED + 1)
+    _build.reset_launches()
     loss, _, grads = value_and_grad(small, batch)
+    launches, expect = dict(_build.LAUNCHES), _train_launches(small.cfg)
+    if launches != expect:
+        raise AssertionError(f"{label}: launches of the copy's "
+                             f"loss-and-gradient {launches} != {expect}")
     want, _, wgrads = value_and_grad(cpu, batch)
     errs = {"loss": abs(float(loss) - float(want)) / abs(float(want))}
     for k, g in wgrads.items():
@@ -1991,14 +2225,33 @@ def _train_check(model, label, rec):
         errs[k] = float((got - g).norm() / g.norm().clamp(min=1e-30))
     worst = max(errs, key=errs.get)
     rec.setdefault("train_rel_err", {})[label] = errs
-    log(f"  {label}: {n}-layer copy, one step on ({B},{S}) tokens vs its "
-        f"float32 CPU copy: loss {float(loss):.6f} vs {float(want):.6f}, "
-        f"relative L2 err: worst {worst} {errs[worst]:.3g} over "
-        f"{len(errs)} leaves (tol {MODEL_REL_TOL})")
+    log(f"  {label}: {small.cfg.n_layers}-layer copy, one step on ({B},{S}) "
+        f"tokens vs its float32 CPU copy: loss {float(loss):.6f} vs "
+        f"{float(want):.6f}, relative L2 err: worst {worst} "
+        f"{errs[worst]:.3g} over {len(errs)} leaves (tol {MODEL_REL_TOL}); "
+        f"launches {launches} (exact)")
     if errs[worst] > MODEL_REL_TOL:
         raise AssertionError(f"{label}: {worst} off its float32 CPU copy by "
                              f"{errs[worst]:.3g}")
-    del small, cpu, grads, wgrads
+    del cpu, grads, wgrads
+
+
+# the dense families' one-step checks (phase train-hybrid): a full-width
+# copy of TRAIN_CHECK's depth, drawn from a seed, on a (1, 256) batch
+FAMILY_TRAIN = ("mistral-nemo-12b", "qwen2-72b", "minicpm3-4b")
+FAMILY_TRAIN_SHAPE = (1, 256)
+
+
+def _step_flops(cfg, n_mat: int, B: int, S: int) -> float:
+    """Model FLOPs of one train step on (B, S) tokens: 6 a matrix
+    parameter a token, and 12 a causal pair a query head dim for each
+    attention (dense: every layer; hybrid: each shared-block application;
+    SSM: none)."""
+    n_attn = cfg.n_layers if cfg.family == "dense" else \
+        cfg.n_layers // cfg.hybrid.attn_every if cfg.family == "hybrid" \
+        else 0
+    return 6.0 * n_mat * B * S + 12.0 * _attn_pairs(S, S, True, 0) * \
+        cfg.head_dim * cfg.n_heads * n_attn * B
 
 
 def _train_path(phase, rec, args):
@@ -2080,10 +2333,7 @@ def _train_path(phase, rec, args):
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise AssertionError(f"{phase}: the loss did not fall: {losses}")
     step_s = float(np.median(times[1:]))
-    pairs = _attn_pairs(S, S, True, 0)
-    attn = 0 if cfg.family != "dense" else \
-        12.0 * pairs * cfg.head_dim * cfg.n_heads * cfg.n_layers * B
-    flops = 6.0 * n_mat * B * S + attn
+    flops = _step_flops(cfg, n_mat, B, S)
     peak = torch.cuda.max_memory_allocated() / 1e9
     out = dict(launches=launches, per_step=expect, losses=losses,
                step_ms=step_s * 1e3, step_ms_all=[t * 1e3 for t in times],
@@ -2107,6 +2357,25 @@ def phase_train(args, rec):
 
 def phase_train_ssm(args, rec):
     _train_path("train-ssm", rec, args)
+
+
+def phase_train_hybrid(args, rec):
+    """Zamba2-2.7B's train path, then one step of a 2-layer full-width copy
+    of each dense family (the flash backward at MLA's head dim 96) against
+    float32 on the CPU, launches exact."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import TrainModel
+
+    _train_path("train-hybrid", rec, args)
+    for i, arch in enumerate(FAMILY_TRAIN):
+        cfg = dataclasses.replace(get_config(arch), n_layers=TRAIN_CHECK[0])
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 50 + i)
+        small = TrainModel(cfg, device="cuda").init(gen)
+        _hold_train_copy(small, f"train {arch}", rec, FAMILY_TRAIN_SHAPE)
+        del small
+        torch.cuda.empty_cache()
 
 
 # ----------------------------------------------------------------------
@@ -2185,12 +2454,12 @@ def phase_zoo(args, rec):
 
 PHASES = {"device": phase_device, "kernels": phase_kernels,
           "serve": phase_serve, "serve-events": phase_serve_events,
-          "serve-ssm": phase_serve_ssm,
+          "serve-ssm": phase_serve_ssm, "serve-dense": phase_serve_dense,
           # after the serve phases: a short trace taken after a train step's
           # long one came back empty on the card (PERF.md section 7)
           "train": phase_train, "train-ssm": phase_train_ssm,
-          "zoo": phase_zoo}
-SERVE_PHASES = ("serve", "serve-events", "serve-ssm")
+          "train-hybrid": phase_train_hybrid, "zoo": phase_zoo}
+SERVE_PHASES = ("serve", "serve-events", "serve-ssm", "serve-dense")
 
 
 def _after_serving(args, rec, name, cohort):

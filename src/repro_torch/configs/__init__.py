@@ -1,7 +1,8 @@
 """Architecture config registry: ``get_config("<arch-id>", smoke=...)``.
 
 The port registers only the architectures whose model family it carries
-(dense GQA, SSM and hybrid so far); ids match `repro.configs`.
+(dense GQA, with QKV bias or MLA, SSM and hybrid so far); ids match
+`repro.configs`.
 """
 from __future__ import annotations
 
@@ -12,6 +13,9 @@ from repro_torch.models.config import ArchConfig
 
 _MODULES = {
     "yi-9b": "yi_9b",
+    "mistral-nemo-12b": "mistral_nemo_12b",
+    "qwen2-72b": "qwen2_72b",
+    "minicpm3-4b": "minicpm3_4b",
     "mamba2-1.3b": "mamba2_1p3b",
     "zamba2-2.7b": "zamba2_2p7b",
 }

@@ -384,6 +384,7 @@ int dispatch_flash(int D, const void* q, const void* k, const void* v,
     case 32: return launch_flash<T, 32>(q, k, v, o, lse, B, H, KV, Sq, Sk, scale, causal, window, s);
     case 64: return launch_flash<T, 64>(q, k, v, o, lse, B, H, KV, Sq, Sk, scale, causal, window, s);
     case 80: return launch_flash<T, 80>(q, k, v, o, lse, B, H, KV, Sq, Sk, scale, causal, window, s);
+    case 96: return launch_flash<T, 96>(q, k, v, o, lse, B, H, KV, Sq, Sk, scale, causal, window, s);
     case 128: return launch_flash<T, 128>(q, k, v, o, lse, B, H, KV, Sq, Sk, scale, causal, window, s);
     default: return kStatusBadHeadDim;
   }

@@ -793,6 +793,7 @@ int dispatch_flash_bwd(int D, const void* q, const void* k, const void* v, const
     case 32: return launch_flash_bwd<T, 32>(q, k, v, o, lse, dout, delta, dq, dk, dv, B, H, KV, Sq, Sk, scale, causal, window, s);
     case 64: return launch_flash_bwd<T, 64>(q, k, v, o, lse, dout, delta, dq, dk, dv, B, H, KV, Sq, Sk, scale, causal, window, s);
     case 80: return launch_flash_bwd<T, 80>(q, k, v, o, lse, dout, delta, dq, dk, dv, B, H, KV, Sq, Sk, scale, causal, window, s);
+    case 96: return launch_flash_bwd<T, 96>(q, k, v, o, lse, dout, delta, dq, dk, dv, B, H, KV, Sq, Sk, scale, causal, window, s);
     case 128: return launch_flash_bwd<T, 128>(q, k, v, o, lse, dout, delta, dq, dk, dv, B, H, KV, Sq, Sk, scale, causal, window, s);
     default: return kStatusBadHeadDim;
   }

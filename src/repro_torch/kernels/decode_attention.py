@@ -10,8 +10,11 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.flash_attention import DTYPES, HEAD_DIMS
+from repro_torch.kernels.flash_attention import DTYPES
 
+# head dimensions compiled into csrc/decode_attention.cu: its own list, not
+# the flash kernels' (MLA decodes in the absorbed form, with no kernel)
+HEAD_DIMS = (16, 32, 64, 80, 128)
 MAX_SPLITS = 64   # csrc kDecodeMaxSplits: splits of the cache axis at most
 HEAD_CHUNK = 32   # csrc kDecodeHeads: query heads a block at most
 MIN_COLS = 16     # output columns a block at least
@@ -59,12 +62,10 @@ def partial_floats(hc: int, D: int) -> int:
     return -(-2 * hc // 4) * 4 + hc * D
 
 
-def decode_attention(q, k_cache, v_cache, cache_len, *, window: int = 0):
-    """(B,H,D) x (B,KV,S,D)^2 with ``cache_len`` (B,) int32 -> (B,H,D) on
-    the card: sequence ``b`` attends to cache slots ``[max(0, L - window),
-    L)`` with ``L = cache_len[b]`` (``window = 0``: all of ``[0, L)``).
-    Any cache length ``S`` and any number of query heads per kv head."""
-    _build.check_cuda("decode_attention", q, k_cache, v_cache, cache_len)
+def check_operands(q, k_cache, v_cache, cache_len) -> None:
+    """Raise unless the kernel takes these dtypes and shapes: one float32
+    or bfloat16 dtype, int32 lengths, a head dim in ``HEAD_DIMS`` and H a
+    multiple of KV."""
     B, H, D = q.shape
     KV, S = k_cache.shape[1], k_cache.shape[2]
     if q.dtype not in DTYPES or k_cache.dtype != q.dtype or \
@@ -76,7 +77,19 @@ def decode_attention(q, k_cache, v_cache, cache_len, *, window: int = 0):
             cache_len.shape != (B,):
         raise ValueError(f"decode_attention: unsupported shapes q "
                          f"{q.shape}, cache {k_cache.shape}, lens "
-                         f"{cache_len.shape}")
+                         f"{cache_len.shape} (head dim in {HEAD_DIMS}, H a "
+                         f"multiple of KV)")
+
+
+def decode_attention(q, k_cache, v_cache, cache_len, *, window: int = 0):
+    """(B,H,D) x (B,KV,S,D)^2 with ``cache_len`` (B,) int32 -> (B,H,D) on
+    the card: sequence ``b`` attends to cache slots ``[max(0, L - window),
+    L)`` with ``L = cache_len[b]`` (``window = 0``: all of ``[0, L)``).
+    Any cache length ``S`` and any number of query heads per kv head."""
+    _build.check_cuda("decode_attention", q, k_cache, v_cache, cache_len)
+    check_operands(q, k_cache, v_cache, cache_len)
+    B, H, D = q.shape
+    KV, S = k_cache.shape[1], k_cache.shape[2]
     if any(t.data_ptr() % 16 for t in (q, k_cache, v_cache)):
         raise ValueError("decode_attention: q and the caches must start on "
                          "16-byte boundaries (the kernel copies 16 bytes)")

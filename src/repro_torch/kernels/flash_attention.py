@@ -10,9 +10,9 @@ import torch
 
 from repro_torch.kernels import _build
 
-# head dimensions compiled into csrc/flash_attention.cu, flash_attention_bwd.cu
-# and decode_attention.cu
-HEAD_DIMS = (16, 32, 64, 80, 128)
+# head dimensions compiled into csrc/flash_attention.cu and
+# flash_attention_bwd.cu (96: MLA's 64 + 32 query/key dims)
+HEAD_DIMS = (16, 32, 64, 80, 96, 128)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 

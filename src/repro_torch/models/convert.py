@@ -6,9 +6,11 @@ JAX type crosses over) and loads it into a port `Model` (serving) or
 `TrainModel` (training).  `repro` stacks each per-layer weight on a
 leading layer axis.  The serving `Model` holds one module per layer, so
 layer ``i`` takes slice ``i`` of every stacked array; the `TrainModel`
-keeps `repro`'s stacked leaves as its float32 masters.  The SSM and hybrid
-trees carry ``layers.norm`` and ``layers.mamba.*``, and the hybrid's
-``shared_attn`` (``norm``, ``attn``, ``mlp_norm``, ``mlp``).
+keeps `repro`'s stacked leaves as its float32 masters.  Attention leaves
+keep `repro`'s names (``wq`` ... ``wo``, ``bq``/``bk``/``bv`` with a QKV
+bias, MLA's ``wq_a`` ... ``wo``).  The SSM and hybrid trees carry
+``layers.norm`` and ``layers.mamba.*``, and the hybrid's ``shared_attn``
+(``norm``, ``attn``, ``mlp_norm``, ``mlp``).
 
 `params_to_numpy` goes back: either form to `repro`'s stacked tree of
 float32 numpy arrays, under `repro`'s keys.
@@ -73,13 +75,13 @@ def params_from_jax(cfg: ArchConfig, params: dict, *,
 
 
 def _load_attn_mlp(blk, attn: dict, mlp: dict, i: int | None) -> None:
-    """Load ``blk.attn`` and ``blk.mlp`` from `repro`'s dicts, taking slice
-    ``i`` of each stacked array (``None``: the arrays are unstacked)."""
-    for src, mod, names in ((attn, blk.attn, ("wq", "wk", "wv", "wo")),
-                            (mlp, blk.mlp, ("w1", "w3", "w2"))):
-        for name in names:
-            a = src[name] if i is None else src[name][i]
-            _load(getattr(mod, name), a)
+    """Load ``blk.attn`` (GQA, its QKV biases included, or MLA) and
+    ``blk.mlp`` from `repro`'s dicts, leaf by leaf under the module's own
+    names, taking slice ``i`` of each stacked array (``None``: the arrays
+    are unstacked)."""
+    for src, mod in ((attn, blk.attn), (mlp, blk.mlp)):
+        for name, p in mod.named_parameters():
+            _load(p, src[name] if i is None else src[name][i])
 
 
 def _numpy(t: torch.Tensor) -> np.ndarray:

@@ -1,7 +1,9 @@
 """Model blocks of the port (`repro.models.layers` counterpart).
 
-RMSNorm, rotary embeddings, GQA attention (full sequence and one-token
-decode against a KV cache), the SwiGLU MLP and the Mamba2 (SSD) block.
+RMSNorm, rotary embeddings, GQA attention with an optional QKV bias (full
+sequence and one-token decode against a KV cache), multi-head latent
+attention (MLA: the flash kernel at prefill, `repro`'s absorbed form in
+plain PyTorch at decode), the SwiGLU MLP and the Mamba2 (SSD) block.
 Weights keep `repro`'s layout, ``(in, out)`` matrices applied as
 ``x @ w``, so `models.convert` copies them without transposes.  The
 attention cores, the SSD scan and every RMSNorm go through `kernels.ops`,
@@ -45,36 +47,49 @@ def _dense_(w: torch.Tensor, generator: torch.Generator) -> None:
     w.copy_(draw / w.shape[0] ** 0.5)
 
 
+def _weight(device, dtype):
+    """A maker of frozen, uninitialised weights of ``dtype`` on ``device``."""
+
+    def w(*shape, dt=dtype):
+        return nn.Parameter(torch.empty(shape, device=device, dtype=dt),
+                            requires_grad=False)
+
+    return w
+
+
 class Attention(nn.Module):
     """GQA self-attention: ``wq`` (d, H*hd), ``wk``/``wv`` (d, KV*hd),
-    ``wo`` (H*hd, d)."""
+    ``wo`` (H*hd, d), and with ``cfg.qkv_bias`` the biases ``bq`` (H*hd,),
+    ``bk``/``bv`` (KV*hd,), zero at init and added after the projections
+    in the compute dtype, as `repro`'s ``_qkv`` adds them."""
 
     def __init__(self, cfg: ArchConfig, *, device, dtype):
         super().__init__()
-        if cfg.qkv_bias:
-            raise NotImplementedError("qkv_bias belongs to a later family")
         self.cfg = cfg
         d, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-
-        def w(*shape):
-            return nn.Parameter(torch.empty(shape, device=device, dtype=dtype),
-                                requires_grad=False)
-
+        w = _weight(device, dtype)
         self.wq, self.wk, self.wv = w(d, H * hd), w(d, KV * hd), w(d, KV * hd)
         self.wo = w(H * hd, d)
+        if cfg.qkv_bias:
+            self.bq, self.bk, self.bv = w(H * hd), w(KV * hd), w(KV * hd)
 
     def init(self, generator: torch.Generator) -> None:
-        """Draw every projection from ``generator``."""
+        """Draw every projection from ``generator``; zero biases."""
         for p in (self.wq, self.wk, self.wv, self.wo):
             _dense_(p, generator)
+        if self.cfg.qkv_bias:
+            for p in (self.bq, self.bk, self.bv):
+                p.zero_()
 
     def _qkv(self, x):
         B, S, _ = x.shape
         c = self.cfg
-        q = (x @ self.wq).view(B, S, c.n_heads, c.head_dim)
-        k = (x @ self.wk).view(B, S, c.n_kv_heads, c.head_dim)
-        v = (x @ self.wv).view(B, S, c.n_kv_heads, c.head_dim)
-        return q, k, v
+        q, k, v = x @ self.wq, x @ self.wk, x @ self.wv
+        if c.qkv_bias:
+            q, k, v = q + self.bq, k + self.bk, v + self.bv
+        return (q.view(B, S, c.n_heads, c.head_dim),
+                k.view(B, S, c.n_kv_heads, c.head_dim),
+                v.view(B, S, c.n_kv_heads, c.head_dim))
 
     def forward(self, x, positions, *, window: int = 0):
         """Causal attention over ``x`` (B, S, d) at ``positions`` (1, S).
@@ -112,16 +127,118 @@ class Attention(nn.Module):
         return y.reshape(B, -1) @ self.wo
 
 
+class MLA(nn.Module):
+    """Multi-head latent attention (`repro`'s ``init_mla``, ``mla_forward``,
+    ``mla_decode``), with `repro`'s leaves: ``wq_a`` (d, q_lora_rank),
+    ``q_norm`` (q_lora_rank,), ``wq_b`` (q_lora_rank, H (dn + dr)),
+    ``wkv_a`` (d, kv_lora_rank + dr), ``kv_norm`` (kv_lora_rank,),
+    ``wkv_b`` (kv_lora_rank, H (dn + dv)), ``wo`` (H dv, d), where dn, dr
+    and dv are the no-rope and rope query/key head dims and the value head
+    dim.  The norm scales stay float32, like the port's other norms.
+
+    The prefill runs the flash kernel at head dim dn + dr with v padded
+    from dv to dn + dr and keeps the first dv columns, as `repro` pads it.
+    Decode is `repro`'s absorbed form: ``W_uk`` folded into the query and
+    ``W_uv`` into the output, scores against the latent cache in float32.
+    `repro` has no kernel there, so it stays plain PyTorch on every
+    device."""
+
+    def __init__(self, cfg: ArchConfig, *, device, dtype):
+        super().__init__()
+        self.cfg = cfg
+        m, d, H = cfg.mla, cfg.d_model, cfg.n_heads
+        self.dn, self.dr, self.dv = (m.qk_nope_head_dim, m.qk_rope_head_dim,
+                                     m.v_head_dim)
+        self.kvr = m.kv_lora_rank
+        w = _weight(device, dtype)
+        f32 = torch.float32
+        self.wq_a = w(d, m.q_lora_rank)
+        self.q_norm = w(m.q_lora_rank, dt=f32)
+        self.wq_b = w(m.q_lora_rank, H * (self.dn + self.dr))
+        self.wkv_a = w(d, self.kvr + self.dr)
+        self.kv_norm = w(self.kvr, dt=f32)
+        self.wkv_b = w(self.kvr, H * (self.dn + self.dv))
+        self.wo = w(H * self.dv, d)
+
+    def init(self, generator: torch.Generator) -> None:
+        """Unit norms; every matrix drawn from ``generator``."""
+        self.q_norm.fill_(1.0)
+        self.kv_norm.fill_(1.0)
+        for p in (self.wq_a, self.wq_b, self.wkv_a, self.wkv_b, self.wo):
+            _dense_(p, generator)
+
+    def _q(self, x, positions):
+        """(q_nope (B, S, H, dn), roped q_rope (B, S, H, dr))."""
+        B, S, _ = x.shape
+        q = rms_norm(x @ self.wq_a, self.q_norm) @ self.wq_b
+        q = q.view(B, S, self.cfg.n_heads, self.dn + self.dr)
+        return q[..., :self.dn], rope(q[..., self.dn:], positions,
+                                      self.cfg.rope_theta)
+
+    def _latent(self, x, positions):
+        """(normed latent c (B, S, kvr), roped shared key r (B, S, dr))."""
+        kv_a = x @ self.wkv_a
+        c = rms_norm(kv_a[..., :self.kvr].contiguous(), self.kv_norm)
+        r = rope(kv_a[..., self.kvr:][:, :, None, :], positions,
+                 self.cfg.rope_theta)[:, :, 0]
+        return c, r
+
+    def forward(self, x, positions):
+        """Causal MLA over ``x`` (B, S, d) at ``positions`` (1, S).
+        Returns (y (B, S, d), (c (B, S, kvr), r (B, S, dr))) for the latent
+        cache."""
+        B, S, _ = x.shape
+        H, dn, dr, dv = self.cfg.n_heads, self.dn, self.dr, self.dv
+        q_nope, q_rope = self._q(x, positions)
+        c, r = self._latent(x, positions)
+        kv = (c @ self.wkv_b).view(B, S, H, dn + dv)
+        k = torch.cat([kv[..., :dn], r[:, :, None, :].expand(B, S, H, dr)],
+                      dim=-1)
+        v = F.pad(kv[..., dn:], (0, dn + dr - dv))
+        q = torch.cat([q_nope, q_rope], dim=-1)
+        y = ops.attention(q.transpose(1, 2).contiguous(),
+                          k.transpose(1, 2).contiguous(),
+                          v.transpose(1, 2).contiguous(),
+                          causal=True)[..., :dv]
+        y = y.transpose(1, 2).reshape(B, S, H * dv)
+        return y @ self.wo, (c, r)
+
+    def decode(self, x_tok, cache_c, cache_r, valid_len: int, pos: int):
+        """One token per sequence, ``x_tok`` (B, d), against the latent
+        cache views ``cache_c`` (B, S, kvr) and ``cache_r`` (B, S, dr) of
+        ``valid_len`` filled slots: writes the new entries in place at slot
+        ``min(valid_len, S - 1)`` and returns y (B, d)."""
+        B = x_tok.shape[0]
+        S = cache_c.shape[1]
+        H, dn, dv = self.cfg.n_heads, self.dn, self.dv
+        p = torch.full((B, 1), pos, dtype=torch.int32, device=x_tok.device)
+        q_nope, q_rope = self._q(x_tok[:, None, :], p)
+        c_new, r_new = self._latent(x_tok[:, None, :], p)
+        slot = min(valid_len, S - 1)
+        cache_c[:, slot] = c_new[:, 0]
+        cache_r[:, slot] = r_new[:, 0]
+        wkv_b = self.wkv_b.view(self.kvr, H, dn + dv)
+        w_uk, w_uv = wkv_b[..., :dn], wkv_b[..., dn:]
+        q_c = torch.einsum("bhd,rhd->bhr", q_nope[:, 0], w_uk)
+        cf = cache_c.float()
+        scores = torch.einsum("bhr,btr->bht", q_c.float(), cf)
+        scores = scores + torch.einsum("bhd,btd->bht", q_rope[:, 0].float(),
+                                       cache_r.float())
+        n = min(valid_len + 1, S)
+        valid = torch.arange(S, device=x_tok.device) < n
+        scores = torch.where(valid, scores * (dn + self.dr) ** -0.5, -1e30)
+        probs = torch.softmax(scores, dim=-1)
+        ctx = torch.einsum("bht,btr->bhr", probs, cf).to(x_tok.dtype)
+        y = torch.einsum("bhr,rhd->bhd", ctx, w_uv)
+        return y.reshape(B, H * dv) @ self.wo
+
+
 class MLP(nn.Module):
     """SwiGLU: ``(silu(x @ w1) * (x @ w3)) @ w2``."""
 
     def __init__(self, d: int, f: int, *, device, dtype):
         super().__init__()
-
-        def w(*shape):
-            return nn.Parameter(torch.empty(shape, device=device, dtype=dtype),
-                                requires_grad=False)
-
+        w = _weight(device, dtype)
         self.w1, self.w3, self.w2 = w(d, f), w(d, f), w(f, d)
 
     def init(self, generator: torch.Generator) -> None:
@@ -155,11 +272,7 @@ class Mamba(nn.Module):
         self.nh = self.d_in // s.head_dim
         self.N = s.state_dim
         self.conv_ch = self.d_in + 2 * self.N
-
-        def w(*shape, dt=dtype):
-            return nn.Parameter(torch.empty(shape, device=device, dtype=dt),
-                                requires_grad=False)
-
+        w = _weight(device, dtype)
         f32 = torch.float32
         self.in_proj = w(d, 2 * self.d_in + 2 * self.N + self.nh)
         self.conv_w = w(s.conv_width, self.conv_ch)

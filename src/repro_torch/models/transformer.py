@@ -1,14 +1,16 @@
 """Decoder models of the port (`repro.models.transformer.Model`).
 
-The dense GQA family (`yi-9b`), the SSM family (`mamba2-1.3b`: a stack of
-pre-norm Mamba2 blocks) and the hybrid family (`zamba2-2.7b`: Mamba2
-blocks with one weight-shared attention block applied after every
-``attn_every`` of them).  `repro` keeps stacked parameters and scans over
-the layer axis; the port holds one `nn.Module` per layer and loops over
-them, since PyTorch runs eagerly.  The weights live in the config's
-compute dtype (bfloat16 for the full configs), cast once when they are
-drawn or loaded where `repro` casts them at every use; the norm scales
-(and Mamba's ``A_log``, ``dt_bias``) stay float32, as `repro` keeps them.
+The dense family (`yi-9b`, `mistral-nemo-12b`: GQA; `qwen2-72b`: GQA with
+a QKV bias; `minicpm3-4b`: multi-head latent attention), the SSM family
+(`mamba2-1.3b`: a stack of pre-norm Mamba2 blocks) and the hybrid family
+(`zamba2-2.7b`: Mamba2 blocks with one weight-shared attention block
+applied after every ``attn_every`` of them).  `repro` keeps stacked
+parameters and scans over the layer axis; the port holds one `nn.Module`
+per layer and loops over them, since PyTorch runs eagerly.  The weights
+live in the config's compute dtype (bfloat16 for the full configs), cast
+once when they are drawn or loaded where `repro` casts them at every use;
+the norm scales (and Mamba's ``A_log``, ``dt_bias``) stay float32, as
+`repro` keeps them.
 
 - ``forward``      : full-sequence hidden states
 - ``prefill``      : last-position logits and the decode cache
@@ -50,6 +52,19 @@ class KVCache:
 
 
 @dataclasses.dataclass
+class MLACache:
+    """Decode cache of the MLA family: the normed latent ``c`` (L, B, S,
+    kv_lora_rank) and the roped shared key ``r`` (L, B, S,
+    qk_rope_head_dim), as `repro`'s ``init_cache`` keeps them, with
+    ``len`` and ``pos`` as host ints."""
+
+    c: torch.Tensor
+    r: torch.Tensor
+    len: int
+    pos: int
+
+
+@dataclasses.dataclass
 class SSMCache:
     """Decode cache of the SSM and hybrid families: per Mamba layer the
     conv state ``conv`` (L, B, W-1, C) in the compute dtype and the SSD
@@ -67,7 +82,8 @@ class SSMCache:
 
 
 class Block(nn.Module):
-    """Pre-norm decoder layer: attention, then the SwiGLU MLP."""
+    """Pre-norm decoder layer: attention (GQA, or MLA where the config
+    says so), then the SwiGLU MLP."""
 
     def __init__(self, cfg: ArchConfig, *, device, dtype):
         super().__init__()
@@ -76,7 +92,8 @@ class Block(nn.Module):
             torch.ones(d, device=device), requires_grad=False)
         self.mlp_norm = nn.Parameter(
             torch.ones(d, device=device), requires_grad=False)
-        self.attn = L.Attention(cfg, device=device, dtype=dtype)
+        attn = L.MLA if cfg.attn_kind == "mla" else L.Attention
+        self.attn = attn(cfg, device=device, dtype=dtype)
         self.mlp = L.MLP(d, cfg.d_ff, device=device, dtype=dtype)
 
     def init(self, generator: torch.Generator) -> None:
@@ -88,7 +105,8 @@ class Block(nn.Module):
         self.mlp.init(generator)
 
     def forward(self, x, positions):
-        """x (B, S, d) -> (x (B, S, d), (k, v) (B, KV, S, hd))."""
+        """x (B, S, d) -> (x (B, S, d), what the cache keeps: (k, v) (B,
+        KV, S, hd), or MLA's latent (c, r))."""
         a, kv = self.attn(L.rms_norm(x, self.attn_norm), positions)
         x = x + a
         return x + self.mlp(L.rms_norm(x, self.mlp_norm)), kv
@@ -159,14 +177,30 @@ def _mask_pad(logits: torch.Tensor, vocab: int) -> torch.Tensor:
         -1e30, dtype=logits.dtype, device=logits.device))
 
 
+def _family(cfg: ArchConfig) -> str:
+    """``cfg``'s family, a MoE, VLM or encoder-decoder option counting as
+    its family."""
+    if cfg.moe is not None:
+        return "moe"
+    if cfg.vlm is not None:
+        return "vlm"
+    if cfg.encdec is not None:
+        return "audio"
+    return cfg.family
+
+
 def _check_ported(cfg: ArchConfig) -> None:
     """Raise unless the port carries ``cfg``'s family and options."""
-    if cfg.family not in ("dense", "ssm", "hybrid") or \
-            cfg.attn_kind != "gqa" or cfg.moe is not None or \
-            cfg.vlm is not None or cfg.encdec is not None:
+    family = _family(cfg)
+    if family not in ("dense", "ssm", "hybrid") or \
+            cfg.attn_kind not in ("gqa", "mla"):
         raise NotImplementedError(
-            f"{cfg.name}: the port carries the dense GQA, SSM and hybrid "
-            f"families only")
+            f"{cfg.name}: the {family} family ({cfg.attn_kind} attention) is"
+            f" not ported yet (ROADMAP queue 1 item 1); the port carries the"
+            f" dense (GQA, QKV bias, MLA), SSM and hybrid families only")
+    if cfg.attn_kind == "mla" and (cfg.mla is None or family != "dense"):
+        raise ValueError(f"{cfg.name}: MLA needs an MLAConfig and the dense "
+                         f"family")
     if cfg.family == "hybrid" and cfg.n_layers % cfg.hybrid.attn_every:
         raise ValueError(f"{cfg.name}: {cfg.n_layers} layers do not group"
                          f" by attn_every {cfg.hybrid.attn_every}")
@@ -175,7 +209,7 @@ def _check_ported(cfg: ArchConfig) -> None:
 
 
 class Model(nn.Module):
-    """Decoder-only model of the dense GQA, SSM or hybrid family on
+    """Decoder-only model of the dense, SSM or hybrid family on
     ``device`` ("cuda" unless the caller asks for "cpu").  Construction
     allocates the weights; `init` draws them,
     `models.convert.params_from_jax` loads `repro`'s."""
@@ -227,15 +261,20 @@ class Model(nn.Module):
     def _mask_pad(self, logits):
         return _mask_pad(logits, self.cfg.vocab)
 
-    def _layers_fwd(self, x, cache: KVCache | SSMCache | None = None):
+    def _layers_fwd(self, x, cache: KVCache | MLACache | SSMCache | None =
+                    None):
         if self.cfg.family != "dense":
             return self._ssm_layers_fwd(x, cache)
-        positions = torch.arange(x.shape[1], device=x.device)[None, :]
+        S = x.shape[1]
+        positions = torch.arange(S, device=x.device)[None, :]
         for i, blk in enumerate(self.layers):
-            x, (k, v) = blk(x, positions)
-            if cache is not None:
-                cache.k[i, :, :, : k.shape[2]] = k
-                cache.v[i, :, :, : v.shape[2]] = v
+            x, (a, b) = blk(x, positions)
+            if isinstance(cache, MLACache):
+                cache.c[i, :, :S] = a
+                cache.r[i, :, :S] = b
+            elif cache is not None:
+                cache.k[i, :, :, :S] = a
+                cache.v[i, :, :, :S] = b
         return x
 
     def _ssm_layers_fwd(self, x, cache: SSMCache | None):
@@ -272,12 +311,20 @@ class Model(nn.Module):
         x = self.embed[tokens]
         return L.rms_norm(self._layers_fwd(x), self.final_norm)
 
-    def init_cache(self, batch_size: int, max_len: int) -> KVCache | SSMCache:
+    def init_cache(self, batch_size: int, max_len: int
+                   ) -> KVCache | MLACache | SSMCache:
         """An empty decode cache of ``max_len`` attention slots (for the
         SSM family, which has no attention, only the recurrent states)."""
         c = self.cfg
         dt = compute_dtype(c)
         dev = self.device
+        if c.attn_kind == "mla":
+            def latent(width):
+                return torch.zeros(c.n_layers, batch_size, max_len, width,
+                                   device=dev, dtype=dt)
+
+            return MLACache(c=latent(c.mla.kv_lora_rank),
+                            r=latent(c.mla.qk_rope_head_dim), len=0, pos=0)
         if c.family == "dense":
             shape = (c.n_layers, batch_size, c.n_kv_heads, max_len, c.head_dim)
             return KVCache(k=torch.zeros(shape, device=dev, dtype=dt),
@@ -300,11 +347,12 @@ class Model(nn.Module):
     def prefill(self, tokens: torch.Tensor, headroom: int = 64):
         """tokens (B, S) -> (last-position logits (B, V), cache).
 
-        Each layer's keys and values are written straight into a cache of
-        ``S + headroom`` slots, where `repro` stacks them and pads.  The
-        hybrid keeps its shared block's last ``min(S, window)`` keys and
-        values (plus ``headroom`` slots); the SSM and hybrid caches carry
-        every Mamba layer's final conv and SSD states."""
+        Each layer's keys and values (MLA: its latent ``c`` and ``r``) are
+        written straight into a cache of ``S + headroom`` slots, where
+        `repro` stacks them and pads.  The hybrid keeps its shared block's
+        last ``min(S, window)`` keys and values (plus ``headroom`` slots);
+        the SSM and hybrid caches carry every Mamba layer's final conv and
+        SSD states."""
         B, S = tokens.shape
         cfg = self.cfg
         kept = min(S, cfg.hybrid.window) if cfg.family == "hybrid" else S
@@ -316,11 +364,19 @@ class Model(nn.Module):
         return self._mask_pad(x @ self.unembed_matrix()), cache
 
     @torch.inference_mode()
-    def decode_step(self, cache: KVCache | SSMCache, tokens: torch.Tensor):
+    def decode_step(self, cache: KVCache | MLACache | SSMCache,
+                    tokens: torch.Tensor):
         """tokens (B,) -> (logits (B, V), cache), the cache updated in place."""
         x = self.embed[tokens]                                   # (B, d)
         if isinstance(cache, SSMCache):
             x = self._ssm_decode(cache, x)
+        elif isinstance(cache, MLACache):
+            for i, blk in enumerate(self.layers):
+                x = x + blk.attn.decode(L.rms_norm(x, blk.attn_norm),
+                                        cache.c[i], cache.r[i], cache.len,
+                                        cache.pos)
+                x = x + blk.mlp(L.rms_norm(x, blk.mlp_norm))
+            cache.len = min(cache.len + 1, cache.c.shape[2])
         else:
             for i, blk in enumerate(self.layers):
                 x = x + blk.attn.decode(L.rms_norm(x, blk.attn_norm),
@@ -441,8 +497,9 @@ def _xent_chunked(x, w_out, labels, mask, chunk: int, valid_v: int = 0):
 def _init_leaf(key: str, shape, generator, device) -> torch.Tensor:
     """A float32 leaf drawn as `repro`'s ``Model.init`` draws it (another
     generator, so other values): ``0.02 N(0, 1)`` for the embedding, unit
-    norms and ``D``, zero ``dt_bias`` and ``conv_b``, ``log(linspace(1,
-    16))`` for ``A_log``, ``0.1 N(0, 1)`` for ``conv_w`` and ``N(0, 1) /
+    norms (MLA's ``q_norm`` and ``kv_norm`` too) and ``D``, zero
+    ``dt_bias``, ``conv_b`` and QKV biases, ``log(linspace(1, 16))`` for
+    ``A_log``, ``0.1 N(0, 1)`` for ``conv_w`` and ``N(0, 1) /
     sqrt(fan_in)`` for every other matrix (stacked leaves per layer)."""
     name = key.split("@")[-1]
 
@@ -451,9 +508,10 @@ def _init_leaf(key: str, shape, generator, device) -> torch.Tensor:
 
     if key == "embed":
         return 0.02 * randn()
-    if name in ("norm", "attn_norm", "mlp_norm", "final_norm", "D"):
+    if name in ("norm", "attn_norm", "mlp_norm", "final_norm", "D",
+                "q_norm", "kv_norm"):
         return torch.ones(shape, device=device)
-    if name in ("dt_bias", "conv_b"):
+    if name in ("dt_bias", "conv_b", "bq", "bk", "bv"):
         return torch.zeros(shape, device=device)
     if name == "A_log":
         return torch.log(torch.linspace(1.0, 16.0, shape[-1],

@@ -1,11 +1,11 @@
 """Serving engine of the port (`repro.serving.engine` counterpart).
 
 One `ServingEngine` hosts one `Model` and serves a prompt by prefill and
-then greedy decode, reporting time to first token and decode time.  Every
-time it reads waits for the device first (`torch.cuda.synchronize`), as
-`repro` waits with ``block_until_ready``.  `ServingScheduler` puts a
-bounded queue (backpressure) and hedged retries of slow requests in front
-of an engine.
+then greedy (or sampled) decode, reporting time to first token and decode
+time.  Every time it reads waits for the device first
+(`torch.cuda.synchronize`), as `repro` waits with ``block_until_ready``.
+`ServingScheduler` puts a bounded queue (backpressure) and hedged retries
+of slow requests in front of an engine.
 """
 from __future__ import annotations
 
@@ -63,11 +63,28 @@ class ServingEngine:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def generate(self, tokens, max_new: int = 32, eos: int | None = None
+    def generate(self, tokens, max_new: int = 32, eos: int | None = None,
+                 greedy: bool = True,
+                 generator: torch.Generator | None = None
                  ) -> tuple[np.ndarray, float, float]:
-        """tokens (B, S) prompt -> (greedy outputs (B, <=max_new), ttft,
-        decode_s).  As in `repro`, a decode step follows every emitted
-        token, so ``max_new`` tokens cost ``max_new`` decode steps."""
+        """tokens (B, S) prompt -> (outputs (B, <=max_new), ttft, decode_s).
+        As in `repro`, a decode step follows every emitted token, so
+        ``max_new`` tokens cost ``max_new`` decode steps.
+
+        The first token is the prefill's argmax.  Each later token is the
+        argmax of its decode step's logits (``greedy``) or, with
+        ``greedy=False``, a draw from ``softmax(logits)`` by
+        `torch.multinomial` on ``generator``, a `torch.Generator` on the
+        engine's device (``None``: one seeded with 0, as `repro` falls back
+        to ``PRNGKey(0)``).  `repro` draws with `jax.random.categorical`;
+        its PRNG stream cannot be matched, so sampled tokens agree with it
+        in distribution only."""
+        if not greedy:
+            if generator is None:
+                generator = torch.Generator(device=self.device).manual_seed(0)
+            elif generator.device.type != self.device.type:
+                raise ValueError(f"engine {self.name!r} on {self.device} got "
+                                 f"a generator on {generator.device}")
         self.inflight += 1
         try:
             toks = torch.as_tensor(np.asarray(tokens), dtype=torch.long)
@@ -86,7 +103,12 @@ class ServingEngine:
                 if eos is not None and bool((cur == eos).all()):
                     break
                 logits, cache = self.model.decode_step(cache, cur)
-                cur = logits.argmax(-1)
+                if greedy:
+                    cur = logits.argmax(-1)
+                else:
+                    probs = torch.softmax(logits.float(), dim=-1)
+                    cur = torch.multinomial(probs, 1,
+                                            generator=generator)[:, 0]
             out = torch.stack(outs, dim=1).cpu().numpy()
             self._sync()
             decode_s = time.perf_counter() - t1

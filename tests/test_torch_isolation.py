@@ -143,10 +143,10 @@ def test_ssm_models_run_on_the_cpu_when_asked(no_cuda, arch):
 
 
 @pytest.mark.parametrize("change", [
-    {"attn_kind": "mla"}, {"moe": MoEConfig(n_experts=4, top_k=2)},
+    {"family": "moe"}, {"moe": MoEConfig(n_experts=4, top_k=2)},
     {"family": "vlm"}, {"family": "audio"}])
 def test_model_still_refuses_unported_families(change):
-    """MLA, MoE, VLM and enc-dec models are later slices: `Model` raises."""
+    """MoE, VLM and enc-dec models are later slices: `Model` raises."""
     cfg = dataclasses.replace(get_config("yi-9b", smoke=True), **change)
     with pytest.raises(NotImplementedError, match="families only"):
         Model(cfg, device="cpu")

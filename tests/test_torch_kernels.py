@@ -21,6 +21,7 @@ from repro.kernels.flash_attention import flash_attention as pallas_flash
 from repro.kernels.rmsnorm import rms_norm as pallas_rmsnorm
 from repro_torch.kernels import _build, ops, ref
 from repro_torch.kernels.decode_attention import decode_attention as cuda_decode
+from repro_torch.kernels.decode_attention import HEAD_DIMS as DECODE_HEAD_DIMS
 from repro_torch.kernels.flash_attention import HEAD_DIMS
 from repro_torch.kernels.flash_attention import flash_attention as cuda_flash
 from repro_torch.kernels.rmsnorm import rms_norm as cuda_rmsnorm
@@ -123,10 +124,17 @@ def test_ops_reach_plain_versions_on_cpu():
     assert torch.equal(ops.rms_norm(x, s), ref.rms_norm(x, s))
 
 
-@pytest.mark.parametrize("source", ["flash_attention.cu", "decode_attention.cu"])
+# each source's dispatch against its wrapper's list: the flash kernels
+# take MLA's 96, decode attention does not (MLA decodes without a kernel)
+SOURCE_HEAD_DIMS = {"flash_attention.cu": HEAD_DIMS,
+                    "decode_attention.cu": DECODE_HEAD_DIMS,
+                    "flash_attention_bwd.cu": HEAD_DIMS}
+
+
+@pytest.mark.parametrize("source", list(SOURCE_HEAD_DIMS))
 def test_attention_dispatch_lists_head_dims_and_refuses_others(source):
     """Every dispatch function of the C entry points instantiates exactly
-    the wrapper's ``HEAD_DIMS`` (80 among them, for zamba2's shared
+    its wrapper's ``HEAD_DIMS`` (80 among them, for zamba2's shared
     attention), and an unlisted head dimension returns an error status
     (which the binding raises) instead of launching another instantiation.
     The entry point reaches a dispatch for both dtypes."""
@@ -137,9 +145,11 @@ def test_attention_dispatch_lists_head_dims_and_refuses_others(source):
         pairs = re.findall(r"case (\d+): (?:return )?launch_\w+<T, (\d+)>",
                            body)
         assert all(case == dim for case, dim in pairs)
-        assert tuple(int(case) for case, _ in pairs) == HEAD_DIMS
+        assert tuple(int(case) for case, _ in pairs) == \
+            SOURCE_HEAD_DIMS[source]
         assert "default: return kStatusBadHeadDim;" in body
     entry = text[text.index('extern "C"'):]
     assert re.search(r"dispatch_\w+<__nv_bfloat16>", entry)
     assert re.search(r"dispatch_\w+<float>", entry)
-    assert 80 in HEAD_DIMS
+    assert 80 in SOURCE_HEAD_DIMS[source]
+    assert (96 in SOURCE_HEAD_DIMS[source]) == (source != "decode_attention.cu")

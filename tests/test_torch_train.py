@@ -32,7 +32,8 @@ from repro_torch.train import OptConfig, TrainConfig, make_train_step
 from repro_torch.train import optimizer as topt
 from repro_torch.train.step import value_and_grad
 
-ARCHS = ("yi-9b", "mamba2-1.3b", "zamba2-2.7b")
+ARCHS = ("yi-9b", "mamba2-1.3b", "zamba2-2.7b", "mistral-nemo-12b",
+         "qwen2-72b", "minicpm3-4b")
 STEP_TOL = 1e-5   # loss, grad norm (rtol) and gradient leaves (rel L2)
 OPT_TOL = 1e-6    # optimizer leaves: max |a - b| <= OPT_TOL max |b|
 
