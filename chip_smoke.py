@@ -6,6 +6,7 @@
     python3 chip_smoke.py --phases device,train,train-ssm,zoo
     python3 chip_smoke.py --phases device,serve,serve-events
     python3 chip_smoke.py --phases device,kernels,serve-dense,train-hybrid
+    python3 chip_smoke.py --phases device,kernels,serve-moe,train-hybrid
 
 Phases (any failure exits non-zero and prints no result):
 
@@ -55,20 +56,31 @@ Phases (any failure exits non-zero and prints no result):
                engines, then one stage invocation of Qwen2-72B (QKV bias)
                at 36 of its 80 layers, each engine's 2-layer copy held
                against its float32 CPU copy, launches exact;
-7. train     — Yi-9B at full width, 12 layers (2.60B parameters), float32
+7. serve-moe — the same cohort served by Granite-MoE-1B-A400M (engine-a,
+               full width and depth) and Arctic-480B (engine-b, full width,
+               all 128 experts and the dense residual, 2 of 35 layers): the
+               routing of each engine's first 2 layers held at full E
+               against a float32 reference that routes by its own scores
+               (flips only at near-ties, at most 2%), a 2-layer Granite
+               copy and a 1-layer, 16-expert Arctic copy held against
+               float32 on the CPU over a prefill and 8 decode steps,
+               launches exact;
+8. train     — Yi-9B at full width, 12 layers (2.60B parameters), float32
                masters, AdamW, remat, a (2, 2048) batch from a 256-symbol
                Markov source, 4 steps: every gradient present and nonzero,
                the loss falling, a 2-layer copy's loss and gradients
                against its float32 CPU copy, launches per step exact; step
                time, tokens/s, model-FLOP share, peak memory, and one step
                under `torch.profiler`;
-8. train-ssm — the same for Mamba2-1.3B at full width and depth, (1, 2048),
+9. train-ssm — the same for Mamba2-1.3B at full width and depth, (1, 2048),
                3 steps (the SSD kernel forward, the plain recompute back);
-9. train-hybrid — the same for Zamba2-2.7B at full width and depth, (1,
+10. train-hybrid — the same for Zamba2-2.7B at full width and depth, (1,
                2048), 3 steps (checkpointed layers inside checkpointed
-               groups), then one step of a 2-layer full-width copy of each
-               dense family against its float32 CPU copy, launches exact;
-10. zoo      — `build_zoo` with `repro`'s ladder on the card (its launches
+               groups), then one step of a full-width copy of each dense
+               family (2 layers) and MoE family (Granite 2 layers, Arctic 1
+               layer of 16 experts; the loss with its aux) against its
+               float32 CPU copy, launches exact;
+11. zoo      — `build_zoo` with `repro`'s ladder on the card (its launches
                exact), held-out accuracy rising from zoo-s to zoo-m to
                zoo-l, then the end-to-end example's loop
                (`repro_torch.examples.serve_workflow`, ``--requests 24
@@ -139,10 +151,13 @@ KERNELS = {
 }
 # (heads, kv heads, head dim, decode window) of the attention in each
 # serving path: zamba2's shared block decodes with its window of 4096;
-# mistral-nemo-12b decodes at G = 4, qwen2-72b at G = 8
+# mistral-nemo-12b decodes at G = 4, qwen2-72b at G = 8, granite-moe at
+# G = 2 and head dim 64, arctic at G = 7 (one odd head chunk of 7)
 ATTN_SHAPES = {"yi-9b": (32, 4, 128, 0), "zamba2-2.7b": (32, 32, 80, 4096),
                "mistral-nemo-12b": (32, 8, 128, 0),
-               "qwen2-72b": (64, 8, 128, 0)}
+               "qwen2-72b": (64, 8, 128, 0),
+               "granite-moe-1b-a400m": (16, 8, 64, 0),
+               "arctic-480b": (56, 8, 128, 0)}
 # minicpm3-4b's MLA prefill: (heads, qk head dim, v head dim); v is padded
 # to the qk dim, kv heads = heads
 MLA_ATTN = ("minicpm3-4b", 40, 96, 64)
@@ -152,6 +167,7 @@ ZOO_ATTN = {"zoo-s": (2, 2, 16), "zoo-m": (4, 4, 16), "zoo-l": (4, 4, 32)}
 BWD_SHAPES = (("yi-9b train", "bfloat16", 2, 32, 4, 2048, 128),
               ("zamba2-2.7b train", "bfloat16", 1, 32, 32, 2048, 80),
               ("minicpm3-4b train", "bfloat16", 1, 40, 40, 2048, 96),
+              ("granite-moe-1b-a400m train", "bfloat16", 1, 16, 8, 2048, 64),
               ("zoo-s", "float32", 16, 2, 2, 32, 16),
               ("zoo-l", "float32", 16, 4, 4, 32, 32),
               ("mla float32", "float32", 2, 4, 4, 100, 96))
@@ -966,14 +982,16 @@ def check_rms_norm(rec):
     err = 0.0
     # yi-9b rows (4096), the mamba2 / zamba2 block norms (2048, 2560) and
     # their gated norms (4096, 5120), mistral-nemo-12b's (5120), qwen2-72b's
-    # (8192), minicpm3-4b's (2560) and its MLA norms (q 768, kv 256), and a
-    # width that is no multiple of a 16-byte vector (100: element by
-    # element); bf16 is timed at one row (decode) at every serving width
-    # and at 448 rows (prefill) at yi-9b's
+    # (8192), minicpm3-4b's (2560) and its MLA norms (q 768, kv 256),
+    # granite-moe's (1024) and arctic's (7168), and a width that is no
+    # multiple of a 16-byte vector (100: element by element); bf16 is timed
+    # at one row (decode) at every serving width and at 448 rows (prefill)
+    # at yi-9b's and the MoE engines'
     cases = [(dt, tol, rows, D)
              for dt, tol in ((torch.bfloat16, BF16_TOL),
                              (torch.float32, F32_TOL))
-             for D in (4096, 2048, 2560, 5120, 8192, 768, 256, 100)
+             for D in (4096, 2048, 2560, 5120, 8192, 768, 256, 1024, 7168,
+                       100)
              for rows in (PROMPT, 1)]
     for dt, tol, rows, D in cases:
         x = (3 * torch.randn(rows, D, generator=g, device="cuda")).to(dt)
@@ -984,7 +1002,8 @@ def check_rms_norm(rec):
         err = max(err, check_close("rms_norm", out, want, tol))
         log(f"  rms_norm {str(dt)[6:]} ({rows},{D}): "
             f"{err_str(out, want, tol)}")
-        if dt != torch.bfloat16 or D == 100 or (rows == PROMPT and D != 4096):
+        if dt != torch.bfloat16 or D == 100 or (
+                rows == PROMPT and D not in (4096, 1024, 7168)):
             continue
         sb = s.to(dt)
         ms = graph_ms(lambda: rms_norm(x, s))
@@ -995,7 +1014,7 @@ def check_rms_norm(rec):
         case = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                     bound_by=b_by, library_ms=lib_ms, tol=BF16_TOL)
         rec.setdefault("timing_cases", {})[f"rms_norm ({rows},{D})"] = case
-        if rows == PROMPT:
+        if rows == PROMPT and D == 4096:
             rec["kernels"]["rms_norm"] = case
         log(f"  rms_norm ({rows},{D}) bf16: kernel {ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms, F.rms_norm {lib_ms:.4f} ms, bound "
@@ -1382,19 +1401,29 @@ def _model_check(model, rec, label, prompt_len):
         f" (tol {MODEL_REL_TOL})")
 
 
-def _reduced_copy(model, n_layers):
+def _reduced_copy(model, n_layers, n_experts=None):
     """A model of ``model``'s config at ``n_layers`` holding its first
-    ``n_layers`` layers' weights (and every shared weight), on the card."""
+    ``n_layers`` layers' weights (and every shared weight) and, with
+    ``n_experts``, only the first experts of each MoE layer and their
+    router columns, on the model's device."""
     import torch
 
     from repro_torch.models.transformer import Model
 
-    small = Model(dataclasses.replace(model.cfg, n_layers=n_layers),
-                  device="cuda")
+    cfg = dataclasses.replace(model.cfg, n_layers=n_layers)
+    if n_experts:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, n_experts=n_experts))
+    small = Model(cfg, device=model.device)
     weights = model.state_dict()
     with torch.no_grad():
         for n, p in small.named_parameters():
-            p.copy_(weights[n])
+            w = weights[n]
+            if n_experts and n.endswith("mlp.router"):
+                w = w[:, :n_experts]
+            elif n_experts and n.endswith(("mlp.w1", "mlp.w3", "mlp.w2")):
+                w = w[:n_experts]
+            p.copy_(w)
     return small
 
 
@@ -1456,25 +1485,36 @@ def _profile_call(name, fn, rec, what):
         log(f"      {ms:8.2f} ms  {n[:90]}")
 
 
+def _n_attn(cfg) -> int:
+    """Attention applications of one pass: every layer of the dense and MoE
+    families (GQA decoders; the MoE adds no kernel), each shared-block
+    application of the hybrid, none for the SSM."""
+    from repro_torch.models.transformer import attention_decoder
+
+    if attention_decoder(cfg):
+        return cfg.n_layers
+    return cfg.n_layers // cfg.hybrid.attn_every \
+        if cfg.family == "hybrid" else 0
+
+
 def _expected_launches(cfg, invocations: int, max_new: int = MAX_NEW) -> dict:
     """Kernel launches of ``invocations`` stage invocations (a prefill and
     ``max_new`` decode steps each) on an engine of ``cfg``: per prefill, L
-    flash launches (dense) or L SSD scans and L / attn_every flash launches
-    (hybrid: its shared block); per decode step as many decode-attention
-    launches, none for MLA (its absorbed decode has no kernel); 2L + 1
-    RMSNorms per prefill and per step (block norms, or block and gated
-    norms, and the final norm) plus 2 per shared-block application and 2
-    a layer for MLA (its q and kv latent norms)."""
+    flash launches (dense, MoE) or L SSD scans and L / attn_every flash
+    launches (hybrid: its shared block); per decode step as many
+    decode-attention launches, none for MLA (its absorbed decode has no
+    kernel); 2L + 1 RMSNorms per prefill and per step (block norms, or
+    block and gated norms, and the final norm) plus 2 per shared-block
+    application and 2 a layer for MLA (its q and kv latent norms)."""
     L = cfg.n_layers
-    attn = L if cfg.family == "dense" else \
-        L // cfg.hybrid.attn_every if cfg.family == "hybrid" else 0
+    attn = _n_attn(cfg)
     mla = cfg.attn_kind == "mla"
     norms = 2 * L + 1 + (2 * attn if cfg.family == "hybrid" else 0) + \
         (2 * L if mla else 0)
     per_run = {"flash_attention": attn,
                "decode_attention": 0 if mla else attn * max_new,
                "rms_norm": norms * (1 + max_new),
-               "ssd_scan": 0 if cfg.family == "dense" else L}
+               "ssd_scan": L if cfg.family in ("ssm", "hybrid") else 0}
     return {k: v * invocations for k, v in per_run.items()}
 
 
@@ -2005,9 +2045,18 @@ def _draw_biases(model, seed: int) -> None:
 
 def _weight_bound(model):
     """(ms, GB): the weights one decode step reads (all but the embedding,
-    of which it reads one row) over the card's memory rate."""
-    nbytes = sum(p.numel() * p.element_size() for n, p in
-                 model.named_parameters() if n != "embed")
+    of which it reads one row; of a MoE layer's experts only the top K of
+    E a token routes to, with its router and dense residual whole) over
+    the card's memory rate."""
+    moe = model.cfg.moe
+    nbytes = 0
+    for n, p in model.named_parameters():
+        if n == "embed":
+            continue
+        b = p.numel() * p.element_size()
+        if moe is not None and n.endswith(("mlp.w1", "mlp.w3", "mlp.w2")):
+            b = b * moe.top_k // moe.n_experts
+        nbytes += b
     return nbytes / HBM_BPS * 1e3, nbytes / 1e9
 
 
@@ -2118,6 +2167,482 @@ def phase_serve_dense(args, rec):
 
 
 # ----------------------------------------------------------------------
+# phase serve-moe: the MoE families, their routing held against float32
+# ----------------------------------------------------------------------
+# engine-a: granite-moe-1b-a400m at full width and depth; engine-b:
+# arctic-480b at full width with all 128 experts and its dense residual,
+# depth cut to 2 of 35 layers (a layer is 13.6B parameters, 27.2 GB of
+# bf16: 2 layers and the embeddings are 55.4 GB, 3 would not fit 80 GB)
+MOE_ENGINES = {"engine-a": ("granite-moe-1b-a400m", None),
+               "engine-b": ("arctic-480b", 2)}
+MOE_ROUTE_LAYERS = 2  # each engine's first layers routed at full E
+# the copies held against float32 on the CPU: (layers, experts); arctic's
+# keeps its first 16 experts and router columns (an expert cut: one full
+# layer in float32 is 54 GB)
+MOE_CHECK = {"granite-moe-1b-a400m": (2, None), "arctic-480b": (1, 16)}
+MOE_CHECK_PROMPT = 100
+MOE_DECODE_STEPS = 8
+FLIP_SHARE = 0.02      # flips at most, of the rows x layers routed at full E
+# tau, the reference logit gap below which bf16 can swap two experts (see
+# `_tau`): twice the half-ulp of bf16 at the larger logit (each logit is
+# rounded once), plus a slack: float32 summation order where the card and
+# the reference route the same input (the full-E layer check), the bf16
+# rounding of everything upstream of the first router where each routes
+# its own (the model and train checks; 0.027 logits at most on CPU bf16
+# runs of granite's first layer, PERF.md section 6)
+TAU_LAYER_SLACK = 2.0 ** -10
+TAU_MODEL_SLACK = 2.0 ** -4
+FLIP_GRAD_TOL = 0.5    # a train copy's gradient leaves once a flip reaches
+                       # them (relative L2; PERF.md section 6)
+
+
+def _tau(l_a: float, l_b: float, slack: float) -> float:
+    """The largest reference logit gap at which the card's bf16 logits can
+    order experts a and b the other way: each logit rounds by at most half
+    a bf16 ulp (2^(floor(log2 |l|) - 8)), so the gap moves by at most twice
+    that at the larger |logit|, plus ``slack``."""
+    m = max(abs(l_a), abs(l_b), 2.0 ** -126)
+    return 2.0 * 2.0 ** (np.floor(np.log2(m)) - 8) + slack
+
+
+def _ref_slots(topi: np.ndarray, E: int, G: int) -> np.ndarray:
+    """Capacity slots of `repro`'s rule, one choice at a time: rank-major
+    (every row's first choice in row order, then every second, ...), per
+    group of G rows, each expert's count growing by every row that chose
+    it."""
+    R, K = topi.shape
+    pos = np.zeros((R, K), np.int64)
+    count = np.zeros((R // G, E), np.int64)
+    for j in range(K):
+        for r in range(R):
+            e, g = topi[r, j], r // G
+            pos[r, j] = count[g, e]
+            count[g, e] += 1
+    return pos
+
+
+def _ref_route(gates: np.ndarray, K: int, C: int, G: int):
+    """The reference's routing of its own gates (R, E): the K largest,
+    ties to the lowest index (a lexicographic sort on (-gate, index)),
+    renormalised, slots by `_ref_slots` -> (topi, topv, keep), numpy."""
+    idx = np.broadcast_to(np.arange(gates.shape[-1]), gates.shape)
+    topi = np.lexsort((idx, -gates), axis=-1)[:, :K]
+    topv = np.take_along_axis(gates, topi, -1)
+    topv = topv / np.maximum(topv.sum(-1, keepdims=True), 1e-9)
+    return topi, topv, _ref_slots(topi, gates.shape[-1], G) < C
+
+
+def _routing_np(r):
+    """A `layers.Routing` of R rows as numpy (topi, topv, keep, pos)."""
+    K = r.topi.shape[-1]
+    return tuple(t.reshape(-1, K).detach().float().cpu().numpy()
+                 if t.dtype.is_floating_point else
+                 t.reshape(-1, K).cpu().numpy()
+                 for t in (r.topi, r.topv, r.keep, r.pos))
+
+
+def _swap(t, pairs, logits, gates, slack, **kw):
+    """The pair (o, i) of ``pairs`` whose reference logit gap l_o - l_i is
+    largest, with that gap, the gate gap and tau."""
+    o, i = max(pairs, key=lambda p: logits[t, p[0]] - logits[t, p[1]])
+    return dict(row=int(t), logit_gap=float(logits[t, o] - logits[t, i]),
+                gate_gap=float(gates[t, o] - gates[t, i]),
+                tau=float(_tau(logits[t, o], logits[t, i], slack)), **kw)
+
+
+def _route_diff(card, ref, logits, gates, rows, slack):
+    """Row by row over ``rows``: a **flip** where the card's chosen set
+    differs from the reference's (with the reference's largest logit and
+    gate gap between an expert it chose and one the card chose instead,
+    and tau); **moved** where the sets agree but the kept experts differ;
+    else **held**.  ``card`` and ``ref`` are (topi, topv, keep); ``logits``
+    and ``gates`` the reference's (R, E).  The gate mass a row moves is
+    half the L1 distance of the two combine weights by expert.  A row
+    whose set agrees in another order (which moves capacity slots, rank
+    by rank) is also returned among ``reorders``, with its largest swap."""
+    flips, moved, held, reorders = [], [], [], []
+    for t in rows:
+        lc, lr = card[0][t].tolist(), ref[0][t].tolist()
+        sc, sr = set(lc), set(lr)
+        if sc == sr and lc != lr:
+            reorders.append(_swap(t, [(b, a) for x, a in enumerate(lc)
+                                      for b in lc[x + 1:]
+                                      if lr.index(b) < lr.index(a)],
+                                  logits, gates, slack))
+        wc = {int(e): float(w) for e, w, k in zip(*(a[t] for a in card)) if k}
+        wr = {int(e): float(w) for e, w, k in zip(*(a[t] for a in ref)) if k}
+        mass = 0.5 * sum(abs(wc.get(e, 0.0) - wr.get(e, 0.0))
+                         for e in sc | sr)
+        if sc != sr:
+            flips.append(_swap(t, [(o, i) for o in sr - sc for i in sc - sr],
+                               logits, gates, slack, card=sorted(sc - sr),
+                               ref=sorted(sr - sc), mass=mass))
+        elif set(wc) != set(wr):
+            moved.append(dict(row=int(t), experts=sorted(set(wc) ^ set(wr)),
+                              mass=mass))
+        else:
+            held.append(int(t))
+    return flips, moved, held, reorders
+
+
+def _flip_str(f) -> str:
+    return (f"row {f['row']}: card {f['card']} for reference {f['ref']}, "
+            f"reference logit gap {f['logit_gap']:.4g} (tau "
+            f"{f['tau']:.4g}), gate gap {f['gate_gap']:.3g}, mass "
+            f"{f['mass']:.3g}")
+
+
+def _moe_ref_forward(mod, xt, topi, topv, keep):
+    """The MoE layer in float32 on the card under the reference's own
+    routing (numpy (R, K) topi, topv, keep), expert by expert: each
+    expert's weights are cast to float32 one at a time, so no float32 copy
+    of every expert is made.  xt (R, d) -> (R, d) float32."""
+    import torch
+    import torch.nn.functional as F
+
+    x = xt.float()
+    y = torch.zeros_like(x)
+    dev = x.device
+    topi_t = torch.from_numpy(topi).to(dev)
+    keep_t = torch.from_numpy(keep).to(dev)
+    w = torch.from_numpy(np.where(keep, topv, 0.0)).float().to(dev)
+    for e in range(mod.w1.shape[0]):
+        rows, ks = torch.nonzero((topi_t == e) & keep_t, as_tuple=True)
+        if rows.numel() == 0:
+            continue
+        xe = x[rows]
+        h = F.silu(xe @ mod.w1[e].float()) * (xe @ mod.w3[e].float())
+        y.index_add_(0, rows, w[rows, ks, None] * (h @ mod.w2[e].float()))
+    if mod.dense is not None:
+        dm = mod.dense
+        y += (F.silu(x @ dm.w1.float()) * (x @ dm.w3.float())) @ \
+            dm.w2.float()
+    return y
+
+
+def _moe_layer_check(model, rec, label):
+    """Each of the engine's first MOE_ROUTE_LAYERS MoE layers at full E on
+    the MoE input of a PROMPT-token prefill (caught by a forward pre-hook):
+    the card's `route` and forward (bf16) against a float32 reference on
+    the same input, upcast, which routes by its own scores (lowest-index
+    ties, the layer's C) and runs expert by expert on the card.  The card's
+    slots must be `repro`'s rule applied to its own choices; every flip a
+    near-tie under tau (TAU_LAYER_SLACK); flips at most FLIP_SHARE of the
+    rows over the layers; held rows within BF16_TOL of the reference; aux
+    within 1e-2 relative plus what the top-1 flips move."""
+    import torch
+    import torch.nn.functional as F
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError("the float32 reference needs TF32 off")
+    cfg = model.cfg
+    E, K = cfg.moe.n_experts, cfg.moe.top_k
+    t0 = time.perf_counter()
+    prompt = np.random.default_rng(SEED + 3).integers(0, cfg.vocab,
+                                                      (1, PROMPT))
+    caught = {}
+    hooks = [model.layers[i].mlp.register_forward_pre_hook(
+        lambda mod, args, i=i: caught.setdefault(i, args[0].clone()))
+        for i in range(MOE_ROUTE_LAYERS)]
+    try:
+        model.prefill(torch.from_numpy(prompt).to(model.device))
+    finally:
+        for h in hooks:
+            h.remove()
+    n_flips, n_rows, out = 0, 0, {}
+    for i in range(MOE_ROUTE_LAYERS):
+        mod, h = model.layers[i].mlp, caught[i]
+        T = h.shape[0] * h.shape[1]
+        with torch.inference_mode():
+            y, aux = mod(h)
+            xt, (G, nG, C) = mod._rows(h, False)
+            card = _routing_np(mod._route_rows(xt, G, nG, C))
+            logits = xt.float() @ mod.router.float()
+            gates = torch.softmax(logits, -1)
+            lg_np, g_np = logits.cpu().numpy(), gates.cpu().numpy()
+            ref = _ref_route(g_np, K, C, G)
+            y_ref = _moe_ref_forward(mod, xt, *ref)
+            load = np.bincount(ref[0][:, 0], minlength=E) / len(g_np)
+            aux_ref = float(E * (g_np.mean(0) * load).sum())
+        if not np.array_equal(_ref_slots(card[0], E, G), card[3]):
+            raise AssertionError(f"{label} layer {i}: the card's capacity "
+                                 f"slots are not the rule's for its choices")
+        flips, moved, held, reorders = _route_diff(
+            card[:3], ref, lg_np, g_np, range(T), TAU_LAYER_SLACK)
+        far = [f for f in flips + reorders if f["logit_gap"] > f["tau"]]
+        rows = torch.tensor(held, device=h.device)
+        e = check_close(f"{label} layer {i} MoE output (held rows)",
+                        y.reshape(-1, cfg.d_model)[rows], y_ref[rows],
+                        BF16_TOL)
+        top1 = int((card[0][:T, 0] != ref[0][:T, 0]).sum())
+        aux_tol = 1e-2 * aux_ref + 2 * E * float(g_np.mean(0).max()) * \
+            top1 / len(g_np)
+        mass = max([f["mass"] for f in flips + moved], default=0.0)
+        log(f"  {label} layer {i}: {T} rows, E {E}, K {K}, C {C}: {len(flips)}"
+            f" flips, {len(reorders)} reordered (worst logit gap / tau "
+            f"{max([f['logit_gap'] / f['tau'] for f in reorders], default=0):.3g}),"
+            f" {len(moved)} moved, {len(held)} held "
+            f"({err_str(y.reshape(-1, cfg.d_model)[rows], y_ref[rows], BF16_TOL)}"
+            f"); largest gate mass moved {mass:.3g}; aux {float(aux):.6f} vs "
+            f"{aux_ref:.6f} (top-1 changed on {top1} rows, tol "
+            f"{aux_tol:.3g})")
+        for f in flips:
+            log(f"    flip {_flip_str(f)}")
+        for m in moved:
+            log(f"    moved row {m['row']}: experts {m['experts']}, mass "
+                f"{m['mass']:.3g}")
+        if far:
+            raise AssertionError(f"{label} layer {i}: flips that are no "
+                                 f"near-tie: {far}")
+        if abs(float(aux) - aux_ref) > aux_tol:
+            raise AssertionError(f"{label} layer {i}: aux {float(aux)} vs "
+                                 f"{aux_ref}")
+        n_flips += len(flips)
+        n_rows += T
+        out[f"layer {i}"] = dict(flips=flips, moved=moved, held=len(held),
+                                 reorders=len(reorders),
+                                 C=C, max_abs_err=e, mass=mass,
+                                 aux=float(aux), aux_ref=aux_ref)
+    log(f"  {label}: {n_flips} flips over {n_rows} rows x layers "
+        f"({n_flips / n_rows:.4f}, at most {FLIP_SHARE}); "
+        f"{time.perf_counter() - t0:.1f} s")
+    rec.setdefault("moe_route", {})[label] = out
+    if n_flips > FLIP_SHARE * n_rows:
+        raise AssertionError(f"{label}: {n_flips} flips over {n_rows} rows")
+
+
+class _RouteTap:
+    """Forward hooks on every MoE layer of ``blocks`` (or on one template
+    block called once a layer, ``per_call``): each call's routing by the
+    layer's own `route` (the card's, or the float32 copy's own scores) as
+    numpy, with its float32 logits and gates."""
+
+    def __init__(self, blocks, per_call=False):
+        self.calls = []
+        self.hooks = []
+        for i, blk in enumerate(blocks):
+            self.hooks.append(blk.mlp.register_forward_pre_hook(
+                lambda mod, args, kw, i=i: self._tap(mod, i, args[0], kw),
+                with_kwargs=True))
+        self.per_call = per_call
+
+    def _tap(self, mod, i, h, kw):
+        import torch
+
+        with torch.no_grad():
+            no_drop = kw.get("no_drop", False)
+            xt, (G, nG, C) = mod._rows(h.detach(), no_drop)
+            logits = (xt @ mod.router).float()
+            self.calls.append(dict(
+                layer=len(self.calls) if self.per_call else i, G=G, C=C,
+                logits=logits.cpu().numpy(),
+                gates=torch.softmax(logits, -1).cpu().numpy(),
+                card=_routing_np(mod._route_rows(xt, G, nG, C))))
+
+    def take(self):
+        calls, self.calls = self.calls, []
+        return calls
+
+    def close(self):
+        for h in self.hooks:
+            h.remove()
+
+
+def _compare_passes(card_calls, ref_calls, K, rows, slack):
+    """Per layer of one pass over ``rows``, the card's routing against the
+    float32 copy's own (`_ref_route` of its gates): flips, reordered and
+    moved rows (the card's slots must be the rule's for its own choices),
+    and the flips and reorders that must be near-ties: those at a row t
+    that no routing difference of an earlier layer reached (at a row <= t:
+    a changed output enters the later layers' causal attention)."""
+    layers, first = [], np.inf  # the earliest row differing so far
+    for n, (c, r) in enumerate(zip(card_calls, ref_calls)):
+        E = r["gates"].shape[-1]
+        if not np.array_equal(_ref_slots(c["card"][0], E, c["G"]),
+                              c["card"][3]):
+            raise AssertionError(f"layer {n}: the card's capacity slots are "
+                                 f"not the rule's for its own choices")
+        ref = _ref_route(r["gates"], K, r["C"], r["G"])
+        flips, moved, _, reorders = _route_diff(
+            c["card"][:3], ref, r["logits"], r["gates"], rows, slack)
+        diff_rows = sorted({f["row"] for f in flips + reorders} |
+                           {m["row"] for m in moved})
+        layers.append(dict(flips=flips, moved=moved, reorders=reorders,
+                           rows=diff_rows,
+                           need_tie=[f for f in flips + reorders
+                                     if f["row"] < first]))
+        first = min([first] + diff_rows)
+    return layers
+
+
+def _moe_model_check(model, rec, label):
+    """The MoE copy ``model`` (bf16, its kernels) against its float32 copy
+    on the CPU, each routing by its own scores: a ragged prefill of
+    MOE_CHECK_PROMPT tokens, then MOE_DECODE_STEPS decode steps, each of
+    which the float32 copy takes from the card's cache (upcast), so a
+    step's error is its own.  A step's scored token (the prompt's last
+    row, the decoded token) is **reached** where its routing differs in
+    some layer, or, at the prefill, where an earlier row's did in a layer
+    before the last (its changed output enters the later attention).
+    Unreached steps are held at MODEL_REL_TOL; a reached step is held
+    too, or excused, at most one, where every flip at its origin is a
+    near-tie under tau (TAU_MODEL_SLACK).  The caches the card writes are
+    held at MODEL_REL_TOL on the rows no earlier layer's routing
+    difference reached."""
+    import torch
+
+    from repro_torch.models.transformer import Model
+
+    cfg = model.cfg
+    K, nL = cfg.moe.top_k, cfg.n_layers
+    t0 = time.perf_counter()
+    cpu = Model(dataclasses.replace(cfg, dtype="float32"), device="cpu")
+    with torch.no_grad():
+        for (_, p), (_, q) in zip(cpu.named_parameters(),
+                                  model.named_parameters()):
+            p.copy_(q.float().cpu())
+    card_tap, cpu_tap = _RouteTap(model.layers), _RouteTap(cpu.layers)
+    S = MOE_CHECK_PROMPT
+    toks = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, cfg.vocab, (1, S)))
+    steps, cache_errs, excused = [], [], []
+    try:
+        lg, cache = model.prefill(toks.to(model.device))
+        lc, ccache = cpu.prefill(toks)
+        for step in range(MOE_DECODE_STEPS + 1):
+            card, ref = card_tap.take(), cpu_tap.take()
+            scored = S - 1 if step == 0 else 0
+            layers = _compare_passes(card, ref, K,
+                                     range(S if step == 0 else 1),
+                                     TAU_MODEL_SLACK)
+            own = [i for i, lay in enumerate(layers) if scored in lay["rows"]]
+            earlier = step == 0 and any(
+                any(t < scored for t in lay["rows"]) for lay in layers[:-1])
+            reached = bool(own) or earlier
+            err = float((lg.float().cpu() - lc).norm() / lc.norm())
+            far = [f for lay in layers for f in lay["need_tie"]
+                   if f["logit_gap"] > f["tau"]]
+            steps.append(dict(step=step, err=err, reached=reached,
+                              layers=own, earlier=earlier,
+                              flips=[f for lay in layers for f in lay["flips"]]))
+            # the cache rows (prefill) or slot (decode) the card wrote,
+            # where no earlier layer's difference reached them
+            slot = cache.len - 1
+            for i in range(nL):
+                bad = set().union(*(lay["rows"] for lay in layers[:i])) \
+                    if i else set()
+                keep = [t for t in (range(S) if step == 0 else [0])
+                        if t not in bad]
+                if not keep:
+                    continue
+                pos = keep if step == 0 else [slot]
+                for a, b in ((cache.k, ccache.k), (cache.v, ccache.v)):
+                    got = a[i, :, :, pos].float().cpu()
+                    want = b[i, :, :, pos]
+                    cache_errs.append(float((got - want).norm() /
+                                            want.norm()))
+            if not bool(lg.float().isfinite().all()):
+                raise AssertionError(f"{label}: logits not finite")
+            if err > MODEL_REL_TOL:
+                if not reached or excused or far:
+                    raise AssertionError(
+                        f"{label}: step {step} off its float32 copy by "
+                        f"{err:.3g} (reached {reached}, excused before "
+                        f"{excused}, flips that are no near-tie {far})")
+                excused.append(step)
+            log(f"  {label} step {step} ({'prefill ' + str(S) + ' tokens' if step == 0 else 'decode'}): "
+                f"rel L2 err {err:.3g}"
+                + (f"; reached (own routing differs in layers {own}"
+                   f"{', earlier rows differ' if earlier else ''})"
+                   if reached else "")
+                + (" EXCUSED" if step in excused else ""))
+            for lay_i, lay in enumerate(layers):
+                for f in lay["flips"]:
+                    log(f"    layer {lay_i} flip {_flip_str(f)}")
+                if lay["reorders"] or lay["moved"]:
+                    log(f"    layer {lay_i}: {len(lay['reorders'])} "
+                        f"reordered, {len(lay['moved'])} moved rows")
+            if step == MOE_DECODE_STEPS:
+                break
+            nxt = lg.argmax(-1)
+            with torch.inference_mode():  # the card's past, upcast
+                ccache.k.copy_(cache.k.float().cpu())
+                ccache.v.copy_(cache.v.float().cpu())
+            lg, cache = model.decode_step(cache, nxt)
+            lc, ccache = cpu.decode_step(ccache, nxt.cpu())
+    finally:
+        card_tap.close()
+        cpu_tap.close()
+    worst_cache = max(cache_errs)
+    log(f"  {label}: cache rows and slots written by the card vs its "
+        f"float32 copy's: worst rel L2 err {worst_cache:.3g} over "
+        f"{len(cache_errs)} (tol {MODEL_REL_TOL}); steps excused {excused}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    if worst_cache > MODEL_REL_TOL:
+        raise AssertionError(f"{label}: cache off by {worst_cache:.3g}")
+    rec.setdefault("model_rel_err", {})[label] = [s["err"] for s in steps]
+    rec.setdefault("moe_model_check", {})[label] = dict(
+        steps=steps, excused=excused, cache_err=worst_cache)
+
+
+def phase_serve_moe(args, rec):
+    """The cohort on granite-moe-1b-a400m (engine-a, full width and depth)
+    and arctic-480b (engine-b, full width, all 128 experts, 2 of 35
+    layers): first the routing of each engine's first layers at full E
+    (`_moe_layer_check`), then a 2-layer granite copy and a 1-layer,
+    16-expert arctic copy against float32 on the CPU
+    (`_moe_model_check`), then the cohort with its launches exact."""
+    import gc
+
+    import torch
+
+    from repro_torch.configs import get_config
+
+    rec.pop("yi_engines", None)
+    gc.collect()
+    torch.cuda.empty_cache()
+    cohort = _cohort()
+    tpl = cohort[0]
+    t0 = time.perf_counter()
+    engines = {}
+    for i, (e, (arch, layers)) in enumerate(sorted(MOE_ENGINES.items())):
+        full = get_config(arch)
+        cfg = full if layers is None else dataclasses.replace(
+            full, n_layers=layers)
+        engines[e] = _engine(tpl, e, cfg, SEED + 60 + i)
+    torch.cuda.synchronize()
+    arctic = get_config("arctic-480b")
+    per_layer = (arctic.param_count() - 2 * arctic.vocab * arctic.d_model) \
+        / arctic.n_layers
+    log(f"reduced: arctic-480b depth only, {MOE_ENGINES['engine-b'][1]} of "
+        f"{arctic.n_layers} layers (all {arctic.moe.n_experts} experts, top "
+        f"{arctic.moe.top_k}: a layer is {per_layer / 1e9:.2f}B parameters, "
+        f"{2 * per_layer / 1e9:.1f} GB of bf16; 2 layers and the embeddings "
+        f"{(2 * 2 * per_layer + 2 * 2 * arctic.vocab * arctic.d_model) / 1e9:.1f}"
+        f" GB, 3 would not fit the card's 80 GB); granite-moe-1b-a400m "
+        f"nothing; weights random from seed {SEED + 60}; init "
+        f"{time.perf_counter() - t0:.1f} s")
+    for eng in engines.values():
+        _moe_layer_check(eng.model, rec, f"{eng.model.cfg.name} {eng.name}")
+    for eng in engines.values():
+        n, n_exp = MOE_CHECK[eng.model.cfg.name]
+        small = _reduced_copy(eng.model, n, n_exp)
+        cut = f", first {n_exp} experts" if n_exp else ""
+        _moe_model_check(small, rec, f"{eng.model.cfg.name} {eng.name} first "
+                         f"{n} layers{cut}")
+        del small
+        gc.collect()
+        torch.cuda.empty_cache()
+    _serve_cohort("moe", engines, cohort, rec, args)
+    for eng in engines.values():
+        _engine_reading(eng, "moe", rec)
+    del engines, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    _after_serving(args, rec, "serve-moe", cohort)
+
+
+# ----------------------------------------------------------------------
 # phases train, train-ssm, train-hybrid: a few steps of a full-width model
 # on the card
 # ----------------------------------------------------------------------
@@ -2144,8 +2669,8 @@ def _token_batch(B: int, S: int, seed: int) -> dict:
 
 def _train_launches(cfg) -> dict:
     """Kernel launches of one loss-and-gradient of ``cfg``.  The forward
-    launches, a layer: dense, one flash and 2 RMSNorms (4 with MLA's
-    latent norms); SSM and hybrid, one SSD scan and 2 RMSNorms; and a
+    launches, a layer: dense and MoE, one flash and 2 RMSNorms (4 with
+    MLA's latent norms); SSM and hybrid, one SSD scan and 2 RMSNorms; and a
     hybrid group's shared block one flash and 2 RMSNorms; then the final
     norm, once.  ``remat="full"`` checkpoints each layer, so its forward
     runs again in the backward; the hybrid checkpoints each group too, so
@@ -2157,7 +2682,7 @@ def _train_launches(cfg) -> dict:
     L = cfg.n_layers
     full = cfg.remat == "full"
     out = {k: 0 for k in KERNELS}
-    if cfg.family == "dense":
+    if _n_attn(cfg) == L:
         r = 2 if full else 1
         norms = 4 if cfg.attn_kind == "mla" else 2
         out.update(flash_attention=r * L, flash_attention_bwd=L,
@@ -2196,7 +2721,14 @@ def _train_check(model, label, rec):
 def _hold_train_copy(small, label, rec, shape):
     """One loss-and-gradient of ``small`` on a ``shape`` batch on the card,
     its launches exact (`_train_launches`), and on its float32 CPU copy:
-    the loss and every gradient leaf within MODEL_REL_TOL, relative L2."""
+    the loss and every gradient leaf within MODEL_REL_TOL, relative L2.
+    A MoE copy's loss carries 0.01 aux (held with it); each routes by its
+    own scores, and where some row's routing differs (`_compare_passes`:
+    every flip or reorder no earlier difference reached must be a
+    near-tie under tau, TAU_MODEL_SLACK), the differing rows' gradients
+    reach every leaf through the backward, so each leaf is held at
+    FLIP_GRAD_TOL instead and printed with the flips, with the worst
+    expert slices of the experts those rows chose."""
     import torch
 
     from repro_torch.kernels import _build
@@ -2204,54 +2736,109 @@ def _hold_train_copy(small, label, rec, shape):
     from repro_torch.train.step import value_and_grad
 
     B, S = shape
-    cpu = TrainModel(dataclasses.replace(small.cfg, dtype="float32"),
+    cfg = small.cfg
+    t0 = time.perf_counter()
+    cpu = TrainModel(dataclasses.replace(cfg, dtype="float32"),
                      device="cpu")
     with torch.no_grad():
         for k, p in small.masters.items():
             cpu.masters[k].copy_(p.cpu())
     batch = _token_batch(B, S, SEED + 1)
-    _build.reset_launches()
-    loss, _, grads = value_and_grad(small, batch)
-    launches, expect = dict(_build.LAUNCHES), _train_launches(small.cfg)
-    if launches != expect:
-        raise AssertionError(f"{label}: launches of the copy's "
-                             f"loss-and-gradient {launches} != {expect}")
-    want, _, wgrads = value_and_grad(cpu, batch)
+    taps = [_RouteTap([m._block], per_call=True) for m in (small, cpu)] \
+        if cfg.moe is not None else []
+    try:
+        _build.reset_launches()
+        t1 = time.perf_counter()
+        loss, met, grads = value_and_grad(small, batch)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        launches, expect = dict(_build.LAUNCHES), _train_launches(cfg)
+        if launches != expect:
+            raise AssertionError(f"{label}: launches of the copy's "
+                                 f"loss-and-gradient {launches} != {expect}")
+        want, wmet, wgrads = value_and_grad(cpu, batch)
+    finally:
+        for t in taps:
+            t.close()
     errs = {"loss": abs(float(loss) - float(want)) / abs(float(want))}
     for k, g in wgrads.items():
         got = grads[k].float().cpu()
         if not bool(got.isfinite().all()):
             raise AssertionError(f"{label}: gradient {k} is not finite")
         errs[k] = float((got - g).norm() / g.norm().clamp(min=1e-30))
+    tol, diff = MODEL_REL_TOL, []
+    if taps:  # the forward's calls, one a layer (remat recomputes follow)
+        layers = _compare_passes(*(t.calls[:cfg.n_layers] for t in taps),
+                                 cfg.moe.top_k, range(B * S),
+                                 TAU_MODEL_SLACK)
+        diff = [r for lay in layers for r in lay["rows"]]
+        far = [f for lay in layers for f in lay["need_tie"]
+               if f["logit_gap"] > f["tau"]]
+        log(f"  {label}: aux {float(met['aux']):.6f} vs {float(wmet['aux']):.6f}"
+            f"; routing per layer (flips / reordered / moved rows of "
+            f"{B * S}): " + ", ".join(
+                f"{len(lay['flips'])} / {len(lay['reorders'])} / "
+                f"{len(lay['moved'])}" for lay in layers))
+        for n, lay in enumerate(layers):
+            for f in lay["need_tie"]:
+                if "card" in f:  # reorders only counted
+                    log(f"    layer {n} flip {_flip_str(f)}")
+        if far:
+            raise AssertionError(f"{label}: flips no earlier difference "
+                                 f"reached that are no near-tie: {far}")
+        if diff:
+            tol = FLIP_GRAD_TOL
+            touched = sorted({int(e) for t in taps[0].calls[:cfg.n_layers]
+                              for r in set(diff) if r < B * S
+                              for e in t["card"][0][r]})
+            for k in ("layers@mlp@w1", "layers@mlp@w2", "layers@mlp@w3"):
+                g, w = grads[k].float().cpu(), wgrads[k]
+                per = {e: float((g[:, e] - w[:, e]).norm() /
+                                w[:, e].norm().clamp(min=1e-30))
+                       for e in touched}
+                e = max(per, key=per.get)
+                log(f"    {k}: {len(touched)} experts chosen by differing "
+                    f"rows, worst slice expert {e} {per[e]:.3g}, whole "
+                    f"leaf {errs[k]:.3g}")
     worst = max(errs, key=errs.get)
     rec.setdefault("train_rel_err", {})[label] = errs
-    log(f"  {label}: {small.cfg.n_layers}-layer copy, one step on ({B},{S}) "
+    log(f"  {label}: {cfg.n_layers}-layer copy, one step on ({B},{S}) "
         f"tokens vs its float32 CPU copy: loss {float(loss):.6f} vs "
-        f"{float(want):.6f}, relative L2 err: worst {worst} "
-        f"{errs[worst]:.3g} over {len(errs)} leaves (tol {MODEL_REL_TOL}); "
-        f"launches {launches} (exact)")
-    if errs[worst] > MODEL_REL_TOL:
+        f"{float(want):.6f} (tol {MODEL_REL_TOL}), relative L2 err: worst "
+        f"{worst} {errs[worst]:.3g} over {len(errs)} leaves (tol {tol}"
+        f"{', routing differs' if diff else ''}); launches {launches} "
+        f"(exact); copies {t1 - t0:.1f} s, card step {t2 - t1:.1f} s, "
+        f"float32 CPU step and comparison {time.perf_counter() - t2:.1f} s")
+    if errs["loss"] > MODEL_REL_TOL or errs[worst] > tol:
         raise AssertionError(f"{label}: {worst} off its float32 CPU copy by "
                              f"{errs[worst]:.3g}")
     del cpu, grads, wgrads
 
 
-# the dense families' one-step checks (phase train-hybrid): a full-width
-# copy of TRAIN_CHECK's depth, drawn from a seed, on a (1, 256) batch
-FAMILY_TRAIN = ("mistral-nemo-12b", "qwen2-72b", "minicpm3-4b")
+# the dense and MoE families' one-step checks (phase train-hybrid): a
+# full-width copy drawn from a seed, on a (1, 256) batch: arch -> (layers,
+# experts kept (None: all)); arctic-480b keeps 16 of its 128 experts (an
+# expert cut: its float32 masters, gradients and CPU copy would not fit)
+FAMILY_TRAIN = {"mistral-nemo-12b": (TRAIN_CHECK[0], None),
+                "qwen2-72b": (TRAIN_CHECK[0], None),
+                "minicpm3-4b": (TRAIN_CHECK[0], None),
+                "granite-moe-1b-a400m": (TRAIN_CHECK[0], None),
+                "arctic-480b": (1, 16)}
 FAMILY_TRAIN_SHAPE = (1, 256)
 
 
 def _step_flops(cfg, n_mat: int, B: int, S: int) -> float:
-    """Model FLOPs of one train step on (B, S) tokens: 6 a matrix
-    parameter a token, and 12 a causal pair a query head dim for each
-    attention (dense: every layer; hybrid: each shared-block application;
-    SSM: none)."""
-    n_attn = cfg.n_layers if cfg.family == "dense" else \
-        cfg.n_layers // cfg.hybrid.attn_every if cfg.family == "hybrid" \
-        else 0
+    """Model FLOPs of one train step on (B, S) tokens: 6 an active matrix
+    parameter a token (of ``n_mat``, a MoE layer's experts count K of E),
+    and 12 a causal pair a query head dim for each attention (dense and
+    MoE: every layer; hybrid: each shared-block application; SSM:
+    none)."""
+    if cfg.moe is not None:
+        mo = cfg.moe
+        n_mat -= cfg.n_layers * (mo.n_experts - mo.top_k) * 3 * \
+            cfg.d_model * cfg.d_ff
     return 6.0 * n_mat * B * S + 12.0 * _attn_pairs(S, S, True, 0) * \
-        cfg.head_dim * cfg.n_heads * n_attn * B
+        cfg.head_dim * cfg.n_heads * _n_attn(cfg) * B
 
 
 def _train_path(phase, rec, args):
@@ -2360,17 +2947,22 @@ def phase_train_ssm(args, rec):
 
 
 def phase_train_hybrid(args, rec):
-    """Zamba2-2.7B's train path, then one step of a 2-layer full-width copy
-    of each dense family (the flash backward at MLA's head dim 96) against
-    float32 on the CPU, launches exact."""
+    """Zamba2-2.7B's train path, then one step of a full-width copy of
+    each dense and MoE family (the flash backward at MLA's head dim 96 and
+    at granite's 64) against float32 on the CPU, launches exact."""
     import torch
 
     from repro_torch.configs import get_config
     from repro_torch.models.transformer import TrainModel
 
     _train_path("train-hybrid", rec, args)
-    for i, arch in enumerate(FAMILY_TRAIN):
-        cfg = dataclasses.replace(get_config(arch), n_layers=TRAIN_CHECK[0])
+    for i, (arch, (layers, experts)) in enumerate(FAMILY_TRAIN.items()):
+        cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+        if experts:
+            cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+                cfg.moe, n_experts=experts))
+            log(f"reduced: {arch} train copy, {experts} of "
+                f"{get_config(arch).moe.n_experts} experts, {layers} layer")
         gen = torch.Generator(device="cuda").manual_seed(SEED + 50 + i)
         small = TrainModel(cfg, device="cuda").init(gen)
         _hold_train_copy(small, f"train {arch}", rec, FAMILY_TRAIN_SHAPE)
@@ -2455,11 +3047,13 @@ def phase_zoo(args, rec):
 PHASES = {"device": phase_device, "kernels": phase_kernels,
           "serve": phase_serve, "serve-events": phase_serve_events,
           "serve-ssm": phase_serve_ssm, "serve-dense": phase_serve_dense,
+          "serve-moe": phase_serve_moe,
           # after the serve phases: a short trace taken after a train step's
           # long one came back empty on the card (PERF.md section 7)
           "train": phase_train, "train-ssm": phase_train_ssm,
           "train-hybrid": phase_train_hybrid, "zoo": phase_zoo}
-SERVE_PHASES = ("serve", "serve-events", "serve-ssm", "serve-dense")
+SERVE_PHASES = ("serve", "serve-events", "serve-ssm", "serve-dense",
+                "serve-moe")
 
 
 def _after_serving(args, rec, name, cohort):

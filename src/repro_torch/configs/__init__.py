@@ -1,7 +1,7 @@
 """Architecture config registry: ``get_config("<arch-id>", smoke=...)``.
 
 The port registers only the architectures whose model family it carries
-(dense GQA, with QKV bias or MLA, SSM and hybrid so far); ids match
+(dense GQA, with QKV bias or MLA, MoE, SSM and hybrid so far); ids match
 `repro.configs`.
 """
 from __future__ import annotations
@@ -16,6 +16,8 @@ _MODULES = {
     "mistral-nemo-12b": "mistral_nemo_12b",
     "qwen2-72b": "qwen2_72b",
     "minicpm3-4b": "minicpm3_4b",
+    "granite-moe-1b-a400m": "granite_moe_1b",
+    "arctic-480b": "arctic_480b",
     "mamba2-1.3b": "mamba2_1p3b",
     "zamba2-2.7b": "zamba2_2p7b",
 }

@@ -8,7 +8,9 @@ leading layer axis.  The serving `Model` holds one module per layer, so
 layer ``i`` takes slice ``i`` of every stacked array; the `TrainModel`
 keeps `repro`'s stacked leaves as its float32 masters.  Attention leaves
 keep `repro`'s names (``wq`` ... ``wo``, ``bq``/``bk``/``bv`` with a QKV
-bias, MLA's ``wq_a`` ... ``wo``).  The SSM and hybrid trees carry
+bias, MLA's ``wq_a`` ... ``wo``), and so do the MoE's under ``mlp``
+(``router``, the stacked (L, E, d, f) / (L, E, f, d) experts ``w1``,
+``w3``, ``w2`` and the dense residual's ``dense.w1`` ...).  The SSM and hybrid trees carry
 ``layers.norm`` and ``layers.mamba.*``, and the hybrid's ``shared_attn``
 (``norm``, ``attn``, ``mlp_norm``, ``mlp``).
 
@@ -21,7 +23,8 @@ import numpy as np
 import torch
 
 from repro_torch.models.config import ArchConfig
-from repro_torch.models.transformer import Model, TrainModel
+from repro_torch.models.transformer import (Model, TrainModel,
+                                            attention_decoder)
 
 
 def _load(dst: torch.Tensor, src) -> None:
@@ -58,7 +61,7 @@ def params_from_jax(cfg: ArchConfig, params: dict, *,
     _load(model.unembed, params["unembed"])
     lp = params["layers"]
     for i, blk in enumerate(model.layers):
-        if cfg.family == "dense":
+        if attention_decoder(cfg):
             _load(blk.attn_norm, lp["attn_norm"][i])
             _load(blk.mlp_norm, lp["mlp_norm"][i])
             _load_attn_mlp(blk, lp["attn"], lp["mlp"], i)
@@ -76,12 +79,14 @@ def params_from_jax(cfg: ArchConfig, params: dict, *,
 
 def _load_attn_mlp(blk, attn: dict, mlp: dict, i: int | None) -> None:
     """Load ``blk.attn`` (GQA, its QKV biases included, or MLA) and
-    ``blk.mlp`` from `repro`'s dicts, leaf by leaf under the module's own
-    names, taking slice ``i`` of each stacked array (``None``: the arrays
-    are unstacked)."""
+    ``blk.mlp`` (the MLP, or the MoE with its nested ``dense``) from
+    `repro`'s dicts, leaf by leaf under the module's own names, taking
+    slice ``i`` of each stacked array (``None``: the arrays are
+    unstacked)."""
     for src, mod in ((attn, blk.attn), (mlp, blk.mlp)):
         for name, p in mod.named_parameters():
-            _load(p, src[name] if i is None else src[name][i])
+            a = _leaf(src, name.replace(".", "@"))
+            _load(p, a if i is None else a[i])
 
 
 def _numpy(t: torch.Tensor) -> np.ndarray:

@@ -3,15 +3,20 @@
 RMSNorm, rotary embeddings, GQA attention with an optional QKV bias (full
 sequence and one-token decode against a KV cache), multi-head latent
 attention (MLA: the flash kernel at prefill, `repro`'s absorbed form in
-plain PyTorch at decode), the SwiGLU MLP and the Mamba2 (SSD) block.
+plain PyTorch at decode), the SwiGLU MLP, the token-choice MoE (`route`,
+`MoE`) and the Mamba2 (SSD) block.
 Weights keep `repro`'s layout, ``(in, out)`` matrices applied as
 ``x @ w``, so `models.convert` copies them without transposes.  The
 attention cores, the SSD scan and every RMSNorm go through `kernels.ops`,
 which runs the CUDA kernels on a CUDA tensor and the plain versions on a
-CPU tensor; the projections, rope, the depthwise convolution and SiLU stay
-torch ops, as `repro` left them to XLA.
+CPU tensor; the projections, rope, the MoE's routing and expert products,
+the depthwise convolution and SiLU stay torch ops, as `repro` left them to
+XLA.
 """
 from __future__ import annotations
+
+import dataclasses
+import math
 
 import torch
 import torch.nn.functional as F
@@ -41,7 +46,16 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
 
 
 def _dense_(w: torch.Tensor, generator: torch.Generator) -> None:
-    """``N(0, 1) / sqrt(fan_in)`` in float32, as `repro`'s ``_dense_init``."""
+    """``N(0, 1) / sqrt(fan_in)`` in float32, as `repro`'s ``_dense_init``,
+    for ``w`` of shape (..., in, out): the fan-in is the input axis, never
+    a leading stack axis (the MoE's (E, d, f) experts divide by d, as
+    ``in_axis=1`` does in `repro`), and a stacked ``w`` is drawn one
+    (in, out) matrix at a time, so no float32 temporary is larger than
+    one of them."""
+    if w.dim() > 2:
+        for m in w:
+            _dense_(m, generator)
+        return
     draw = torch.randn(w.shape, generator=generator, dtype=torch.float32,
                        device=w.device)
     w.copy_(draw / w.shape[0] ** 0.5)
@@ -249,6 +263,174 @@ class MLP(nn.Module):
     def forward(self, x):
         """x (..., d) -> (..., d)."""
         return (F.silu(x @ self.w1) * (x @ self.w3)) @ self.w2
+
+
+@dataclasses.dataclass
+class Routing:
+    """One MoE layer's routing of R = nG G rows (T tokens padded with zero
+    rows to whole groups of G): ``gates`` (nG, G, E) float32, the top-K
+    experts ``topi`` (nG, G, K) (ties to the lowest index) with their
+    weights ``topv`` (nG, G, K) renormalised over the K, each choice's
+    capacity slot ``pos`` (nG, G, K) in its group and expert, ``keep`` =
+    ``pos < C``, and the layer's load-balancing ``aux`` loss."""
+
+    gates: torch.Tensor
+    topi: torch.Tensor
+    topv: torch.Tensor
+    pos: torch.Tensor
+    keep: torch.Tensor
+    C: int
+    aux: torch.Tensor
+
+
+def moe_groups(T: int, moe, no_drop: bool) -> tuple[int, int, int]:
+    """(G, nG, C) of `repro`'s ``moe_forward`` for T tokens: groups of G =
+    min(expert_group, T) rows, T padded to nG G, and C slots an expert a
+    group (G with ``no_drop``, else ceil(G / E K capacity_factor), at
+    least 1)."""
+    G = min(moe.expert_group, T)
+    nG = -(-T // G)
+    C = G if no_drop else max(1, int(math.ceil(
+        G / moe.n_experts * moe.top_k * moe.capacity_factor)))
+    return G, nG, C
+
+
+def route(gates: torch.Tensor, K: int, C: int) -> Routing:
+    """`repro`'s routing of ``gates`` (nG, G, E) float32, step by step: the
+    K largest gates of each row, ties to the lowest expert index (a stable
+    descending sort; ``jax.lax.top_k``'s order, which ``torch.topk`` does
+    not promise), renormalised by their sum (floored at 1e-9); capacity
+    slots assigned rank-major (every first choice in row order, then every
+    second, ...), each expert's count growing by every row that chose it,
+    kept or not; and the Switch aux loss ``E sum(mean gates * mean
+    one_hot(top-1))`` over every row, pad rows included.  Nothing in it is
+    random or depends on launch order, so a recomputation routes as the
+    first pass did."""
+    nG, G, E = gates.shape
+    topi = torch.sort(gates.detach(), dim=-1, descending=True,
+                      stable=True).indices[..., :K]
+    topv = gates.gather(-1, topi)
+    topv = topv / topv.sum(-1, keepdim=True).clamp(min=1e-9)
+    # rank-major: the choices in the order (rank, row), so one running
+    # count an expert gives each choice the slots every earlier choice took
+    order = topi.transpose(1, 2).reshape(nG, K * G, 1)
+    oh = F.one_hot(order[..., 0], E)                        # (nG, K G, E)
+    pos = (oh.cumsum(1) - oh).gather(-1, order).view(nG, K, G).transpose(1, 2)
+    load = F.one_hot(topi[..., 0], E).float().mean((0, 1))
+    aux = E * (gates.mean((0, 1)) * load).sum()
+    return Routing(gates, topi, topv, pos, pos < C, C, aux)
+
+
+class MoE(nn.Module):
+    """Token-choice top-K mixture of SwiGLU experts with per-group
+    capacity (`repro`'s ``init_moe`` / ``moe_forward``), with `repro`'s
+    leaves: ``router`` (d, E), ``w1``/``w3`` (E, d, f), ``w2`` (E, f, d)
+    and, with ``dense_residual``, a ``dense`` `MLP` of width
+    ``dense_d_ff`` added on the layer's input.
+
+    `repro` dispatches through dense (G, E, C) one-hot einsums; the port
+    computes the same sums from indices.  Where the rows' K choices are at
+    least E (a prefill, a training batch), each expert's C slots of a
+    group gather their rows into an (E, nG C, d) batch for `torch.bmm` and
+    each kept choice gathers its slot's output; where they are fewer (a
+    decode step), each choice's row meets its expert's weights, gathered,
+    so a step reads only the K routed experts where `repro`'s einsum reads
+    all E (the others' terms are exact zeros).  The combine weights are
+    rounded to the compute dtype, as ``combine.astype(xg.dtype)`` rounds
+    them, and the K terms of a row summed in float32."""
+
+    def __init__(self, cfg: ArchConfig, *, device, dtype):
+        super().__init__()
+        mo = cfg.moe
+        self.cfg = cfg
+        d, f, E = cfg.d_model, cfg.d_ff, mo.n_experts
+        w = _weight(device, dtype)
+        self.router = w(d, E)
+        self.w1, self.w3, self.w2 = w(E, d, f), w(E, d, f), w(E, f, d)
+        self.dense = (MLP(d, mo.dense_d_ff or f, device=device, dtype=dtype)
+                      if mo.dense_residual else None)
+
+    def init(self, generator: torch.Generator) -> None:
+        """Draw the router, each expert (fan-in d for ``w1``/``w3``, f for
+        ``w2``, one expert at a time) and the dense residual from
+        ``generator``."""
+        for p in (self.router, self.w1, self.w3, self.w2):
+            _dense_(p, generator)
+        if self.dense is not None:
+            self.dense.init(generator)
+
+    def _rows(self, x: torch.Tensor, no_drop: bool):
+        """(x as R = nG G rows, zero-padded, (G, nG, C))."""
+        xt = x.reshape(-1, x.shape[-1])
+        T = xt.shape[0]
+        G, nG, C = moe_groups(T, self.cfg.moe, no_drop)
+        if nG * G > T:
+            xt = F.pad(xt, (0, 0, 0, nG * G - T))
+        return xt, (G, nG, C)
+
+    def route(self, x: torch.Tensor, no_drop: bool = False) -> Routing:
+        """The routing of ``x`` (..., d), its leading axes flattened to T
+        tokens."""
+        xt, (G, nG, C) = self._rows(x, no_drop)
+        return self._route_rows(xt, G, nG, C)
+
+    def _route_rows(self, xt, G, nG, C) -> Routing:
+        """Gates a float32 softmax of the router logits, which are computed
+        in the compute dtype and then cast, as in `repro`."""
+        logits = (xt @ self.router).float().view(nG, G, -1)
+        return route(torch.softmax(logits, dim=-1), self.cfg.moe.top_k, C)
+
+    def forward(self, x: torch.Tensor, no_drop: bool = False):
+        """x (..., d) -> (y (..., d), aux): ``no_drop`` (decode) gives every
+        expert a group's G slots, so no choice is dropped."""
+        xt, (G, nG, C) = self._rows(x, no_drop)
+        r = self._route_rows(xt, G, nG, C)
+        E, K = self.cfg.moe.n_experts, self.cfg.moe.top_k
+        R = xt.shape[0]
+        expert = r.topi.reshape(R, K)
+        if R * K < E:
+            eo = _experts_by_choice(xt, expert, self.w1, self.w3, self.w2)
+        else:
+            eo = _experts_by_slot(xt, expert, r.pos.reshape(R, K),
+                                  r.keep.reshape(R, K), nG, C,
+                                  self.w1, self.w3, self.w2)
+        wgt = torch.where(r.keep, r.topv, 0.0).reshape(R, K)
+        y = (wgt.to(xt.dtype).float()[..., None] * eo.float()).sum(1)
+        y = y.to(x.dtype)[:math.prod(x.shape[:-1])].view(x.shape)
+        if self.dense is not None:
+            y = y + self.dense(x)
+        return y, r.aux
+
+
+def _swiglu(x, w1, w3, w2):
+    return torch.bmm(F.silu(torch.bmm(x, w1)) * torch.bmm(x, w3), w2)
+
+
+def _experts_by_choice(xt, expert, w1, w3, w2):
+    """(R, K, d): each row's K choices through their experts, one
+    (1, d) row against its expert's gathered weights a choice."""
+    R, K = expert.shape
+    idx = expert.reshape(-1)
+    x = xt.repeat_interleave(K, 0)[:, None, :]
+    return _swiglu(x, w1[idx], w3[idx], w2[idx]).view(R, K, -1)
+
+
+def _experts_by_slot(xt, expert, pos, keep, nG, C, w1, w3, w2):
+    """(R, K, d): every expert's nG C slots as one (E, nG C, d) batch (an
+    empty slot takes row 0; its output is never read), then each choice's
+    slot output (a dropped choice reads slot 0 of its expert and is
+    weighted 0)."""
+    R, K = expert.shape
+    E = w1.shape[0]
+    G = R // nG
+    cap = nG * C
+    group = (torch.arange(R, device=xt.device) // G)[:, None]
+    flat = expert * cap + group * C + torch.where(keep, pos, 0)
+    rows = torch.zeros(E * cap, dtype=torch.long, device=xt.device)
+    row_ids = torch.arange(R, device=xt.device)[:, None].expand(R, K)
+    rows[flat[keep]] = row_ids[keep]
+    out = _swiglu(xt[rows].view(E, cap, -1), w1, w3, w2)
+    return out.view(E * cap, -1)[flat]
 
 
 class Mamba(nn.Module):

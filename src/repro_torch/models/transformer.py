@@ -1,7 +1,10 @@
 """Decoder models of the port (`repro.models.transformer.Model`).
 
 The dense family (`yi-9b`, `mistral-nemo-12b`: GQA; `qwen2-72b`: GQA with
-a QKV bias; `minicpm3-4b`: multi-head latent attention), the SSM family
+a QKV bias; `minicpm3-4b`: multi-head latent attention), the MoE family
+(`granite-moe-1b-a400m`, `arctic-480b` with its dense residual: GQA
+decoders whose MLP is `layers.MoE`, routed with capacity at prefill and
+in training and without drops at decode, as `repro` routes), the SSM family
 (`mamba2-1.3b`: a stack of pre-norm Mamba2 blocks) and the hybrid family
 (`zamba2-2.7b`: Mamba2 blocks with one weight-shared attention block
 applied after every ``attn_every`` of them).  `repro` keeps stacked
@@ -18,7 +21,8 @@ the norm scales (and Mamba's ``A_log``, ``dt_bias``) stay float32, as
 
 `TrainModel` is the training form: float32 masters kept as `repro`'s
 stacked leaves, cast to the compute dtype at each use, with ``logits``
-and ``loss`` (the chunked cross-entropy included) and ``remat="full"`` as
+and ``loss`` (the chunked cross-entropy included; the MoE layers' aux
+losses summed, weighted 0.01) and ``remat="full"`` as
 `torch.utils.checkpoint` per layer (and per group for the hybrid).
 """
 from __future__ import annotations
@@ -83,7 +87,7 @@ class SSMCache:
 
 class Block(nn.Module):
     """Pre-norm decoder layer: attention (GQA, or MLA where the config
-    says so), then the SwiGLU MLP."""
+    says so), then the SwiGLU MLP, or the MoE where the config has one."""
 
     def __init__(self, cfg: ArchConfig, *, device, dtype):
         super().__init__()
@@ -94,7 +98,9 @@ class Block(nn.Module):
             torch.ones(d, device=device), requires_grad=False)
         attn = L.MLA if cfg.attn_kind == "mla" else L.Attention
         self.attn = attn(cfg, device=device, dtype=dtype)
-        self.mlp = L.MLP(d, cfg.d_ff, device=device, dtype=dtype)
+        self.moe = cfg.moe is not None
+        self.mlp = (L.MoE(cfg, device=device, dtype=dtype) if self.moe else
+                    L.MLP(d, cfg.d_ff, device=device, dtype=dtype))
 
     def init(self, generator: torch.Generator) -> None:
         """Unit norms; the attention, then the MLP, drawn from
@@ -104,12 +110,21 @@ class Block(nn.Module):
         self.attn.init(generator)
         self.mlp.init(generator)
 
+    def ffn(self, h, *, no_drop: bool = False):
+        """(the MLP's or the MoE's output for ``h``, the MoE's aux loss or
+        None)."""
+        if self.moe:
+            return self.mlp(h, no_drop=no_drop)
+        return self.mlp(h), None
+
     def forward(self, x, positions):
         """x (B, S, d) -> (x (B, S, d), what the cache keeps: (k, v) (B,
-        KV, S, hd), or MLA's latent (c, r))."""
+        KV, S, hd), or MLA's latent (c, r); the MoE's aux loss or None).
+        The MoE routes with capacity here (prefill, training)."""
         a, kv = self.attn(L.rms_norm(x, self.attn_norm), positions)
         x = x + a
-        return x + self.mlp(L.rms_norm(x, self.mlp_norm)), kv
+        m, aux = self.ffn(L.rms_norm(x, self.mlp_norm))
+        return x + m, kv, aux
 
 
 class MambaBlock(nn.Module):
@@ -189,18 +204,29 @@ def _family(cfg: ArchConfig) -> str:
     return cfg.family
 
 
+def attention_decoder(cfg: ArchConfig) -> bool:
+    """Whether ``cfg``'s layers are attention `Block`s (the dense and MoE
+    families), not Mamba layers (SSM, hybrid)."""
+    return _family(cfg) in ("dense", "moe")
+
+
 def _check_ported(cfg: ArchConfig) -> None:
     """Raise unless the port carries ``cfg``'s family and options."""
     family = _family(cfg)
-    if family not in ("dense", "ssm", "hybrid") or \
+    if family not in ("dense", "moe", "ssm", "hybrid") or \
             cfg.attn_kind not in ("gqa", "mla"):
         raise NotImplementedError(
             f"{cfg.name}: the {family} family ({cfg.attn_kind} attention) is"
             f" not ported yet (ROADMAP queue 1 item 1); the port carries the"
-            f" dense (GQA, QKV bias, MLA), SSM and hybrid families only")
+            f" dense (GQA, QKV bias, MLA), MoE (GQA), SSM and hybrid families"
+            f" only")
     if cfg.attn_kind == "mla" and (cfg.mla is None or family != "dense"):
         raise ValueError(f"{cfg.name}: MLA needs an MLAConfig and the dense "
                          f"family")
+    if family == "moe" and (cfg.moe is None or cfg.family not in
+                            ("dense", "moe")):
+        raise ValueError(f"{cfg.name}: the MoE family needs a MoEConfig and "
+                         f"attention layers (family {cfg.family!r})")
     if cfg.family == "hybrid" and cfg.n_layers % cfg.hybrid.attn_every:
         raise ValueError(f"{cfg.name}: {cfg.n_layers} layers do not group"
                          f" by attn_every {cfg.hybrid.attn_every}")
@@ -209,7 +235,7 @@ def _check_ported(cfg: ArchConfig) -> None:
 
 
 class Model(nn.Module):
-    """Decoder-only model of the dense, SSM or hybrid family on
+    """Decoder-only model of the dense, MoE, SSM or hybrid family on
     ``device`` ("cuda" unless the caller asks for "cpu").  Construction
     allocates the weights; `init` draws them,
     `models.convert.params_from_jax` loads `repro`'s."""
@@ -227,7 +253,7 @@ class Model(nn.Module):
                                        requires_grad=False)
         self.unembed = nn.Parameter(torch.empty(d, Vp, device=dev, dtype=dt),
                                     requires_grad=False)
-        layer = Block if cfg.family == "dense" else MambaBlock
+        layer = Block if attention_decoder(cfg) else MambaBlock
         self.layers = nn.ModuleList(
             layer(cfg, device=dev, dtype=dt) for _ in range(cfg.n_layers))
         self.shared_attn = (SharedAttnBlock(cfg, device=dev, dtype=dt)
@@ -263,12 +289,12 @@ class Model(nn.Module):
 
     def _layers_fwd(self, x, cache: KVCache | MLACache | SSMCache | None =
                     None):
-        if self.cfg.family != "dense":
+        if not attention_decoder(self.cfg):
             return self._ssm_layers_fwd(x, cache)
         S = x.shape[1]
         positions = torch.arange(S, device=x.device)[None, :]
         for i, blk in enumerate(self.layers):
-            x, (a, b) = blk(x, positions)
+            x, (a, b), _ = blk(x, positions)
             if isinstance(cache, MLACache):
                 cache.c[i, :, :S] = a
                 cache.r[i, :, :S] = b
@@ -325,7 +351,7 @@ class Model(nn.Module):
 
             return MLACache(c=latent(c.mla.kv_lora_rank),
                             r=latent(c.mla.qk_rope_head_dim), len=0, pos=0)
-        if c.family == "dense":
+        if attention_decoder(c):
             shape = (c.n_layers, batch_size, c.n_kv_heads, max_len, c.head_dim)
             return KVCache(k=torch.zeros(shape, device=dev, dtype=dt),
                            v=torch.zeros(shape, device=dev, dtype=dt),
@@ -375,14 +401,16 @@ class Model(nn.Module):
                 x = x + blk.attn.decode(L.rms_norm(x, blk.attn_norm),
                                         cache.c[i], cache.r[i], cache.len,
                                         cache.pos)
-                x = x + blk.mlp(L.rms_norm(x, blk.mlp_norm))
+                x = x + blk.ffn(L.rms_norm(x, blk.mlp_norm))[0]
             cache.len = min(cache.len + 1, cache.c.shape[2])
         else:
             for i, blk in enumerate(self.layers):
                 x = x + blk.attn.decode(L.rms_norm(x, blk.attn_norm),
                                         cache.k[i], cache.v[i], cache.len,
                                         cache.pos)
-                x = x + blk.mlp(L.rms_norm(x, blk.mlp_norm))
+                # the MoE routes each token without drops, as `repro`'s
+                # decode does
+                x = x + blk.ffn(L.rms_norm(x, blk.mlp_norm), no_drop=True)[0]
             cache.len = min(cache.len + 1, cache.k.shape[3])
         cache.pos += 1
         x = L.rms_norm(x, self.final_norm)
@@ -500,7 +528,9 @@ def _init_leaf(key: str, shape, generator, device) -> torch.Tensor:
     norms (MLA's ``q_norm`` and ``kv_norm`` too) and ``D``, zero
     ``dt_bias``, ``conv_b`` and QKV biases, ``log(linspace(1, 16))`` for
     ``A_log``, ``0.1 N(0, 1)`` for ``conv_w`` and ``N(0, 1) /
-    sqrt(fan_in)`` for every other matrix (stacked leaves per layer)."""
+    sqrt(fan_in)`` for every other matrix, the fan-in its input axis
+    (``shape[-2]``: d for the MoE's stacked (L, E, d, f) experts, never a
+    stack axis)."""
     name = key.split("@")[-1]
 
     def randn():
@@ -546,7 +576,7 @@ class TrainModel(nn.Module):
         self.cfg = cfg
         dev = resolve_device(device)
         dt = compute_dtype(cfg)
-        layer = Block if cfg.family == "dense" else MambaBlock
+        layer = Block if attention_decoder(cfg) else MambaBlock
         # weightless templates, kept out of the module tree
         self.__dict__["_block"] = layer(cfg, device="meta", dtype=dt)
         self.__dict__["_shared"] = (SharedAttnBlock(cfg, device="meta",
@@ -593,11 +623,12 @@ class TrainModel(nn.Module):
 
     def _layer(self, x, positions, *slices):
         """One layer on ``slices``, its views of the stacked masters (in
-        ``_layer_names`` order), each cast to the dtype it is used in."""
+        ``_layer_names`` order), each cast to the dtype it is used in ->
+        (x, the MoE's aux loss or None)."""
         w = {n: t.to(self.use_dtype[k])
              for (n, k), t in zip(self._layer_names, slices)}
         out = functional_call(self._block, w, (x, positions))
-        return out[0] if isinstance(out, tuple) else out
+        return (out[0], out[2]) if isinstance(out, tuple) else (out, None)
 
     def _slices(self) -> list[tuple]:
         """Per layer, its views of every stacked master.  One `unbind` a
@@ -620,14 +651,24 @@ class TrainModel(nn.Module):
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
         """tokens (B, S) -> final-normed hidden states (B, S, d), with the
         graph for autograd."""
+        return self._hidden(tokens)[0]
+
+    def _hidden(self, tokens: torch.Tensor):
+        """(final-normed hidden states (B, S, d), the sum of the MoE layers'
+        aux losses (0 without them)).  Each layer's aux leaves its
+        checkpoint beside x, so the recompute in the backward routes the
+        same rows as the forward did."""
         cfg = self.cfg
         x = self._use("embed")[tokens]
         S = tokens.shape[1]
         positions = torch.arange(S, device=x.device)[None, :]
         slices = self._slices()
+        aux = torch.zeros((), device=x.device)
         if cfg.family != "hybrid":
             for ws in slices:
-                x = self._remat(self._layer, x, positions, *ws)
+                x, a = self._remat(self._layer, x, positions, *ws)
+                if a is not None:
+                    aux = aux + a
         else:
             every = cfg.hybrid.attn_every
             window = cfg.hybrid.window if S > cfg.hybrid.window else 0
@@ -636,13 +677,13 @@ class TrainModel(nn.Module):
                 n = len(self._layer_names)
                 for j in range(every):
                     x = self._remat(self._layer, x, positions,
-                                    *flat[j * n:(j + 1) * n])
+                                    *flat[j * n:(j + 1) * n])[0]
                 return self._shared_block(x, positions, window)
 
             for g in range(cfg.n_layers // every):
                 x = self._remat(group, x, *[t for ws in slices[
                     g * every:(g + 1) * every] for t in ws])
-        return L.rms_norm(x, self.masters["final_norm"])
+        return L.rms_norm(x, self.masters["final_norm"]), aux
 
     def unembed_matrix(self) -> torch.Tensor:
         """(d, V) output projection in the compute dtype."""
@@ -655,14 +696,16 @@ class TrainModel(nn.Module):
 
     def loss(self, batch: dict):
         """Mean next-token cross-entropy of ``batch`` ({"tokens", "labels"}
-        (B, S), numpy or tensors; labels < 0 are ignored) -> (loss,
-        {"nll", "aux"}), chunked over the vocabulary when
-        ``cfg.logit_chunk_vocab`` is set.  These families have no auxiliary
-        loss: ``aux`` is 0."""
+        (B, S), numpy or tensors; labels < 0 are ignored) plus 0.01 ``aux``
+        -> (loss, {"nll", "aux"}), chunked over the vocabulary when
+        ``cfg.logit_chunk_vocab`` is set.  ``aux`` is the sum over the MoE
+        layers of their load-balancing losses, as `repro` sums it (0 for the
+        other families); its gradient reaches each router through the
+        gates' means."""
         cfg = self.cfg
         tokens = torch.as_tensor(batch["tokens"], device=self.device).long()
         labels = torch.as_tensor(batch["labels"], device=self.device).long()
-        x = self.forward(tokens)
+        x, aux = self._hidden(tokens)
         mask = (labels >= 0).float()
         w_out = self.unembed_matrix()
         if cfg.logit_chunk_vocab > 0:
@@ -670,5 +713,4 @@ class TrainModel(nn.Module):
                                 cfg.vocab)
         else:
             nll = _xent_full(x, w_out, labels, mask, cfg.vocab)
-        aux = torch.zeros((), device=self.device)
         return nll + 0.01 * aux, {"nll": nll, "aux": aux}

@@ -11,7 +11,8 @@ kernel takes every SMOKE shape here, MLA's qk head dim of 24 included;
 MLA decode has no kernel in `repro` and runs its einsums), the
 last-position prefill logits agree to 1e-4, eight greedy decode tokens
 are identical, and so are the decode caches.  Also: `params_to_numpy`
-gives the carried tree back, the families still to come raise, decode
+gives the carried tree back, the MoE family is registered and builds (its
+parity is `tests/test_torch_moe.py`'s), the families still to come raise, decode
 attention refuses MLA's head dim of 96, and the flash kernel's plain
 version at qk dim 96 with v padded (MLA's prefill) matches `repro`'s
 attention.
@@ -42,7 +43,8 @@ CASES = {"mistral-nemo-12b": ("mistral-nemo-12b", {}),
          "mistral-nemo-12b hd32": ("mistral-nemo-12b", {"head_dim": 32}),
          "qwen2-72b": ("qwen2-72b", {}),
          "minicpm3-4b": ("minicpm3-4b", {})}
-LATER = ("granite-moe-1b-a400m", "llava-next-34b", "whisper-base")
+LATER = ("llava-next-34b", "whisper-base")
+MOE = ("granite-moe-1b-a400m", "arctic-480b")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -178,17 +180,28 @@ def test_params_to_numpy_round_trips_the_new_leaves(case):
     assert set(train.masters) == set(want)
 
 
+@pytest.mark.parametrize("arch", MOE)
+def test_moe_family_is_registered_and_builds(arch):
+    """The MoE family is ported: the registry holds its configs, equal to
+    `repro`'s, and `Model` and `TrainModel` build them with a `MoE` in
+    every layer."""
+    cfg = get_config(arch, smoke=True)
+    assert cfg == _port_cfg(jax_get_config(arch, smoke=True))
+    model = Model(cfg, device="cpu")
+    assert all(blk.moe for blk in model.layers)
+    train = TrainModel(cfg, device="cpu")
+    assert "layers@mlp@router" in train.masters
+
+
 @pytest.mark.parametrize("arch", LATER)
 def test_later_families_still_raise(arch):
-    """The MoE, VLM and audio families are later slices: the registry does
-    not hold them, and their configs, built here from `repro`'s, make
-    `Model` and `TrainModel` raise, naming the family and the ROADMAP
-    item."""
+    """The VLM and audio families are later slices: the registry does not
+    hold them, and their configs, built here from `repro`'s, make `Model`
+    and `TrainModel` raise, naming the family and the ROADMAP item."""
     with pytest.raises(KeyError):
         get_config(arch)
     cfg = _port_cfg(jax_get_config(arch, smoke=True))
-    family = {"granite-moe-1b-a400m": "moe", "llava-next-34b": "vlm",
-              "whisper-base": "audio"}[arch]
+    family = {"llava-next-34b": "vlm", "whisper-base": "audio"}[arch]
     for cls in (Model, TrainModel):
         with pytest.raises(NotImplementedError,
                            match=f"the {family} family.*queue 1 item 1"):

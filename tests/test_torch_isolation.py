@@ -146,7 +146,17 @@ def test_ssm_models_run_on_the_cpu_when_asked(no_cuda, arch):
     {"family": "moe"}, {"moe": MoEConfig(n_experts=4, top_k=2)},
     {"family": "vlm"}, {"family": "audio"}])
 def test_model_still_refuses_unported_families(change):
-    """MoE, VLM and enc-dec models are later slices: `Model` raises."""
+    """VLM and enc-dec models are later slices: `Model` raises.  The MoE
+    family is ported: a ``moe`` family without a `MoEConfig` is refused as
+    a bad config, and a `MoEConfig` builds a MoE model on the CPU."""
     cfg = dataclasses.replace(get_config("yi-9b", smoke=True), **change)
+    if "moe" in change:
+        model = Model(cfg, device="cpu")
+        assert all(blk.moe for blk in model.layers)
+        return
+    if change.get("family") == "moe":
+        with pytest.raises(ValueError, match="needs a MoEConfig"):
+            Model(cfg, device="cpu")
+        return
     with pytest.raises(NotImplementedError, match="families only"):
         Model(cfg, device="cpu")

@@ -27,7 +27,7 @@ from repro_torch.train.step import value_and_grad
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 ARCHS = ("yi-9b", "mistral-nemo-12b", "qwen2-72b", "minicpm3-4b",
-         "mamba2-1.3b", "zamba2-2.7b")
+         "granite-moe-1b-a400m", "arctic-480b", "mamba2-1.3b", "zamba2-2.7b")
 # the ops entry point (or plain backward) behind each kernel's launches
 SITES = {"flash_attention": (ops, "attention"),
          "decode_attention": (ops, "decode_attention"),
@@ -105,12 +105,18 @@ def test_serve_launches_match_the_calls(chip_smoke, counts, arch):
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_step_flops_take_every_family(chip_smoke, arch):
-    """The train paths' model-FLOP count: 6 a matrix parameter a token,
-    plus the causal attention of each attention application."""
+    """The train paths' model-FLOP count: 6 an active matrix parameter a
+    token (a MoE layer's top-K experts of E), plus the causal attention of
+    each attention application."""
     cfg = get_config(arch, smoke=True)
-    attn = {"dense": cfg.n_layers, "ssm": 0}.get(cfg.family)
+    attn = {"dense": cfg.n_layers, "moe": cfg.n_layers, "ssm": 0}.get(
+        cfg.family)
     if attn is None:
         attn = cfg.n_layers // cfg.hybrid.attn_every
-    want = 6.0 * 1000 * 2 * 8 + 12.0 * 36 * cfg.head_dim * cfg.n_heads * \
+    n_mat = 10 ** 6
+    if cfg.moe is not None:
+        n_mat -= cfg.n_layers * (cfg.moe.n_experts - cfg.moe.top_k) * 3 * \
+            cfg.d_model * cfg.d_ff
+    want = 6.0 * n_mat * 2 * 8 + 12.0 * 36 * cfg.head_dim * cfg.n_heads * \
         attn * 2
-    assert chip_smoke._step_flops(cfg, 1000, 2, 8) == want
+    assert chip_smoke._step_flops(cfg, 10 ** 6, 2, 8) == want

@@ -33,7 +33,7 @@ from repro_torch.train import optimizer as topt
 from repro_torch.train.step import value_and_grad
 
 ARCHS = ("yi-9b", "mamba2-1.3b", "zamba2-2.7b", "mistral-nemo-12b",
-         "qwen2-72b", "minicpm3-4b")
+         "qwen2-72b", "minicpm3-4b", "granite-moe-1b-a400m", "arctic-480b")
 STEP_TOL = 1e-5   # loss, grad norm (rtol) and gradient leaves (rel L2)
 OPT_TOL = 1e-6    # optimizer leaves: max |a - b| <= OPT_TOL max |b|
 
@@ -219,14 +219,18 @@ def test_train_step_matches_repro(arch):
         return (jax.value_and_grad(jm.loss, has_aux=True)(p, b),
                 j_step(p, j_init(p), b))
 
-    ((jloss, _), jgrads), (jp2, _, jmet) = reference(
+    ((jloss, jaux), jgrads), (jp2, _, jmet) = reference(
         params, jax.tree.map(jnp.asarray, batch))
     loss, metrics, grads = value_and_grad(tm, batch)
     assert float(loss) == pytest.approx(float(jloss), rel=STEP_TOL)
     for k, want in _flat(jax.tree.map(np.asarray, jgrads)).items():
         err = _rel_l2(grads[k].numpy(), want)
         assert err <= STEP_TOL, (k, err)
-    assert float(metrics["aux"]) == 0.0
+    # the MoE layers' summed load-balancing loss (0 for the others), which
+    # the loss carries at 0.01 and whose gradient reaches the routers
+    assert float(metrics["aux"]) == pytest.approx(float(jaux["aux"]),
+                                                  rel=STEP_TOL, abs=1e-7)
+    assert (float(metrics["aux"]) > 0) == (tm.cfg.moe is not None)
 
     t_init, t_step = make_train_step(tm, TrainConfig(opt=OptConfig(**opt)))
     before = params_to_numpy(tm)
