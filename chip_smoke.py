@@ -7,6 +7,7 @@
     python3 chip_smoke.py --phases device,serve,serve-events
     python3 chip_smoke.py --phases device,kernels,serve-dense,train-hybrid
     python3 chip_smoke.py --phases device,kernels,serve-moe,train-hybrid
+    python3 chip_smoke.py --phases device,kernels,serve-media,train-hybrid
 
 Phases (any failure exits non-zero and prints no result):
 
@@ -27,7 +28,8 @@ Phases (any failure exits non-zero and prints no result):
                training shapes (`BWD_SHAPES`) from the forward's own output
                and log-sum-exp (held against `ref.attention_fwd`), against
                `ref.attention_bwd` and beside SDPA's backward, with the
-               forward's training form timed at each bf16 one; the
+               forward's training form timed at each bf16 one (Whisper's
+               encoder and cross attention non-causal, Sq != Sk); the
                attention kernels also at the zoo's head dims 16 and 32 in
                float32 and at MLA's 96 (v padded from 64); a gradient through each autograd `Function` of
                `kernels.ops` is held against autograd through the plain
@@ -65,22 +67,34 @@ Phases (any failure exits non-zero and prints no result):
                copy and a 1-layer, 16-expert Arctic copy held against
                float32 on the CPU over a prefill and 8 decode steps,
                launches exact;
-8. train     — Yi-9B at full width, 12 layers (2.60B parameters), float32
+8. serve-media — LLaVA-NeXT-34B (VLM backbone) at full width and depth:
+               a 2-layer copy held against float32 on the CPU over a
+               prefill with 64 patch embeddings and 8 decode steps, then
+               one text-only stage invocation through the engine and one
+               image request (2880 patch embeddings and a 448-token
+               prompt, 32 greedy tokens); then Whisper-base whole, held
+               against float32 on the CPU at B = 2 over encode, prefill
+               and 8 decode steps, and a batch of 4 requests (1500 frames
+               each, a 64-token prompt, 32 greedy tokens); launches exact;
+9. train     — Yi-9B at full width, 12 layers (2.60B parameters), float32
                masters, AdamW, remat, a (2, 2048) batch from a 256-symbol
                Markov source, 4 steps: every gradient present and nonzero,
                the loss falling, a 2-layer copy's loss and gradients
                against its float32 CPU copy, launches per step exact; step
                time, tokens/s, model-FLOP share, peak memory, and one step
                under `torch.profiler`;
-9. train-ssm — the same for Mamba2-1.3B at full width and depth, (1, 2048),
+10. train-ssm — the same for Mamba2-1.3B at full width and depth, (1, 2048),
                3 steps (the SSD kernel forward, the plain recompute back);
-10. train-hybrid — the same for Zamba2-2.7B at full width and depth, (1,
+11. train-hybrid — the same for Zamba2-2.7B at full width and depth, (1,
                2048), 3 steps (checkpointed layers inside checkpointed
                groups), then one step of a full-width copy of each dense
-               family (2 layers) and MoE family (Granite 2 layers, Arctic 1
-               layer of 16 experts; the loss with its aux) against its
-               float32 CPU copy, launches exact;
-11. zoo      — `build_zoo` with `repro`'s ladder on the card (its launches
+               family (2 layers), MoE family (Granite 2 layers, Arctic 1
+               layer of 16 experts; the loss with its aux) and of LLaVA (2
+               layers, 64 patches under ignore-labels) against its float32
+               CPU copy, launches exact; then Whisper-base whole, (2, 448)
+               tokens over 1500 frames, 3 steps, one held against its
+               float32 CPU copy;
+12. zoo      — `build_zoo` with `repro`'s ladder on the card (its launches
                exact), held-out accuracy rising from zoo-s to zoo-m to
                zoo-l, then the end-to-end example's loop
                (`repro_torch.examples.serve_workflow`, ``--requests 24
@@ -163,14 +177,42 @@ ATTN_SHAPES = {"yi-9b": (32, 4, 128, 0), "zamba2-2.7b": (32, 32, 80, 4096),
 MLA_ATTN = ("minicpm3-4b", 40, 96, 64)
 # the zoo's attention (repro's ladder: head dims 16, 16, 32; float32)
 ZOO_ATTN = {"zoo-s": (2, 2, 16), "zoo-m": (4, 4, 16), "zoo-l": (4, 4, 32)}
-# the flash backward at the training shapes: (label, dtype, B, H, KV, S, D)
-BWD_SHAPES = (("yi-9b train", "bfloat16", 2, 32, 4, 2048, 128),
-              ("zamba2-2.7b train", "bfloat16", 1, 32, 32, 2048, 80),
-              ("minicpm3-4b train", "bfloat16", 1, 40, 40, 2048, 96),
-              ("granite-moe-1b-a400m train", "bfloat16", 1, 16, 8, 2048, 64),
-              ("zoo-s", "float32", 16, 2, 2, 32, 16),
-              ("zoo-l", "float32", 16, 4, 4, 32, 32),
-              ("mla float32", "float32", 2, 4, 4, 100, 96))
+# the flash forward at the serve-media phase's shapes, bf16, each checked
+# and timed: (label, B, H, KV, Sq, Sk, D, causal); llava's image prefill
+# is 2880 patches and a 448-token prompt, whisper's encoder 1500 frames,
+# its decoder a 64-token prompt (B = 4 requests)
+MEDIA_FLASH = (("llava-next-34b image prefill", 1, 56, 8, 3328, 3328, 128,
+                True),
+               ("whisper-base encoder", 4, 8, 8, 1500, 1500, 64, False),
+               ("whisper-base cross prefill", 4, 8, 8, 64, 1500, 64, False),
+               ("whisper-base decoder prefill", 4, 8, 8, 64, 64, 64, True))
+# the flash backward at the training shapes: (label, dtype, B, H, KV, Sq,
+# Sk, D, causal); llava's 2-layer copy trains on 64 patches + 256 tokens,
+# whisper on (2, 448) tokens over 1500 frames
+BWD_SHAPES = (("yi-9b train", "bfloat16", 2, 32, 4, 2048, 2048, 128, True),
+              ("zamba2-2.7b train", "bfloat16", 1, 32, 32, 2048, 2048, 80,
+               True),
+              ("minicpm3-4b train", "bfloat16", 1, 40, 40, 2048, 2048, 96,
+               True),
+              ("granite-moe-1b-a400m train", "bfloat16", 1, 16, 8, 2048,
+               2048, 64, True),
+              ("llava-next-34b train", "bfloat16", 1, 56, 8, 320, 320, 128,
+               True),
+              ("whisper-base encoder train", "bfloat16", 2, 8, 8, 1500, 1500,
+               64, False),
+              ("whisper-base cross train", "bfloat16", 2, 8, 8, 448, 1500,
+               64, False),
+              ("whisper-base decoder train", "bfloat16", 2, 8, 8, 448, 448,
+               64, True),
+              ("zoo-s", "float32", 16, 2, 2, 32, 32, 16, True),
+              ("zoo-l", "float32", 16, 4, 4, 32, 32, 32, True),
+              ("mla float32", "float32", 2, 4, 4, 100, 100, 96, True))
+# decode attention at the serve-media phase's shapes, each plan its rule
+# weighs checked and timed: (label, B, H, KV, D, cache slots, length);
+# whisper's cross cache is full: every length is its capacity
+MEDIA_DECODE = (("llava-next-34b image", 1, 56, 8, 128, 3392, 3329),
+                ("whisper-base self", 4, 8, 8, 64, 128, 65),
+                ("whisper-base cross", 4, 8, 8, 64, 1500, 1500))
 
 
 def log(*a):
@@ -612,38 +654,42 @@ def _attn_pairs(Sq, Sk, causal, window):
     return int(m.sum())
 
 
-def _time_flash(rec, label, q, k, v, lse: bool = False):
-    """Time the causal flash forward on (q, k, v) warm and cold in L2 (with
+def _time_flash(rec, label, q, k, v, lse: bool = False,
+                causal: bool = True):
+    """Time the flash forward on (q, k, v) warm and cold in L2 (with
     ``lse``, in the training form that also writes the log-sum-exp),
-    beside the plain version, SDPA and the bound; record and return it."""
+    beside the plain version, SDPA on the same mask and the bound; record
+    and return it."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_attention
 
-    B, H, S, D = q.shape
-    ms = graph_ms(lambda: flash_attention(q, k, v, causal=True,
+    B, H, Sq, D = q.shape
+    Sk = k.shape[2]
+    ms = graph_ms(lambda: flash_attention(q, k, v, causal=causal,
                                           return_lse=lse))
-    plain_ms = graph_ms(lambda: ref.attention(q, k, v, causal=True),
-                        calls=20 if S <= PROMPT else 3)
+    plain_ms = graph_ms(lambda: ref.attention(q, k, v, causal=causal),
+                        calls=20 if Sq * Sk <= PROMPT * PROMPT else 3)
     lib_ms = graph_ms(lambda: F.scaled_dot_product_attention(
-        q, k, v, is_causal=True, enable_gqa=True))
+        q, k, v, is_causal=causal, enable_gqa=True))
     cold = cold_inputs(q, k, v)
-    cold_ms = graph_ms(lambda *a: flash_attention(*a, causal=True,
+    cold_ms = graph_ms(lambda *a: flash_attention(*a, causal=causal,
                                                   return_lse=lse),
                        inputs=cold)
     lib_cold_ms = graph_ms(
         lambda a, b, c: F.scaled_dot_product_attention(
-            a, b, c, is_causal=True, enable_gqa=True), inputs=cold)
+            a, b, c, is_causal=causal, enable_gqa=True), inputs=cold)
     del cold
     nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
-    ops = 4.0 * D * H * B * _attn_pairs(S, S, True, 0)
+    ops = 4.0 * D * H * B * _attn_pairs(Sq, Sk, causal, 0)
     b_ms, b_by = bound(nbytes, ops, BF16_OPS)
     case = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                 library_ms=lib_ms, cold_ms=cold_ms,
                 library_cold_ms=lib_cold_ms, tol=BF16_TOL)
     rec.setdefault("timing_cases", {})[f"flash_attention {label}"] = case
-    log(f"  flash_attention {label} causal: kernel {ms:.4f} ms (cold L2 "
+    log(f"  flash_attention {label} {'causal' if causal else 'non-causal'}:"
+        f" kernel {ms:.4f} ms (cold L2 "
         f"{cold_ms:.4f}), plain {plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms "
         f"(cold L2 {lib_cold_ms:.4f}), bound {b_ms:.6f} ms ({b_by})")
     return case
@@ -701,6 +747,37 @@ def check_flash(rec):
             f"{H}, v padded {dv} -> {D}: {err_str(out, want, tol)}")
         if dt == torch.bfloat16 and S == PROMPT:
             _time_flash(rec, f"{arch} MLA (1,{H},{S},{D}) kv {H}", q, k, v)
+    # the serve-media phase's shapes: llava's image prefill, whisper's
+    # encoder and cross attention (non-causal, Sq != Sk, 1500 keys ragged
+    # against the tiles) and decoder, at B = 4; then non-causal ragged
+    # cases in both dtypes at small sizes
+    for label, B, H, KV, Sq, Sk, D, causal in MEDIA_FLASH:
+        q = torch.randn(B, H, Sq, D, generator=g, device="cuda").bfloat16()
+        k = torch.randn(B, KV, Sk, D, generator=g, device="cuda").bfloat16()
+        v = torch.randn(B, KV, Sk, D, generator=g, device="cuda").bfloat16()
+        out = flash_attention(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        want = ref.attention(q, k, v, causal=causal)
+        err = max(err, check_close("flash_attention", out, want, BF16_TOL))
+        log(f"  flash_attention {label} bf16 ({B},{H},{Sq},{D}) kv {KV} "
+            f"Sk={Sk} causal={causal}: {err_str(out, want, BF16_TOL)}")
+        del want
+        _time_flash(rec, f"{label} ({B},{H},{Sq},{D}) kv {KV} Sk {Sk}", q, k,
+                    v, causal=causal)
+    for dt, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
+        for B, H, KV, Sq, Sk, D in ((2, 8, 8, 37, 150, 64),
+                                    (2, 8, 2, 150, 37, 64),
+                                    (1, 4, 4, 100, 100, 128),
+                                    (2, 4, 1, 1, 77, 16)):
+            q = torch.randn(B, H, Sq, D, generator=g, device="cuda").to(dt)
+            k = torch.randn(B, KV, Sk, D, generator=g, device="cuda").to(dt)
+            v = torch.randn(B, KV, Sk, D, generator=g, device="cuda").to(dt)
+            out = flash_attention(q, k, v, causal=False)
+            torch.cuda.synchronize()
+            want = ref.attention(q, k, v, causal=False)
+            err = max(err, check_close("flash_attention", out, want, tol))
+            log(f"  flash_attention non-causal {str(dt)[6:]} ({B},{H},{Sq},"
+                f"{D}) kv {KV} Sk={Sk}: {err_str(out, want, tol)}")
     # the zoo's head dims, float32 (the zoo's dtype) and bf16, ragged too
     for arch, (H, KV, D) in ZOO_ATTN.items():
         for dt, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
@@ -718,31 +795,24 @@ def check_flash(rec):
     log(f"flash_attention: ok, max abs err {err:.3g}")
 
 
-def _sdpa_bwd_ms(q, k, v, do, reps: int = 10) -> float:
-    """Milliseconds of SDPA's backward alone on the card: K and V expanded
-    to H heads as leaves, the forward run once, then `autograd.grad` of
-    its output timed between CUDA events (mean over ``reps`` calls)."""
+def _sdpa_bwd_ms(q, k, v, do, causal: bool) -> tuple[float, float]:
+    """(ms, ms of its forward) of SDPA's backward alone on the card, timed
+    as the kernels are (`graph_ms`: medians over replays of a CUDA graph of
+    back-to-back calls, warm, no host cost): one SDPA call with grouped K
+    and V (``enable_gqa``) and `autograd.grad` of its output, less the
+    same SDPA forward alone (it records what its backward needs)."""
     import torch
     import torch.nn.functional as F
 
-    G = q.shape[1] // k.shape[1]
-    leaves = [t.detach().clone().requires_grad_(True) for t in (
-        q, k.repeat_interleave(G, dim=1), v.repeat_interleave(G, dim=1))]
-    out = F.scaled_dot_product_attention(*leaves, is_causal=True)
+    leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
 
-    def grad():
-        torch.autograd.grad(out, leaves, do, retain_graph=True)
+    def fwd():
+        return F.scaled_dot_product_attention(*leaves, is_causal=causal,
+                                              enable_gqa=True)
 
-    for _ in range(2):
-        grad()
-    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
-        enable_timing=True)
-    a.record()
-    for _ in range(reps):
-        grad()
-    b.record()
-    b.synchronize()
-    return a.elapsed_time(b) / reps
+    fwd_ms = graph_ms(fwd)
+    both_ms = graph_ms(lambda: torch.autograd.grad(fwd(), leaves, do))
+    return both_ms - fwd_ms, fwd_ms
 
 
 def check_flash_bwd(rec):
@@ -759,36 +829,40 @@ def check_flash_bwd(rec):
 
     g = torch.Generator(device="cuda").manual_seed(SEED + 5)
     err = 0.0
-    small = [(f"small G={H // KV} S={S} window={w}", dt, 2, H, KV, S, D, w)
+    small = [(f"small G={H // KV} Sq={Sq} Sk={Sk} window={w}", dt, 2, H, KV,
+              Sq, Sk, D, c, w)
              for dt in ("bfloat16", "float32")
-             for H, KV, S, D, w in ((8, 2, 100, 64, 0), (8, 2, 100, 64, 48),
-                                    (4, 1, 130, 128, 0), (4, 4, 77, 80, 16),
-                                    (4, 4, 77, 96, 0), (2, 2, 40, 16, 0),
-                                    (4, 2, 33, 32, 8))]
+             for H, KV, Sq, Sk, D, c, w in (
+                 (8, 2, 100, 100, 64, True, 0), (8, 2, 100, 100, 64, True, 48),
+                 (4, 1, 130, 130, 128, True, 0), (4, 4, 77, 77, 80, True, 16),
+                 (4, 4, 77, 77, 96, True, 0), (2, 2, 40, 40, 16, True, 0),
+                 (4, 2, 33, 33, 32, True, 8), (8, 8, 37, 150, 64, False, 0),
+                 (8, 2, 150, 37, 64, False, 0), (4, 4, 100, 100, 128, False,
+                                                  0))]
     cases = [c + (0,) for c in BWD_SHAPES] + small
-    for label, dts, B, H, KV, S, D, window in cases:
+    for label, dts, B, H, KV, Sq, Sk, D, causal, window in cases:
         dt = getattr(torch, dts)
         tol = BF16_TOL if dt == torch.bfloat16 else F32_TOL
+        mask = dict(causal=causal, window=window)
 
         def rn(*shape):
             return torch.randn(*shape, generator=g, device="cuda").to(dt)
 
-        q, k, v, do = rn(B, H, S, D), rn(B, KV, S, D), rn(B, KV, S, D), \
-            rn(B, H, S, D)
-        o, lse = flash_attention(q, k, v, causal=True, window=window,
-                                 return_lse=True)
+        q, k, v, do = rn(B, H, Sq, D), rn(B, KV, Sk, D), rn(B, KV, Sk, D), \
+            rn(B, H, Sq, D)
+        o, lse = flash_attention(q, k, v, return_lse=True, **mask)
         torch.cuda.synchronize()
-        _, want_lse = ref.attention_fwd(q, k, v, causal=True, window=window)
+        _, want_lse = ref.attention_fwd(q, k, v, **mask)
         check_close("flash_attention lse", lse, want_lse, F32_TOL)
-        got = flash_attention_bwd(q, k, v, o, lse, do, causal=True,
-                                  window=window)
+        got = flash_attention_bwd(q, k, v, o, lse, do, **mask)
         torch.cuda.synchronize()
-        want = ref.attention_bwd(q, k, v, o, lse, do, causal=True,
-                                 window=window)
+        want = ref.attention_bwd(q, k, v, o, lse, do, **mask)
         for name, a, b in zip(("dq", "dk", "dv"), got, want):
             err = max(err, check_close(f"flash_attention_bwd {name}", a, b,
                                        tol))
-        log(f"  flash_attention_bwd {label} {dts} ({B},{H},{S},{D}) kv {KV}: "
+        shape = f"({B},{H},{Sq},{D}) kv {KV}" + (f" Sk {Sk}" if Sk != Sq
+                                                  else "")
+        log(f"  flash_attention_bwd {label} {dts} {shape} causal={causal}: "
             f"lse {err_str(lse, want_lse, F32_TOL)}; "
             + "; ".join(f"{n} {err_str(a, b, tol)}"
                         for n, a, b in zip(("dq", "dk", "dv"), got, want)))
@@ -796,30 +870,35 @@ def check_flash_bwd(rec):
         if label.startswith("small"):
             continue
         if dt == torch.bfloat16:  # the training form of the forward, too
-            _time_flash(rec, f"{label} ({B},{H},{S},{D}) kv {KV}", q, k, v,
-                        lse=True)
-        ms = graph_ms(lambda: flash_attention_bwd(q, k, v, o, lse, do))
-        plain_ms = graph_ms(lambda: ref.attention_bwd(q, k, v, o, lse, do),
+            _time_flash(rec, f"{label} {shape}", q, k, v, lse=True,
+                        causal=causal)
+        ms = graph_ms(lambda: flash_attention_bwd(q, k, v, o, lse, do,
+                                                  causal=causal))
+        plain_ms = graph_ms(lambda: ref.attention_bwd(q, k, v, o, lse, do,
+                                                      causal=causal),
                             calls=3)
-        lib_ms = _sdpa_bwd_ms(q, k, v, do)
+        lib_ms, lib_fwd_ms = _sdpa_bwd_ms(q, k, v, do, causal)
         cold = cold_inputs(q, k, v, o, lse, do)
-        cold_ms = graph_ms(lambda *a: flash_attention_bwd(*a), inputs=cold)
+        cold_ms = graph_ms(lambda *a: flash_attention_bwd(*a, causal=causal),
+                           inputs=cold)
         del cold
         isz = q.element_size()
         nbytes = isz * (4 * q.numel() + 4 * k.numel()) + 4 * lse.numel()
-        ops = 10.0 * _attn_pairs(S, S, True, 0) * D * H * B
+        ops = 10.0 * _attn_pairs(Sq, Sk, causal, 0) * D * H * B
         b_ms, b_by = bound(nbytes, ops,
                            BF16_OPS if dt == torch.bfloat16 else F32_OPS)
         case = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                    library_ms=lib_ms, cold_ms=cold_ms, tol=tol)
+                    library_ms=lib_ms, library_fwd_ms=lib_fwd_ms,
+                    cold_ms=cold_ms, tol=tol)
         rec.setdefault("timing_cases", {})[
-            f"flash_attention_bwd {label} ({B},{H},{S},{D}) kv {KV}"] = case
+            f"flash_attention_bwd {label} {shape}"] = case
         if "flash_attention_bwd" not in rec["kernels"]:
             rec["kernels"]["flash_attention_bwd"] = case  # yi-9b heads
-        log(f"  flash_attention_bwd {label} ({B},{H},{S},{D}) kv {KV} "
-            f"causal: kernel {ms:.4f} ms (cold L2 {cold_ms:.4f}), plain "
-            f"{plain_ms:.4f} ms, SDPA backward {lib_ms:.4f} ms, bound "
-            f"{b_ms:.6f} ms ({b_by})")
+        log(f"  flash_attention_bwd {label} {shape} "
+            f"{'causal' if causal else 'non-causal'}: kernel {ms:.4f} ms "
+            f"(cold L2 {cold_ms:.4f}), plain {plain_ms:.4f} ms, SDPA "
+            f"backward {lib_ms:.4f} ms (its forward + backward less its "
+            f"forward {lib_fwd_ms:.4f}), bound {b_ms:.6f} ms ({b_by})")
     rec["kernels"]["flash_attention_bwd"]["max_abs_err"] = err
     log(f"flash_attention_bwd: ok, max abs err {err:.3g}")
 
@@ -912,12 +991,18 @@ def check_decode(rec):
             assert p.splits == 1, p
             err = max(err, e)
 
-    for arch, (H, KV, D, window) in ATTN_SHAPES.items():
-        q1 = rn(1, H, D, dt=torch.bfloat16)
-        k1 = rn(1, KV, S, D, dt=torch.bfloat16)
-        v1 = rn(1, KV, S, D, dt=torch.bfloat16)
-        l1 = torch.tensor([L], dtype=torch.int32, device="cuda")
-        mask = (torch.arange(S, device="cuda") < L)[None, None, None, :]
+    # timed at every serving shape: batch 1 at a 448-token prompt's
+    # cache, then llava's image cache, whisper's self attention at B = 4
+    # and its cross attention over a full cache (every length = capacity)
+    timed = [(arch, 1, H, KV, D, S, L, window)
+             for arch, (H, KV, D, window) in ATTN_SHAPES.items()]
+    timed += [c + (0,) for c in MEDIA_DECODE]
+    for arch, B, H, KV, D, Sc, Lc, window in timed:
+        q1 = rn(B, H, D, dt=torch.bfloat16)
+        k1 = rn(B, KV, Sc, D, dt=torch.bfloat16)
+        v1 = rn(B, KV, Sc, D, dt=torch.bfloat16)
+        l1 = torch.full((B,), Lc, dtype=torch.int32, device="cuda")
+        mask = (torch.arange(Sc, device="cuda") < Lc)[None, None, None, :]
         want = ref.decode_attention(q1, k1, v1, l1, window=window)
 
         def kernel(q, k, v):
@@ -930,7 +1015,7 @@ def check_decode(rec):
         # every plan the rule weighs, each held against the plain version
         # and timed, for the record of the choice
         plans, chosen = [], None
-        for p in _decode_plans(dmod, 1, KV, H // KV, S, D, sms):
+        for p in _decode_plans(dmod, B, KV, H // KV, Sc, D, sms):
             chosen = chosen or p
             out = dmod._launch(q1, k1, v1, l1, window, p)
             e = check_close("decode_attention", out, want, BF16_TOL)
@@ -951,19 +1036,18 @@ def check_decode(rec):
         err = max(err, check_close("decode_attention", kernel(*cold[-1]),
                                    want, BF16_TOL))
         del cold
-        nbytes = 2 * (2 * q1.numel() + 2 * KV * L * D) + 4
-        ops = 4.0 * H * D * L
+        nbytes = 2 * (2 * q1.numel() + 2 * B * KV * Lc * D) + 4 * B
+        ops = 4.0 * B * H * D * Lc
         b_ms, b_by = bound(nbytes, ops, BF16_OPS)
         case = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                     library_ms=lib_ms, cold_ms=cold_ms,
                     library_cold_ms=lib_cold_ms, plans=plans, tol=BF16_TOL)
-        rec.setdefault("timing_cases", {})[
-            f"decode_attention {arch} (1,{H},{D}) kv {KV} cache {S} len {L} "
-            f"window {window}"] = case
+        label = (f"decode_attention {arch} ({B},{H},{D}) kv {KV} cache {Sc} "
+                 f"len {Lc} window {window}")
+        rec.setdefault("timing_cases", {})[label] = case
         if arch == "yi-9b":
             rec["kernels"]["decode_attention"] = case
-        log(f"  decode_attention {arch} (1,{H},{D}) kv {KV} cache {S} len {L}"
-            f" window {window} ({_plan_str(chosen)}): kernel "
+        log(f"  {label} ({_plan_str(chosen)}): kernel "
             f"{ms:.4f} ms (cold L2 {cold_ms:.4f}), plain {plain_ms:.4f} ms, "
             f"SDPA {lib_ms:.4f} ms (cold L2 {lib_cold_ms:.4f}), bound "
             f"{b_ms:.6f} ms ({b_by})")
@@ -983,16 +1067,20 @@ def check_rms_norm(rec):
     # yi-9b rows (4096), the mamba2 / zamba2 block norms (2048, 2560) and
     # their gated norms (4096, 5120), mistral-nemo-12b's (5120), qwen2-72b's
     # (8192), minicpm3-4b's (2560) and its MLA norms (q 768, kv 256),
-    # granite-moe's (1024) and arctic's (7168), and a width that is no
-    # multiple of a 16-byte vector (100: element by element); bf16 is timed
-    # at one row (decode) at every serving width and at 448 rows (prefill)
-    # at yi-9b's and the MoE engines'
+    # granite-moe's (1024) and arctic's and llava's (7168), whisper's (512)
+    # and a width that is no multiple of a 16-byte vector (100: element by
+    # element); bf16 is timed at one row (decode) at every serving width,
+    # at 448 rows (prefill) at yi-9b's and the MoE engines', and at
+    # whisper's encoder (4 x 1500 rows) and decode (4 rows) at B = 4
+    timed_rows = {(PROMPT, 4096), (PROMPT, 1024), (PROMPT, 7168),
+                  (6000, 512), (4, 512)}
     cases = [(dt, tol, rows, D)
              for dt, tol in ((torch.bfloat16, BF16_TOL),
                              (torch.float32, F32_TOL))
-             for D in (4096, 2048, 2560, 5120, 8192, 768, 256, 1024, 7168,
-                       100)
-             for rows in (PROMPT, 1)]
+             for D, rows_list in [(D, (PROMPT, 1)) for D in (
+                 4096, 2048, 2560, 5120, 8192, 768, 256, 1024, 7168, 100)]
+             + [(512, (6000, 4, 1))]
+             for rows in rows_list]
     for dt, tol, rows, D in cases:
         x = (3 * torch.randn(rows, D, generator=g, device="cuda")).to(dt)
         s = torch.rand(D, generator=g, device="cuda") + 0.5
@@ -1003,7 +1091,7 @@ def check_rms_norm(rec):
         log(f"  rms_norm {str(dt)[6:]} ({rows},{D}): "
             f"{err_str(out, want, tol)}")
         if dt != torch.bfloat16 or D == 100 or (
-                rows == PROMPT and D not in (4096, 1024, 7168)):
+                rows != 1 and (rows, D) not in timed_rows):
             continue
         sb = s.to(dt)
         ms = graph_ms(lambda: rms_norm(x, s))
@@ -1365,40 +1453,103 @@ def _same_results(a, b):
                for k in keys) and len(a) == len(b)
 
 
-def _model_check(model, rec, label, prompt_len):
-    """The bf16 engine ``model`` with its kernels against a float32 copy of
-    it on the CPU (plain versions): prefill logits of a ragged prompt and
-    two decode steps, relative L2 error within MODEL_REL_TOL."""
+def _float32_copy(model):
+    """A float32 copy of the serving model ``model`` on the CPU."""
     import torch
 
-    from repro_torch.models.transformer import Model
+    from repro_torch.models import build_model
 
-    cfg32 = dataclasses.replace(model.cfg, dtype="float32")
-    cpu = Model(cfg32, device="cpu")
-    with torch.no_grad():
+    cpu = build_model(dataclasses.replace(model.cfg, dtype="float32"),
+                      device="cpu")
+    with torch.no_grad():  # bf16 crosses over and widens on the host
         for (n, p), (_, q) in zip(cpu.named_parameters(),
                                   model.named_parameters()):
-            p.copy_(q.float().cpu())
-    toks = torch.from_numpy(np.random.default_rng(SEED).integers(
-        0, model.cfg.vocab, (1, prompt_len)))
-    lg, cache = model.prefill(toks.cuda())
-    lc, ccache = cpu.prefill(toks)
+            p.copy_(q.cpu())
+    return cpu
+
+
+def _rel(a, b) -> float:
+    """Relative L2 error of ``a`` (any device) against ``b`` (CPU)."""
+    a = a.float().cpu()
+    if not bool(a.isfinite().all()):
+        return float("inf")
+    return float((a - b).norm() / b.norm().clamp(min=1e-30))
+
+
+def _model_check(model, rec, label, prompt_len, patches: int = 0,
+                 steps: int = 2):
+    """The bf16 engine ``model`` with its kernels against a float32 copy of
+    it on the CPU (plain versions): prefill logits of a ragged prompt (a
+    VLM's after ``patches`` random patch embeddings) and ``steps`` decode
+    steps, each fed the card's greedy token, relative L2 error within
+    MODEL_REL_TOL."""
+    import torch
+
+    cpu = _float32_copy(model)
+    rng = np.random.default_rng(SEED)
+    toks = torch.from_numpy(rng.integers(0, model.cfg.vocab,
+                                         (1, prompt_len)))
+    pe = None
+    if patches:
+        pe = torch.from_numpy(rng.standard_normal(
+            (1, patches, model.cfg.vlm.patch_dim)).astype(np.float32))
+    lg, cache = model.prefill(toks.cuda(), *(() if pe is None else
+                                             (pe.cuda(),)))
+    lc, ccache = cpu.prefill(toks, *(() if pe is None else (pe,)))
     errs = []
-    for step in range(3):
-        a, b = lg.float().cpu(), lc
-        errs.append(float((a - b).norm() / b.norm()))
-        if not bool(a.isfinite().all()) or errs[-1] > MODEL_REL_TOL:
+    for step in range(steps + 1):
+        errs.append(_rel(lg, lc))
+        if errs[-1] > MODEL_REL_TOL:
             raise AssertionError(f"{label} logits off their float32 CPU copy:"
                                  f" rel err {errs}")
-        if step == 2:
+        if step == steps:
             break
         nxt = lg.argmax(-1)
         lg, cache = model.decode_step(cache, nxt)
         lc, ccache = cpu.decode_step(ccache, nxt.cpu())
     rec.setdefault("model_rel_err", {})[label] = errs
-    log(f"  {label} vs float32 CPU copy (prefill {prompt_len} tokens, 2 "
-        f"decode steps): relative L2 err {', '.join(f'{e:.3g}' for e in errs)}"
-        f" (tol {MODEL_REL_TOL})")
+    what = f"{patches} patches + " if patches else ""
+    log(f"  {label} vs float32 CPU copy (prefill {what}{prompt_len} tokens, "
+        f"{steps} decode steps): relative L2 err "
+        f"{', '.join(f'{e:.3g}' for e in errs)} (tol {MODEL_REL_TOL})")
+
+
+def _encdec_check(model, rec, label, B: int, prompt_len: int, steps: int):
+    """The bf16 encoder-decoder ``model`` against its float32 copy on the
+    CPU: the encoder's output over B x T random frames, the prefill
+    logits of a B x prompt_len prompt, ``steps`` decode steps fed the
+    card's greedy tokens, and then the caches ``k``, ``v``, ``xk``,
+    ``xv``, each within MODEL_REL_TOL, relative L2."""
+    import torch
+
+    cpu = _float32_copy(model)
+    cfg = model.cfg
+    rng = np.random.default_rng(SEED + 3)
+    frames = torch.from_numpy(rng.standard_normal(
+        (B, cfg.encdec.encoder_len, cfg.d_model)).astype(np.float32))
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (B, prompt_len)))
+    errs = {"encode": _rel(model.encode(frames.cuda()), cpu.encode(frames))}
+    lg, cache = model.prefill(frames.cuda(), toks.cuda())
+    lc, ccache = cpu.prefill(frames, toks)
+    errs["logits"] = [_rel(lg, lc)]
+    for _ in range(steps):
+        nxt = lg.argmax(-1)
+        lg, cache = model.decode_step(cache, nxt)
+        lc, ccache = cpu.decode_step(ccache, nxt.cpu())
+        errs["logits"].append(_rel(lg, lc))
+    for n in ("k", "v", "xk", "xv"):
+        errs[n] = _rel(getattr(cache, n), getattr(ccache, n))
+    worst = max(errs["encode"], *errs["logits"],
+                *(errs[n] for n in ("k", "v", "xk", "xv")))
+    rec.setdefault("model_rel_err", {})[label] = errs
+    log(f"  {label} vs float32 CPU copy (B {B}, {cfg.encdec.encoder_len} "
+        f"frames, prompt {prompt_len}, {steps} decode steps): relative L2 "
+        f"err encode {errs['encode']:.3g}, logits "
+        f"{', '.join(f'{e:.3g}' for e in errs['logits'])}, caches "
+        + ", ".join(f"{n} {errs[n]:.3g}" for n in ("k", "v", "xk", "xv"))
+        + f" (tol {MODEL_REL_TOL})")
+    if not worst <= MODEL_REL_TOL:
+        raise AssertionError(f"{label} off its float32 CPU copy: {errs}")
 
 
 def _reduced_copy(model, n_layers, n_experts=None):
@@ -1486,9 +1637,10 @@ def _profile_call(name, fn, rec, what):
 
 
 def _n_attn(cfg) -> int:
-    """Attention applications of one pass: every layer of the dense and MoE
-    families (GQA decoders; the MoE adds no kernel), each shared-block
-    application of the hybrid, none for the SSM."""
+    """Attention applications of one pass of a decoder-only model: every
+    layer of the dense, MoE and VLM families (GQA decoders; the MoE adds
+    no kernel), each shared-block application of the hybrid, none for the
+    SSM."""
     from repro_torch.models.transformer import attention_decoder
 
     if attention_decoder(cfg):
@@ -1505,8 +1657,22 @@ def _expected_launches(cfg, invocations: int, max_new: int = MAX_NEW) -> dict:
     decode-attention launches, none for MLA (its absorbed decode has no
     kernel); 2L + 1 RMSNorms per prefill and per step (block norms, or
     block and gated norms, and the final norm) plus 2 per shared-block
-    application and 2 a layer for MLA (its q and kv latent norms)."""
+    application and 2 a layer for MLA (its q and kv latent norms).  A VLM's
+    patches add rows, not launches.  The encoder-decoder's invocation is
+    an encode and a decoder prefill, then the steps: per prefill L_e + 2L
+    flash launches (the encoder non-causal; each decoder layer's self
+    attention causal and its cross attention non-causal) and 2L_e + 1 +
+    3L + 1 RMSNorms (encoder layers and ``enc_norm``, decoder layers and
+    the final norm); per step 2L decode-attention launches (self, and
+    cross over the full encoder cache) and 3L + 1 RMSNorms."""
     L = cfg.n_layers
+    if cfg.encdec is not None:
+        Le = cfg.encdec.n_encoder_layers
+        per_run = {"flash_attention": Le + 2 * L,
+                   "decode_attention": 2 * L * max_new,
+                   "rms_norm": 2 * Le + 1 + (3 * L + 1) * (1 + max_new),
+                   "ssd_scan": 0}
+        return {k: v * invocations for k, v in per_run.items()}
     attn = _n_attn(cfg)
     mla = cfg.attn_kind == "mla"
     norms = 2 * L + 1 + (2 * attn if cfg.family == "hybrid" else 0) + \
@@ -1686,6 +1852,9 @@ def _replan_summary(rec):
     """The serve phases' replan wall time per fleet round, in µs."""
     rounds = [x for p in rec["paths"].values()
               for x in p.get("replan_s_per_round", ())]
+    if not rounds:  # serve-media alone serves no cohort
+        log("replan per fleet round: no serve phase of this run replans")
+        return
     us = np.array(rounds) * 1e6
     rec["replan_us_per_round"] = dict(
         rounds=len(us), median=float(np.median(us)), min=float(us.min()),
@@ -2045,13 +2214,14 @@ def _draw_biases(model, seed: int) -> None:
 
 def _weight_bound(model):
     """(ms, GB): the weights one decode step reads (all but the embedding,
-    of which it reads one row; of a MoE layer's experts only the top K of
-    E a token routes to, with its router and dense residual whole) over
-    the card's memory rate."""
+    of which it reads one row, a VLM's ``patch_proj`` and an encoder's
+    layers and norm; of a MoE layer's experts only the top K of E a token
+    routes to, with its router and dense residual whole) over the card's
+    memory rate."""
     moe = model.cfg.moe
     nbytes = 0
     for n, p in model.named_parameters():
-        if n == "embed":
+        if n in ("embed", "patch_proj") or n.startswith("enc_"):
             continue
         b = p.numel() * p.element_size()
         if moe is not None and n.endswith(("mlp.w1", "mlp.w3", "mlp.w2")):
@@ -2068,19 +2238,20 @@ def _dense_engine(tpl, ename, cfg, seed):
     return eng
 
 
-def _engine_reading(eng, path, rec):
-    """Log and record an engine's prefill, decode per token, weight-read
-    bound and the path's peak memory (from `_serve_cohort`'s record)."""
+def _engine_reading(name, model, path, rec, what=f"{PROMPT} tokens"):
+    """Log and record the prefill (of ``what``), decode per token,
+    weight-read bound and the path's peak memory of ``model``, served as
+    ``name`` (from `_serve_cohort`'s record, or a path's own)."""
     out = rec["paths"][path]
-    e = out["engines"].get(eng.name)
+    e = out["engines"].get(name)
     if e is None:
         return
-    b_ms, gb = _weight_bound(eng.model)
+    b_ms, gb = _weight_bound(model)
     e.update(weight_bound_ms=b_ms, weight_gb=gb,
-             params=sum(p.numel() for p in eng.model.parameters()))
-    log(f"[{rec['smi']}] {eng.model.cfg.name} ({eng.model.cfg.n_layers} "
-        f"layers, {e['params'] / 1e9:.2f}B parameters): prefill {PROMPT} "
-        f"tokens {e['prefill_ms']:.2f} ms, decode "
+             params=sum(p.numel() for p in model.parameters()))
+    log(f"[{rec['smi']}] {model.cfg.name} ({model.cfg.n_layers} "
+        f"layers, {e['params'] / 1e9:.2f}B parameters): prefill {what} "
+        f"{e['prefill_ms']:.2f} ms, decode "
         f"{e['decode_ms_per_token']:.3f} ms/token, weight-read bound "
         f"{b_ms:.3f} ms/token ({gb:.2f} GB), peak memory "
         f"{out['max_memory_allocated_gb']:.2f} GB")
@@ -2119,7 +2290,7 @@ def phase_serve_dense(args, rec):
         del small
     _serve_cohort("dense", engines, cohort, rec, args)
     for eng in engines.values():
-        _engine_reading(eng, "dense", rec)
+        _engine_reading(eng.name, eng.model, "dense", rec)
     del engines, eng  # the loop's name holds an engine too
     gc.collect()
     torch.cuda.empty_cache()
@@ -2159,7 +2330,7 @@ def phase_serve_dense(args, rec):
         max_memory_allocated() / 1e9, engines={"engine-a": dict(
             invocations=1, prefill_ms=ttft * 1e3,
             decode_ms_per_token=dec * 1e3 / MAX_NEW, stage_s=ttft + dec)})
-    _engine_reading(eng, "qwen2-72b", rec)
+    _engine_reading(eng.name, eng.model, "qwen2-72b", rec)
     del eng
     gc.collect()
     torch.cuda.empty_cache()
@@ -2635,11 +2806,166 @@ def phase_serve_moe(args, rec):
         torch.cuda.empty_cache()
     _serve_cohort("moe", engines, cohort, rec, args)
     for eng in engines.values():
-        _engine_reading(eng, "moe", rec)
+        _engine_reading(eng.name, eng.model, "moe", rec)
     del engines, eng
     gc.collect()
     torch.cuda.empty_cache()
     _after_serving(args, rec, "serve-moe", cohort)
+
+
+# ----------------------------------------------------------------------
+# phase serve-media: the VLM backbone and the encoder-decoder
+# ----------------------------------------------------------------------
+# llava-next-34b's copy held against float32 on the CPU (here and in
+# train-hybrid): layers, and patch embeddings (64 of its 2880: the float32
+# CPU copy's prefill over 2880 + 100 rows would take minutes)
+LLAVA_CHECK = (2, 64)
+MEDIA_DECODE_STEPS = 8   # decode steps held against float32
+WHISPER_BATCH = 4        # requests served at once
+WHISPER_CHECK_BATCH = 2
+WHISPER_PROMPT = 64      # + MAX_NEW tokens, within its 448-token context
+
+
+def _timed_greedy(model, prefill, steps: int):
+    """``prefill()`` -> (logits, cache), then ``steps`` greedy decode steps
+    of ``model``, synchronised -> (tokens (B, steps), prefill s, decode
+    s, cache)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = prefill()
+    cur = logits.argmax(-1)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    outs = []
+    for _ in range(steps):
+        outs.append(cur)
+        logits, cache = model.decode_step(cache, cur)
+        cur = logits.argmax(-1)
+    out = torch.stack(outs, dim=1).cpu().numpy()
+    torch.cuda.synchronize()
+    return out, t1 - t0, time.perf_counter() - t1, cache
+
+
+def _media_path(rec, path, name, model, run, what, vocab):
+    """One timed request of ``model`` (``run(steps)`` -> (tokens, prefill
+    s, decode s, cache): a prefill, then ``steps`` greedy steps) after an
+    untimed one, its launches counted from zero and exact
+    (`_expected_launches`), recorded as ``rec["paths"][path]``; returns
+    the cache."""
+    import torch
+
+    from repro_torch.kernels import _build
+
+    run(2)  # warm-up: cuBLAS handles, allocator
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    out, ttft, dec, cache = run(MAX_NEW)
+    launches = dict(_build.LAUNCHES)
+    expect = {k: 0 for k in KERNELS}
+    expect.update(_expected_launches(model.cfg, 1))
+    log(f"  launches of {path}: {launches} (expected {expect})")
+    if launches != expect or out.shape[1] != MAX_NEW or out.min() < 0 or \
+            out.max() >= vocab:
+        raise AssertionError(f"{path}: the request's launches or tokens are "
+                             f"off")
+    rec.setdefault("paths", {})[path] = dict(
+        launches=launches, max_memory_allocated_gb=torch.cuda.
+        max_memory_allocated() / 1e9, engines={name: dict(
+            invocations=1, batch=out.shape[0], prefill_ms=ttft * 1e3,
+            decode_ms_per_token=dec * 1e3 / MAX_NEW, stage_s=ttft + dec)})
+    _engine_reading(name, model, path, rec, what)
+    return cache
+
+
+def phase_serve_media(args, rec):
+    """llava-next-34b (the VLM backbone) at full width and depth: its
+    first LLAVA_CHECK[0] layers (drawn from the same seed before the
+    engine) against float32 on the CPU over a prefill with patches and
+    MEDIA_DECODE_STEPS decode steps, then one text-only stage invocation
+    through the engine and one image request (2880 patch embeddings and a
+    PROMPT-token prompt) through `Model.prefill` and MAX_NEW greedy steps;
+    then whisper-base whole: against float32 on the CPU at
+    WHISPER_CHECK_BATCH, and a batch of WHISPER_BATCH requests (1500
+    frames, a WHISPER_PROMPT-token prompt, MAX_NEW greedy steps).
+    Launches exact throughout."""
+    import gc
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import EncDecModel
+
+    rec.pop("yi_engines", None)
+    gc.collect()
+    torch.cuda.empty_cache()
+    cohort = _cohort()
+    tpl = cohort[0]
+    full = get_config("llava-next-34b")
+    seed = SEED + 70
+    n, P = LLAVA_CHECK
+    small = _engine(tpl, "engine-a", dataclasses.replace(full, n_layers=n),
+                    seed).model
+    log(f"reduced: the {n}-layer copy held on the CPU takes {P} of "
+        f"{full.vlm.n_patches} patch embeddings")
+    _model_check(small, rec, f"llava-next-34b first {n} layers", 100,
+                 patches=P, steps=MEDIA_DECODE_STEPS)
+    del small
+    gc.collect()
+    torch.cuda.empty_cache()
+    eng = _engine(tpl, "engine-a", full, seed)
+    log(f"reduced: nothing (all {full.n_layers} layers, full width); "
+        f"weights random from seed {seed}; "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
+    prompt = np.random.default_rng(SEED).integers(0, full.vocab, (1, PROMPT))
+    toks = torch.from_numpy(prompt).cuda()
+    # the text-only stage invocation, as the engine serves it
+    _media_path(rec, "llava-next-34b", eng.name, eng.model,
+                lambda n: (*eng.generate(prompt, max_new=n), None),
+                f"{PROMPT} tokens", full.vocab)
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    patches = torch.randn(1, full.vlm.n_patches, full.vlm.patch_dim,
+                          generator=g, device="cuda")
+    cache = _media_path(
+        rec, "llava-next-34b image", eng.name, eng.model,
+        lambda n: _timed_greedy(eng.model, lambda: eng.model.prefill(
+            toks, patches), n),
+        f"{full.vlm.n_patches} patches + {PROMPT} tokens", full.vocab)
+    slots = full.vlm.n_patches + PROMPT
+    if (cache.len, cache.k.shape[3]) != (slots + MAX_NEW, slots + 64):
+        raise AssertionError(f"llava image cache: len {cache.len} of "
+                             f"{cache.k.shape[3]} slots")
+    del eng, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg = get_config("whisper-base")
+    gen = torch.Generator(device="cuda").manual_seed(seed + 2)
+    model = EncDecModel(cfg, device="cuda").init(gen)
+    T = cfg.encdec.encoder_len
+    log(f"whisper-base whole (d {cfg.d_model}, {cfg.encdec.n_encoder_layers}"
+        f" + {cfg.n_layers} layers, vocab {cfg.vocab}, bf16): "
+        f"{sum(p.numel() for p in model.parameters()) / 1e9:.3f}B "
+        f"parameters; frames random (its conv frontend is a stub)")
+    _encdec_check(model, rec, "whisper-base", WHISPER_CHECK_BATCH,
+                  WHISPER_PROMPT, MEDIA_DECODE_STEPS)
+    frames = torch.randn(WHISPER_BATCH, T, cfg.d_model, generator=gen,
+                         device="cuda")
+    wtoks = torch.from_numpy(np.random.default_rng(SEED + 4).integers(
+        0, cfg.vocab, (WHISPER_BATCH, WHISPER_PROMPT))).cuda()
+    cache = _media_path(
+        rec, "whisper-base", "whisper", model,
+        lambda n: _timed_greedy(model, lambda: model.prefill(frames, wtoks),
+                                n),
+        f"B {WHISPER_BATCH}: {T} frames encoded + {WHISPER_PROMPT} tokens",
+        cfg.vocab)
+    if cache.xk.shape[3] != T or cache.len != WHISPER_PROMPT + MAX_NEW:
+        raise AssertionError("whisper cache: cross slots or length off")
+    del model, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    _after_serving(args, rec, "serve-media", cohort)
 
 
 # ----------------------------------------------------------------------
@@ -2649,7 +2975,9 @@ def phase_serve_moe(args, rec):
 # phase -> (arch, layers (None: all), (batch, sequence), steps)
 TRAIN_PATHS = {"train": ("yi-9b", 12, (2, 2048), 4),
                "train-ssm": ("mamba2-1.3b", None, (1, 2048), 3),
-               "train-hybrid": ("zamba2-2.7b", None, (1, 2048), 3)}
+               "train-hybrid": ("zamba2-2.7b", None, (1, 2048), 3),
+               # run by phase train-hybrid: tokens over 1500 frames each
+               "train-audio": ("whisper-base", None, (2, 448), 3)}
 # the token source: MarkovLMData's V**kgram x V table cannot be built at a
 # real vocabulary (2.6e14 entries at Yi-9B's 64000), so the tokens come
 # from 256 symbols, kgram 2, and enter the full embedding; the loss still
@@ -2659,12 +2987,23 @@ TRAIN_DATA = (256, 2)
 TRAIN_CHECK = (2, (1, 512))
 
 
-def _token_batch(B: int, S: int, seed: int) -> dict:
+def _token_batch(cfg, B: int, S: int, seed: int, patches: int = 0) -> dict:
+    """A (B, S) batch of the Markov source; with an encoder, B x T random
+    frames beside it, and with ``patches``, a VLM's B x patches random
+    patch embeddings (numpy float32, unit normals from ``seed``)."""
     from repro_torch.data import DataConfig, MarkovLMData
 
     vocab, kgram = TRAIN_DATA
-    return MarkovLMData(DataConfig(vocab=vocab, seq_len=S, batch=B,
-                                   seed=seed, kgram=kgram)).next_batch()
+    batch = MarkovLMData(DataConfig(vocab=vocab, seq_len=S, batch=B,
+                                    seed=seed, kgram=kgram)).next_batch()
+    rng = np.random.default_rng(seed)
+    if cfg.encdec is not None:
+        batch["frames"] = rng.standard_normal(
+            (B, cfg.encdec.encoder_len, cfg.d_model)).astype(np.float32)
+    if patches:
+        batch["patch_embeds"] = rng.standard_normal(
+            (B, patches, cfg.vlm.patch_dim)).astype(np.float32)
+    return batch
 
 
 def _train_launches(cfg) -> dict:
@@ -2676,13 +3015,22 @@ def _train_launches(cfg) -> dict:
     runs again in the backward; the hybrid checkpoints each group too, so
     a group's forward runs once more (its layers' checkpointed bodies
     included) and each Mamba layer runs three times, its shared block
-    twice (the final norm sits outside every checkpoint).  One flash
-    backward an attention; the RMSNorm and SSD backwards recompute their
-    plain versions and launch nothing."""
+    twice (the final norm sits outside every checkpoint).  The
+    encoder-decoder's forward launches L_e + 2L flash (encoder, decoder
+    self and cross) and 2L_e + 3L RMSNorms in its layers, each checkpointed
+    under remat, and ``enc_norm`` and the final norm outside them.  One
+    flash backward an attention; the RMSNorm and SSD backwards recompute
+    their plain versions and launch nothing."""
     L = cfg.n_layers
     full = cfg.remat == "full"
     out = {k: 0 for k in KERNELS}
-    if _n_attn(cfg) == L:
+    if cfg.encdec is not None:
+        Le = cfg.encdec.n_encoder_layers
+        r = 2 if full else 1
+        out.update(flash_attention=r * (Le + 2 * L),
+                   flash_attention_bwd=Le + 2 * L,
+                   rms_norm=r * (2 * Le + 3 * L) + 2)
+    elif _n_attn(cfg) == L:
         r = 2 if full else 1
         norms = 4 if cfg.attn_kind == "mla" else 2
         out.update(flash_attention=r * L, flash_attention_bwd=L,
@@ -2702,12 +3050,16 @@ def _train_launches(cfg) -> dict:
 def _train_check(model, label, rec):
     """A copy of ``model`` cut to its first TRAIN_CHECK layers (the
     hybrid: one group of attn_every layers; shared weights whole), held by
-    `_hold_train_copy`."""
+    `_hold_train_copy`; the encoder-decoder whole, at its train path's
+    batch."""
     import torch
 
     from repro_torch.models.transformer import TrainModel
 
     cfg = model.cfg
+    if cfg.encdec is not None:
+        _hold_train_copy(model, label, rec, TRAIN_PATHS["train-audio"][2])
+        return
     n = cfg.hybrid.attn_every if cfg.family == "hybrid" else TRAIN_CHECK[0]
     small = TrainModel(dataclasses.replace(cfg, n_layers=n), device="cuda")
     with torch.no_grad():
@@ -2718,10 +3070,12 @@ def _train_check(model, label, rec):
     del small
 
 
-def _hold_train_copy(small, label, rec, shape):
-    """One loss-and-gradient of ``small`` on a ``shape`` batch on the card,
-    its launches exact (`_train_launches`), and on its float32 CPU copy:
-    the loss and every gradient leaf within MODEL_REL_TOL, relative L2.
+def _hold_train_copy(small, label, rec, shape, patches: int = 0):
+    """One loss-and-gradient of ``small`` on a ``shape`` batch on the card
+    (a VLM's with ``patches`` patch embeddings, an encoder-decoder's with
+    its frames), its launches exact (`_train_launches`), and on its
+    float32 CPU copy: the loss and every gradient leaf within
+    MODEL_REL_TOL, relative L2.
     A MoE copy's loss carries 0.01 aux (held with it); each routes by its
     own scores, and where some row's routing differs (`_compare_passes`:
     every flip or reorder no earlier difference reached must be a
@@ -2732,18 +3086,18 @@ def _hold_train_copy(small, label, rec, shape):
     import torch
 
     from repro_torch.kernels import _build
-    from repro_torch.models.transformer import TrainModel
+    from repro_torch.models import build_model
     from repro_torch.train.step import value_and_grad
 
     B, S = shape
     cfg = small.cfg
     t0 = time.perf_counter()
-    cpu = TrainModel(dataclasses.replace(cfg, dtype="float32"),
-                     device="cpu")
+    cpu = build_model(dataclasses.replace(cfg, dtype="float32"),
+                      device="cpu", train=True)
     with torch.no_grad():
         for k, p in small.masters.items():
             cpu.masters[k].copy_(p.cpu())
-    batch = _token_batch(B, S, SEED + 1)
+    batch = _token_batch(cfg, B, S, SEED + 1, patches)
     taps = [_RouteTap([m._block], per_call=True) for m in (small, cpu)] \
         if cfg.moe is not None else []
     try:
@@ -2802,8 +3156,12 @@ def _hold_train_copy(small, label, rec, shape):
                     f"leaf {errs[k]:.3g}")
     worst = max(errs, key=errs.get)
     rec.setdefault("train_rel_err", {})[label] = errs
-    log(f"  {label}: {cfg.n_layers}-layer copy, one step on ({B},{S}) "
-        f"tokens vs its float32 CPU copy: loss {float(loss):.6f} vs "
+    extra = (f" + {patches} patches" if patches else "") + (
+        f" over {cfg.encdec.encoder_len} frames" if cfg.encdec else "")
+    depth = (f"{cfg.encdec.n_encoder_layers} + {cfg.n_layers}-layer model"
+             if cfg.encdec else f"{cfg.n_layers}-layer copy")
+    log(f"  {label}: {depth}, one step on ({B},{S}) "
+        f"tokens{extra} vs its float32 CPU copy: loss {float(loss):.6f} vs "
         f"{float(want):.6f} (tol {MODEL_REL_TOL}), relative L2 err: worst "
         f"{worst} {errs[worst]:.3g} over {len(errs)} leaves (tol {tol}"
         f"{', routing differs' if diff else ''}); launches {launches} "
@@ -2823,16 +3181,30 @@ FAMILY_TRAIN = {"mistral-nemo-12b": (TRAIN_CHECK[0], None),
                 "qwen2-72b": (TRAIN_CHECK[0], None),
                 "minicpm3-4b": (TRAIN_CHECK[0], None),
                 "granite-moe-1b-a400m": (TRAIN_CHECK[0], None),
-                "arctic-480b": (1, 16)}
+                "arctic-480b": (1, 16),
+                "llava-next-34b": (LLAVA_CHECK[0], None)}
 FAMILY_TRAIN_SHAPE = (1, 256)
 
 
 def _step_flops(cfg, n_mat: int, B: int, S: int) -> float:
     """Model FLOPs of one train step on (B, S) tokens: 6 an active matrix
     parameter a token (of ``n_mat``, a MoE layer's experts count K of E),
-    and 12 a causal pair a query head dim for each attention (dense and
-    MoE: every layer; hybrid: each shared-block application; SSM:
-    none)."""
+    and 12 a causal pair a query head dim for each attention (dense, MoE
+    and VLM: every layer; hybrid: each shared-block application; SSM:
+    none).  The encoder-decoder's encoder matrices and its decoder's cross
+    keys and values run over the B T frames, its other matrices over the
+    B S tokens; its encoder attends T^2 pairs, each cross attention S T
+    and each decoder self attention the causal pairs of S."""
+    if cfg.encdec is not None:
+        T, Le, L = cfg.encdec.encoder_len, cfg.encdec.n_encoder_layers, \
+            cfg.n_layers
+        d, hd, H, KV = cfg.d_model, cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+        enc_mat = Le * (d * hd * (2 * H + 2 * KV) + 3 * d * cfg.d_ff)
+        cross_kv = L * 2 * d * KV * hd
+        mats = 6.0 * ((enc_mat + cross_kv) * B * T +
+                      (n_mat - enc_mat - cross_kv) * B * S)
+        pairs = Le * T * T + L * (_attn_pairs(S, S, True, 0) + S * T)
+        return mats + 12.0 * pairs * hd * H * B
     if cfg.moe is not None:
         mo = cfg.moe
         n_mat -= cfg.n_layers * (mo.n_experts - mo.top_k) * 3 * \
@@ -2850,7 +3222,7 @@ def _train_path(phase, rec, args):
 
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build
-    from repro_torch.models.transformer import TrainModel
+    from repro_torch.models import build_model
     from repro_torch.train import OptConfig, TrainConfig, make_train_step
     from repro_torch.train.step import value_and_grad
 
@@ -2861,7 +3233,7 @@ def _train_path(phase, rec, args):
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(SEED + 20)
-    model = TrainModel(cfg, device="cuda").init(gen)
+    model = build_model(cfg, device="cuda", train=True).init(gen)
     n_par = sum(p.numel() for p in model.masters.values())
     n_mat = n_par - model.masters["embed"].numel()
     torch.cuda.synchronize()
@@ -2869,12 +3241,14 @@ def _train_path(phase, rec, args):
         f"bf16 compute, float32 masters), {cfg.n_layers} layers, "
         f"{n_par / 1e9:.2f}B parameters, remat {cfg.remat}; init "
         f"{time.perf_counter() - t0:.1f} s")
+    frames = (f" over {cfg.encdec.encoder_len} random frames each"
+              if cfg.encdec else "")
     log(f"reduced: {'depth only, ' if layers else ''}tokens from "
         f"MarkovLMData(vocab={TRAIN_DATA[0]}, kgram={TRAIN_DATA[1]}) into "
-        f"the full {cfg.padded_vocab}-row embedding; batch ({B},{S}); "
-        f"{steps} steps on one repeated batch")
+        f"the full {model.masters['embed'].shape[0]}-row embedding; batch "
+        f"({B},{S}){frames}; {steps} steps on one repeated batch")
     _train_check(model, f"{phase} {arch}", rec)
-    batch = _token_batch(B, S, SEED)
+    batch = _token_batch(cfg, B, S, SEED)
     init_state, step = make_train_step(model, TrainConfig(
         opt=OptConfig(warmup_steps=1)))
     params = model.params()
@@ -2948,8 +3322,10 @@ def phase_train_ssm(args, rec):
 
 def phase_train_hybrid(args, rec):
     """Zamba2-2.7B's train path, then one step of a full-width copy of
-    each dense and MoE family (the flash backward at MLA's head dim 96 and
-    at granite's 64) against float32 on the CPU, launches exact."""
+    each dense, MoE and VLM family (the flash backward at MLA's head dim
+    96, at granite's 64, at llava's G = 7 over patches and text) against
+    float32 on the CPU, launches exact; then whisper-base's train path
+    (its encoder's and cross attention's non-causal backward)."""
     import torch
 
     from repro_torch.configs import get_config
@@ -2965,9 +3341,12 @@ def phase_train_hybrid(args, rec):
                 f"{get_config(arch).moe.n_experts} experts, {layers} layer")
         gen = torch.Generator(device="cuda").manual_seed(SEED + 50 + i)
         small = TrainModel(cfg, device="cuda").init(gen)
-        _hold_train_copy(small, f"train {arch}", rec, FAMILY_TRAIN_SHAPE)
+        patches = LLAVA_CHECK[1] if cfg.vlm is not None else 0
+        _hold_train_copy(small, f"train {arch}", rec, FAMILY_TRAIN_SHAPE,
+                         patches)
         del small
         torch.cuda.empty_cache()
+    _train_path("train-audio", rec, args)
 
 
 # ----------------------------------------------------------------------
@@ -3047,13 +3426,13 @@ def phase_zoo(args, rec):
 PHASES = {"device": phase_device, "kernels": phase_kernels,
           "serve": phase_serve, "serve-events": phase_serve_events,
           "serve-ssm": phase_serve_ssm, "serve-dense": phase_serve_dense,
-          "serve-moe": phase_serve_moe,
+          "serve-moe": phase_serve_moe, "serve-media": phase_serve_media,
           # after the serve phases: a short trace taken after a train step's
           # long one came back empty on the card (PERF.md section 7)
           "train": phase_train, "train-ssm": phase_train_ssm,
           "train-hybrid": phase_train_hybrid, "zoo": phase_zoo}
 SERVE_PHASES = ("serve", "serve-events", "serve-ssm", "serve-dense",
-                "serve-moe")
+                "serve-moe", "serve-media")
 
 
 def _after_serving(args, rec, name, cohort):

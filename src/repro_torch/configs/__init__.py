@@ -1,8 +1,7 @@
 """Architecture config registry: ``get_config("<arch-id>", smoke=...)``.
 
-The port registers only the architectures whose model family it carries
-(dense GQA, with QKV bias or MLA, MoE, SSM and hybrid so far); ids match
-`repro.configs`.
+The port registers every architecture of `repro.configs`, under the same
+ids.
 """
 from __future__ import annotations
 
@@ -20,6 +19,8 @@ _MODULES = {
     "arctic-480b": "arctic_480b",
     "mamba2-1.3b": "mamba2_1p3b",
     "zamba2-2.7b": "zamba2_2p7b",
+    "llava-next-34b": "llava_next_34b",
+    "whisper-base": "whisper_base",
 }
 
 ARCH_IDS = list(_MODULES)
@@ -29,8 +30,8 @@ def get_config(arch_id: str, smoke: bool = False, **overrides) -> ArchConfig:
     """The registered CONFIG (or its reduced SMOKE variant) of ``arch_id``,
     with ``overrides`` applied as dataclass fields."""
     if arch_id not in _MODULES:
-        raise KeyError(f"unknown or not yet ported arch {arch_id!r}: "
-                       f"the port registers {ARCH_IDS}")
+        raise KeyError(f"unknown arch {arch_id!r}: the port registers "
+                       f"{ARCH_IDS}")
     mod = importlib.import_module(f"repro_torch.configs.{_MODULES[arch_id]}")
     cfg = mod.SMOKE if smoke else mod.CONFIG
     if overrides:

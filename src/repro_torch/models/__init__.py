@@ -1,1 +1,2 @@
-"""Dense decoder model stack of the port (`repro.models` counterpart)."""
+"""Model stack of the port (`repro.models` counterpart)."""
+from repro_torch.models.transformer import build_model  # noqa: F401

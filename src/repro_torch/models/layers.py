@@ -1,7 +1,8 @@
 """Model blocks of the port (`repro.models.layers` counterpart).
 
 RMSNorm, rotary embeddings, GQA attention with an optional QKV bias (full
-sequence and one-token decode against a KV cache), multi-head latent
+sequence, causal or not, self or cross, and one-token decode against a KV
+cache or an encoder's keys and values), multi-head latent
 attention (MLA: the flash kernel at prefill, `repro`'s absorbed form in
 plain PyTorch at decode), the SwiGLU MLP, the token-choice MoE (`route`,
 `MoE`) and the Mamba2 (SSD) block.
@@ -72,10 +73,10 @@ def _weight(device, dtype):
 
 
 class Attention(nn.Module):
-    """GQA self-attention: ``wq`` (d, H*hd), ``wk``/``wv`` (d, KV*hd),
-    ``wo`` (H*hd, d), and with ``cfg.qkv_bias`` the biases ``bq`` (H*hd,),
-    ``bk``/``bv`` (KV*hd,), zero at init and added after the projections
-    in the compute dtype, as `repro`'s ``_qkv`` adds them."""
+    """GQA attention, self or cross: ``wq`` (d, H*hd), ``wk``/``wv`` (d,
+    KV*hd), ``wo`` (H*hd, d), and with ``cfg.qkv_bias`` the biases ``bq``
+    (H*hd,), ``bk``/``bv`` (KV*hd,), zero at init and added after the
+    projections in the compute dtype, as `repro`'s ``_qkv`` adds them."""
 
     def __init__(self, cfg: ArchConfig, *, device, dtype):
         super().__init__()
@@ -95,25 +96,38 @@ class Attention(nn.Module):
             for p in (self.bq, self.bk, self.bv):
                 p.zero_()
 
-    def _qkv(self, x):
+    def _proj(self, x, name: str, heads: int):
+        """``x`` (B, S, d) through ``w<name>`` (and its bias) -> (B, S,
+        heads, hd)."""
         B, S, _ = x.shape
-        c = self.cfg
-        q, k, v = x @ self.wq, x @ self.wk, x @ self.wv
-        if c.qkv_bias:
-            q, k, v = q + self.bq, k + self.bk, v + self.bv
-        return (q.view(B, S, c.n_heads, c.head_dim),
-                k.view(B, S, c.n_kv_heads, c.head_dim),
-                v.view(B, S, c.n_kv_heads, c.head_dim))
+        y = x @ getattr(self, "w" + name)
+        if self.cfg.qkv_bias:
+            y = y + getattr(self, "b" + name)
+        return y.view(B, S, heads, self.cfg.head_dim)
 
-    def forward(self, x, positions, *, window: int = 0):
-        """Causal attention over ``x`` (B, S, d) at ``positions`` (1, S).
-        Returns (y (B, S, d), (k, v)) with k/v in (B, KV, S, hd) layout."""
+    def _qkv(self, x):
+        c = self.cfg
+        return (self._proj(x, "q", c.n_heads),
+                self._proj(x, "k", c.n_kv_heads),
+                self._proj(x, "v", c.n_kv_heads))
+
+    def forward(self, x, positions, *, causal: bool = True, window: int = 0,
+                kv_override=None):
+        """Attention over ``x`` (B, S, d) at ``positions`` (1, S), causal
+        unless ``causal`` is False.  ``kv_override=(k, v)``, each (B, KV, T,
+        hd), is cross attention: those keys and values (precomputed, no
+        rope) in place of ``x``'s, and no rope on q either.  Returns (y (B,
+        S, d), (k, v)) with k/v in (B, KV, S, hd) layout."""
         B, S, _ = x.shape
-        q, k, v = self._qkv(x)
-        q = rope(q, positions, self.cfg.rope_theta).transpose(1, 2)
-        k = rope(k, positions, self.cfg.rope_theta).transpose(1, 2)
-        q, k, v = q.contiguous(), k.contiguous(), v.transpose(1, 2).contiguous()
-        y = ops.attention(q, k, v, causal=True, window=window)
+        if kv_override is not None:
+            k, v = kv_override
+            q = self._proj(x, "q", self.cfg.n_heads).transpose(1, 2)
+        else:
+            q, k, v = self._qkv(x)
+            q = rope(q, positions, self.cfg.rope_theta).transpose(1, 2)
+            k = rope(k, positions, self.cfg.rope_theta).transpose(1, 2)
+            k, v = k.contiguous(), v.transpose(1, 2).contiguous()
+        y = ops.attention(q.contiguous(), k, v, causal=causal, window=window)
         y = y.transpose(1, 2).reshape(B, S, -1)
         return y @ self.wo, (k, v)
 
@@ -139,6 +153,18 @@ class Attention(nn.Module):
         y = ops.decode_attention(q.contiguous(), cache_k, cache_v, lens,
                                  window=window)
         return y.reshape(B, -1) @ self.wo
+
+    def decode_cross(self, x_tok, xk, xv):
+        """One token per sequence, ``x_tok`` (B, d), attending to all of
+        the encoder's keys and values ``xk``/``xv`` (B, KV, T, hd): every
+        length is T, the cache's capacity.  The query takes no rope and no
+        bias, as in `repro`'s ``EncDecModel.decode_step``.  Returns y (B,
+        d)."""
+        B = x_tok.shape[0]
+        q = (x_tok @ self.wq).view(B, self.cfg.n_heads, self.cfg.head_dim)
+        lens = torch.full((B,), xk.shape[2], dtype=torch.int32,
+                          device=x_tok.device)
+        return ops.decode_attention(q, xk, xv, lens).reshape(B, -1) @ self.wo
 
 
 class MLA(nn.Module):

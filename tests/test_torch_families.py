@@ -12,10 +12,11 @@ MLA decode has no kernel in `repro` and runs its einsums), the
 last-position prefill logits agree to 1e-4, eight greedy decode tokens
 are identical, and so are the decode caches.  Also: `params_to_numpy`
 gives the carried tree back, the MoE family is registered and builds (its
-parity is `tests/test_torch_moe.py`'s), the families still to come raise, decode
-attention refuses MLA's head dim of 96, and the flash kernel's plain
-version at qk dim 96 with v padded (MLA's prefill) matches `repro`'s
-attention.
+parity is `tests/test_torch_moe.py`'s), every one of `repro`'s ids builds
+in both forms, tied embeddings (a tied SMOKE dense config) give
+`repro`'s logits and ``embed`` gradient, decode attention refuses MLA's
+head dim of 96, and the flash kernel's plain version at qk dim 96 with v
+padded (MLA's prefill) matches `repro`'s attention.
 """
 import dataclasses
 
@@ -25,16 +26,21 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import ARCH_IDS as JAX_ARCH_IDS
 from repro.configs import get_config as jax_get_config
 from repro.kernels import ops as jops
+from repro.models.transformer import EncDecModel as JaxEncDecModel
 from repro.models.transformer import Model as JaxModel
-from repro_torch.configs import get_config
+from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.kernels import decode_attention as dmod
 from repro_torch.kernels import flash_attention as fmod
 from repro_torch.kernels import ops
 from repro_torch.models import config as tconf
 from repro_torch.models.convert import params_from_jax, params_to_numpy
-from repro_torch.models.transformer import MLACache, Model, TrainModel
+from repro_torch.models import build_model
+from repro_torch.models.transformer import (EncDecModel, MLACache, Model,
+                                            TrainEncDecModel, TrainModel)
+from repro_torch.train.step import value_and_grad
 
 TOL = 1e-4
 N_DECODE = 8
@@ -43,7 +49,6 @@ CASES = {"mistral-nemo-12b": ("mistral-nemo-12b", {}),
          "mistral-nemo-12b hd32": ("mistral-nemo-12b", {"head_dim": 32}),
          "qwen2-72b": ("qwen2-72b", {}),
          "minicpm3-4b": ("minicpm3-4b", {})}
-LATER = ("llava-next-34b", "whisper-base")
 MOE = ("granite-moe-1b-a400m", "arctic-480b")
 
 
@@ -193,19 +198,62 @@ def test_moe_family_is_registered_and_builds(arch):
     assert "layers@mlp@router" in train.masters
 
 
-@pytest.mark.parametrize("arch", LATER)
-def test_later_families_still_raise(arch):
-    """The VLM and audio families are later slices: the registry does not
-    hold them, and their configs, built here from `repro`'s, make `Model`
-    and `TrainModel` raise, naming the family and the ROADMAP item."""
-    with pytest.raises(KeyError):
-        get_config(arch)
-    cfg = _port_cfg(jax_get_config(arch, smoke=True))
-    family = {"llava-next-34b": "vlm", "whisper-base": "audio"}[arch]
-    for cls in (Model, TrainModel):
-        with pytest.raises(NotImplementedError,
-                           match=f"the {family} family.*queue 1 item 1"):
-            cls(cfg, device="cpu")
+@pytest.mark.parametrize("arch", JAX_ARCH_IDS)
+def test_every_arch_builds_in_both_forms(arch):
+    """The registry holds every one of `repro`'s ids, its configs equal to
+    `repro`'s, and `build_model` builds each in the serving and the
+    training form (`EncDecModel` / `TrainEncDecModel` for the
+    encoder-decoder), the training form with `repro`'s leaves."""
+    assert sorted(ARCH_IDS) == sorted(JAX_ARCH_IDS)
+    cfg = get_config(arch, smoke=True)
+    assert cfg == _port_cfg(jax_get_config(arch, smoke=True))
+    encdec = cfg.encdec is not None
+    model = build_model(cfg, device="cpu")
+    assert isinstance(model, EncDecModel if encdec else Model)
+    train = build_model(cfg, device="cpu", train=True)
+    assert isinstance(train, TrainEncDecModel if encdec else TrainModel)
+    jparams = jax.eval_shape(
+        (JaxEncDecModel if encdec else JaxModel)(jax_get_config(
+            arch, smoke=True)).init, jax.random.PRNGKey(0))
+    want = {k: v.shape for k, v in _flat(jax.tree.map(
+        lambda a: np.zeros((), np.int8), jparams)).items()}
+    assert set(train.masters) == set(want)
+
+
+def test_tied_embeddings_match_repro():
+    """A tied SMOKE dense config: no ``unembed`` leaf in either package,
+    the logits unembedded by ``embed.T``, and the train step's ``embed``
+    gradient summing both uses, leaf for leaf."""
+    jcfg = dataclasses.replace(jax_get_config("yi-9b", smoke=True),
+                               dtype="float32", use_pallas=True,
+                               tie_embeddings=True)
+    jm = JaxModel(jcfg)
+    params = jax.tree.map(np.asarray, jm.init(jax.random.PRNGKey(0)))
+    assert "unembed" not in params
+    cfg = dataclasses.replace(get_config("yi-9b", smoke=True),
+                              dtype="float32", tie_embeddings=True)
+    tm = params_from_jax(cfg, params, device="cpu")
+    assert not hasattr(tm, "unembed")
+    toks = np.random.default_rng(0).integers(0, cfg.vocab, (2, 12),
+                                             dtype=np.int32)
+    jlog, _ = jax.jit(jm.prefill)(jax.tree.map(jnp.asarray, params),
+                                  {"tokens": jnp.asarray(toks)})
+    tlog, _ = tm.prefill(torch.from_numpy(toks).long())
+    np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog), atol=TOL,
+                               rtol=TOL)
+    assert set(_flat(params_to_numpy(tm))) == set(_flat(params))
+
+    train = params_from_jax(cfg, params, device="cpu", train=True)
+    assert "unembed" not in train.masters
+    labels = np.roll(toks, -1, axis=1)
+    batch = {"tokens": toks, "labels": labels}
+    (jloss, _), jgrads = jax.jit(jax.value_and_grad(jm.loss, has_aux=True))(
+        jax.tree.map(jnp.asarray, params), jax.tree.map(jnp.asarray, batch))
+    loss, _, grads = value_and_grad(train, batch)
+    assert float(loss) == pytest.approx(float(jloss), rel=1e-5)
+    want = np.asarray(jgrads["embed"], np.float64)
+    got = grads["embed"].numpy().astype(np.float64)
+    assert np.linalg.norm(got - want) <= 1e-5 * np.linalg.norm(want)
 
 
 def test_decode_attention_refuses_mla_head_dim():

@@ -146,17 +146,15 @@ def test_ssm_models_run_on_the_cpu_when_asked(no_cuda, arch):
     {"family": "moe"}, {"moe": MoEConfig(n_experts=4, top_k=2)},
     {"family": "vlm"}, {"family": "audio"}])
 def test_model_still_refuses_unported_families(change):
-    """VLM and enc-dec models are later slices: `Model` raises.  The MoE
-    family is ported: a ``moe`` family without a `MoEConfig` is refused as
-    a bad config, and a `MoEConfig` builds a MoE model on the CPU."""
+    """Every family is ported: a ``moe``, ``vlm`` or ``audio`` family
+    without its `MoEConfig`, `VLMConfig` or `EncDecConfig` is refused as a
+    bad config, and a `MoEConfig` builds a MoE model on the CPU."""
     cfg = dataclasses.replace(get_config("yi-9b", smoke=True), **change)
     if "moe" in change:
         model = Model(cfg, device="cpu")
         assert all(blk.moe for blk in model.layers)
         return
-    if change.get("family") == "moe":
-        with pytest.raises(ValueError, match="needs a MoEConfig"):
-            Model(cfg, device="cpu")
-        return
-    with pytest.raises(NotImplementedError, match="families only"):
+    want = {"moe": "a MoEConfig", "vlm": "a VLMConfig",
+            "audio": "an EncDecConfig"}[change["family"]]
+    with pytest.raises(ValueError, match=f"needs {want}"):
         Model(cfg, device="cpu")
