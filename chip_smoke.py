@@ -8,6 +8,7 @@
     python3 chip_smoke.py --phases device,kernels,serve-dense,train-hybrid
     python3 chip_smoke.py --phases device,kernels,serve-moe,train-hybrid
     python3 chip_smoke.py --phases device,kernels,serve-media,train-hybrid
+    python3 chip_smoke.py --phases device,serve-compiled,train-100m
 
 Phases (any failure exits non-zero and prints no result):
 
@@ -45,7 +46,19 @@ Phases (any failure exits non-zero and prints no result):
                classes, preemption, an annotation swap, exploration, an
                outage), replayed on the CPU with identical results and its
                launches counted the same way;
-5. serve-ssm — the same cohort served by a full-width, full-depth
+5. serve-compiled — the compiled event engine on the card (no LLM
+               engine: the workload executor's stage tables): the cohort
+               with serve-events' knobs less the timeout model, equal to
+               the host loop on the CPU and at every epoch width, trie_plan
+               launches equal to its replan rounds, after the replan's
+               width-1, gathered and capacity-wide calls are held equal;
+               then a MathQA-4 replay of 1,000 requests with
+               ``stream=True`` (its summary against the materialised
+               run's, a 200-request prefix against the host loop on the
+               CPU, events/s beside the host loop's on the card, host reads
+               an event), and the `quickstart` and `mathqa_loadaware`
+               drivers with ``--device cuda``, their CPU lines;
+6. serve-ssm — the same cohort served by a full-width, full-depth
                Mamba2-1.3B engine (engine-a) and Zamba2-2.7B engine
                (engine-b), with their launches counted the same way; then
                the replan's wall time per round over the serve phases, and
@@ -53,12 +66,12 @@ Phases (any failure exits non-zero and prints no result):
                under `torch.profiler`, each of which must be one kernel and
                two copies (after the last serve phase that runs: a
                profiler session slows later launches).
-6. serve-dense — the same cohort served by full-width, full-depth
+7. serve-dense — the same cohort served by full-width, full-depth
                MiniCPM3-4B (engine-a, MLA) and Mistral-NeMo-12B (engine-b)
                engines, then one stage invocation of Qwen2-72B (QKV bias)
                at 36 of its 80 layers, each engine's 2-layer copy held
                against its float32 CPU copy, launches exact;
-7. serve-moe — the same cohort served by Granite-MoE-1B-A400M (engine-a,
+8. serve-moe — the same cohort served by Granite-MoE-1B-A400M (engine-a,
                full width and depth) and Arctic-480B (engine-b, full width,
                all 128 experts and the dense residual, 2 of 35 layers): the
                routing of each engine's first 2 layers held at full E
@@ -67,7 +80,7 @@ Phases (any failure exits non-zero and prints no result):
                copy and a 1-layer, 16-expert Arctic copy held against
                float32 on the CPU over a prefill and 8 decode steps,
                launches exact;
-8. serve-media — LLaVA-NeXT-34B (VLM backbone) at full width and depth:
+9. serve-media — LLaVA-NeXT-34B (VLM backbone) at full width and depth:
                a 2-layer copy held against float32 on the CPU over a
                prefill with 64 patch embeddings and 8 decode steps, then
                one text-only stage invocation through the engine and one
@@ -76,16 +89,16 @@ Phases (any failure exits non-zero and prints no result):
                against float32 on the CPU at B = 2 over encode, prefill
                and 8 decode steps, and a batch of 4 requests (1500 frames
                each, a 64-token prompt, 32 greedy tokens); launches exact;
-9. train     — Yi-9B at full width, 12 layers (2.60B parameters), float32
+10. train    — Yi-9B at full width, 12 layers (2.60B parameters), float32
                masters, AdamW, remat, a (2, 2048) batch from a 256-symbol
                Markov source, 4 steps: every gradient present and nonzero,
                the loss falling, a 2-layer copy's loss and gradients
                against its float32 CPU copy, launches per step exact; step
                time, tokens/s, model-FLOP share, peak memory, and one step
                under `torch.profiler`;
-10. train-ssm — the same for Mamba2-1.3B at full width and depth, (1, 2048),
+11. train-ssm — the same for Mamba2-1.3B at full width and depth, (1, 2048),
                3 steps (the SSD kernel forward, the plain recompute back);
-11. train-hybrid — the same for Zamba2-2.7B at full width and depth, (1,
+12. train-hybrid — the same for Zamba2-2.7B at full width and depth, (1,
                2048), 3 steps (checkpointed layers inside checkpointed
                groups), then one step of a full-width copy of each dense
                family (2 layers), MoE family (Granite 2 layers, Arctic 1
@@ -94,7 +107,14 @@ Phases (any failure exits non-zero and prints no result):
                CPU copy, launches exact; then Whisper-base whole, (2, 448)
                tokens over 1500 frames, 3 steps, one held against its
                float32 CPU copy;
-12. zoo      — `build_zoo` with `repro`'s ladder on the card (its launches
+13. train-100m — `repro_torch.examples.train_100m` as `repro`'s driver
+               sets it (12 layers, d 512, vocab 32768, float32) for 300
+               steps at (8, 128), 2 microbatches, async checkpoints every
+               100 steps: launches of every step exact, the loss falling,
+               the last checkpoint restored bit for bit; step time, tokens/s,
+               float32 model-FLOP share, and the data source's host memory
+               and build time;
+14. zoo      — `build_zoo` with `repro`'s ladder on the card (its launches
                exact), held-out accuracy rising from zoo-s to zoo-m to
                zoo-l, then the end-to-end example's loop
                (`repro_torch.examples.serve_workflow`, ``--requests 24
@@ -115,6 +135,7 @@ import argparse
 import dataclasses
 import json
 import pathlib
+import re
 import statistics
 import subprocess
 import sys
@@ -206,7 +227,9 @@ BWD_SHAPES = (("yi-9b train", "bfloat16", 2, 32, 4, 2048, 2048, 128, True),
                64, True),
               ("zoo-s", "float32", 16, 2, 2, 32, 32, 16, True),
               ("zoo-l", "float32", 16, 4, 4, 32, 32, 32, True),
-              ("mla float32", "float32", 2, 4, 4, 100, 100, 96, True))
+              ("mla float32", "float32", 2, 4, 4, 100, 100, 96, True),
+              # train-100m's microbatch (4 of 8 sequences), float32 D = 64
+              ("train-100m", "float32", 4, 8, 8, 128, 128, 64, True))
 # decode attention at the serve-media phase's shapes, each plan its rule
 # weighs checked and timed: (label, B, H, KV, D, cache slots, length);
 # whisper's cross cache is full: every length is its capacity
@@ -683,10 +706,12 @@ def _time_flash(rec, label, q, k, v, lse: bool = False,
     del cold
     nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
     ops = 4.0 * D * H * B * _attn_pairs(Sq, Sk, causal, 0)
-    b_ms, b_by = bound(nbytes, ops, BF16_OPS)
+    bf16 = q.element_size() == 2
+    b_ms, b_by = bound(nbytes, ops, BF16_OPS if bf16 else F32_OPS)
     case = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                 library_ms=lib_ms, cold_ms=cold_ms,
-                library_cold_ms=lib_cold_ms, tol=BF16_TOL)
+                library_cold_ms=lib_cold_ms,
+                tol=BF16_TOL if bf16 else F32_TOL)
     rec.setdefault("timing_cases", {})[f"flash_attention {label}"] = case
     log(f"  flash_attention {label} {'causal' if causal else 'non-causal'}:"
         f" kernel {ms:.4f} ms (cold L2 "
@@ -852,8 +877,11 @@ def check_flash_bwd(rec):
             rn(B, H, Sq, D)
         o, lse = flash_attention(q, k, v, return_lse=True, **mask)
         torch.cuda.synchronize()
-        _, want_lse = ref.attention_fwd(q, k, v, **mask)
+        want_o, want_lse = ref.attention_fwd(q, k, v, **mask)
         check_close("flash_attention lse", lse, want_lse, F32_TOL)
+        if dt == torch.float32:  # float32 forwards: the output as well
+            err = max(err, check_close("flash_attention", o, want_o, tol))
+        del want_o
         got = flash_attention_bwd(q, k, v, o, lse, do, **mask)
         torch.cuda.synchronize()
         want = ref.attention_bwd(q, k, v, o, lse, do, **mask)
@@ -869,7 +897,8 @@ def check_flash_bwd(rec):
         del want
         if label.startswith("small"):
             continue
-        if dt == torch.bfloat16:  # the training form of the forward, too
+        if dt == torch.bfloat16 or label == "train-100m":
+            # the training form of the forward, too
             _time_flash(rec, f"{label} {shape}", q, k, v, lse=True,
                         causal=causal)
         ms = graph_ms(lambda: flash_attention_bwd(q, k, v, o, lse, do,
@@ -1079,7 +1108,7 @@ def check_rms_norm(rec):
                              (torch.float32, F32_TOL))
              for D, rows_list in [(D, (PROMPT, 1)) for D in (
                  4096, 2048, 2560, 5120, 8192, 768, 256, 1024, 7168, 100)]
-             + [(512, (6000, 4, 1))]
+             + [(512, (6000, PROMPT + 64, 4, 1))]
              for rows in rows_list]
     for dt, tol, rows, D in cases:
         x = (3 * torch.randn(rows, D, generator=g, device="cuda")).to(dt)
@@ -1090,21 +1119,24 @@ def check_rms_norm(rec):
         err = max(err, check_close("rms_norm", out, want, tol))
         log(f"  rms_norm {str(dt)[6:]} ({rows},{D}): "
             f"{err_str(out, want, tol)}")
-        if dt != torch.bfloat16 or D == 100 or (
-                rows != 1 and (rows, D) not in timed_rows):
+        f32_timed = dt == torch.float32 and (rows, D) == (512, 512)
+        if not f32_timed and (dt != torch.bfloat16 or D == 100 or (
+                rows != 1 and (rows, D) not in timed_rows)):
             continue
         sb = s.to(dt)
         ms = graph_ms(lambda: rms_norm(x, s))
         plain_ms = graph_ms(lambda: ref.rms_norm(x, s))
         lib_ms = graph_ms(lambda: F.rms_norm(x, (D,), sb, 1e-6))
-        b_ms, b_by = bound(2 * 2 * x.numel() + 4 * D, 4.0 * x.numel(),
-                           F32_OPS)
+        b_ms, b_by = bound(2 * x.element_size() * x.numel() + 4 * D,
+                           4.0 * x.numel(), F32_OPS)
         case = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                    bound_by=b_by, library_ms=lib_ms, tol=BF16_TOL)
-        rec.setdefault("timing_cases", {})[f"rms_norm ({rows},{D})"] = case
+                    bound_by=b_by, library_ms=lib_ms, tol=tol)
+        key = f"rms_norm ({rows},{D})" + (" float32" if f32_timed else "")
+        rec.setdefault("timing_cases", {})[key] = case
         if rows == PROMPT and D == 4096:
             rec["kernels"]["rms_norm"] = case
-        log(f"  rms_norm ({rows},{D}) bf16: kernel {ms:.4f} ms, plain "
+        log(f"  rms_norm ({rows},{D}) {str(dt)[6:]}: kernel {ms:.4f} ms, "
+            f"plain "
             f"{plain_ms:.4f} ms, F.rms_norm {lib_ms:.4f} ms, bound "
             f"{b_ms:.6f} ms ({b_by})")
     rec["kernels"]["rms_norm"]["max_abs_err"] = err
@@ -1618,18 +1650,20 @@ def _profile_call(name, fn, rec, what):
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    fam, by_name = {}, {}
+    fam, by_name, n_ops = {}, {}, 0
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
+            n_ops += 1
             ms = e.time_range.elapsed_us() / 1e3
             f = _kernel_family(e.name)
             fam[f] = fam.get(f, 0.0) + ms
             by_name[e.name] = by_name.get(e.name, 0.0) + ms
     busy = sum(fam.values())
     rec.setdefault("profile", {})[name] = dict(
-        wall_ms=wall_ms, device_ms=busy, by_family_ms=fam)
+        wall_ms=wall_ms, device_ms=busy, by_family_ms=fam, device_ops=n_ops)
     log(f"  profile {name}: {what} wall {wall_ms:.1f} ms, device kernels "
-        f"{busy:.1f} ms, busy share {busy / wall_ms:.3f}")
+        f"{busy:.1f} ms in {n_ops} device operations, busy share "
+        f"{busy / wall_ms:.3f}")
     for f, ms in sorted(fam.items(), key=lambda kv: -kv[1]):
         log(f"    {f}: {ms:.2f} ms ({ms / busy:.3f} of device time)")
     for n, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
@@ -1820,7 +1854,8 @@ def _profile_round(cohort, rec):
     makes it (the planner's step on 16 lanes at the root, then one copy of
     the plan back), and, when phase serve-events ran, one replan of its
     resident planner (capacity lanes, class-shifted), each under
-    `torch.profiler` (`_trace_one`)."""
+    `torch.profiler` (`_trace_one`), and, when phase serve-compiled ran,
+    its cohort through the compiled engine (`_profile_call`)."""
     from repro_torch.core.controller_torch import (TrieDevice,
                                                    make_fleet_planner,
                                                    make_resident_planner,
@@ -1835,17 +1870,25 @@ def _profile_round(cohort, rec):
     step(*lanes).cpu()  # the planner's buffers are made outside the window
     _trace_one("one fleet round", lambda: step(*lanes).cpu().numpy())
     ev = rec.get("events_planner")
-    if ev is None:
-        return
-    C = ev["capacity"]
-    planner = make_resident_planner(td, dataclasses.replace(obj, lat_cap=None),
-                                    C, lat_cap=ev["lat_cap"])
-    planner.update(np.arange(C), np.zeros(C, np.int32),
-                   np.where(np.arange(C) % 2, -np.inf, 0.0),
-                   np.zeros(C, np.float32))
-    row = np.zeros(E, np.float32)
-    planner.replan(row)  # the first replan runs outside the window
-    _trace_one("one resident replan (events)", lambda: planner.replan(row))
+    if ev is not None:
+        C = ev["capacity"]
+        planner = make_resident_planner(
+            td, dataclasses.replace(obj, lat_cap=None), C,
+            lat_cap=ev["lat_cap"])
+        planner.update(np.arange(C), np.zeros(C, np.int32),
+                       np.where(np.arange(C) % 2, -np.inf, 0.0),
+                       np.zeros(C, np.float32))
+        row = np.zeros(E, np.float32)
+        planner.replan(row)  # the first replan runs outside the window
+        _trace_one("one resident replan (events)",
+                   lambda: planner.replan(row))
+    if "compiled_cohort" in rec:
+        # phase serve-compiled's cohort run: a long trace, so it comes
+        # after the short ones (a short trace taken after it came back
+        # without its kernel and copy)
+        run, events = rec.pop("compiled_cohort")
+        _profile_call("serve-compiled cohort", run, rec,
+                      f"the compiled engine's {events} events on the card:")
 
 
 def _replan_summary(rec):
@@ -1920,22 +1963,24 @@ def phase_serve(args, rec):
     _after_serving(args, rec, "serve", cohort)
 
 
-def _events_setup(cohort, engines, rec):
-    """The knobs of phase serve-events (see `phase_serve_events`)."""
+def _events_setup(cohort, mean_service_s, timeout_k=None):
+    """The knobs of phases serve-events and serve-compiled: Poisson
+    arrivals (2 rps, seed 11) into 4 slots, the load-aware policy with
+    concurrency-1 engines of the given mean service times, the
+    feasibility gate, two priority classes (weight 2 with the objective's
+    cap as its deadline, weight 1 with none) with preemption, one
+    annotation swap (latency x 1.3) at the 8th arrival, the exploration
+    lane, and an outage of engine-b inside the run, with the timeout model
+    at ``timeout_k`` (the compiled engine refuses one)."""
     from repro_torch.core.faults import FaultSchedule
     from repro_torch.core.workload import SLOClass, poisson_arrivals
     from repro_torch.serving.loadsim import EngineLoadModel, FleetLoadModel
 
     tpl, trie, wl, ann, obj, reqs = cohort
-    served = rec["paths"]["yi-9b"]["engines"]
-    missing = [e for e in engines if e not in served]
-    if missing:
-        raise AssertionError(f"phase serve made no stage invocation on "
-                             f"{missing}: no service time to model")
     load = FleetLoadModel(
         engines={e: EngineLoadModel(e, concurrency=1, jitter=0.0)
-                 for e in engines},
-        mean_service_s={e: served[e]["stage_s"] for e in engines})
+                 for e in mean_service_s},
+        mean_service_s=dict(mean_service_s))
     arrivals = poisson_arrivals(N_REQUESTS, rate=2.0, seed=11)
     # class deadlines replace the objective's cap, which is dropped so the
     # weight-1 class has none at all: its lanes reach the kernel at -inf
@@ -1943,7 +1988,7 @@ def _events_setup(cohort, engines, rec):
              SLOClass("batch", deadline_s=None, weight=1.0))
     faults = FaultSchedule(
         outages=(("engine-b", float(arrivals[3]), float(arrivals[10])),),
-        timeout_k=4.0)
+        timeout_k=timeout_k)
     return dict(
         arrivals=arrivals, capacity=4, policy="dynamic_load_aware",
         fleet_load=load, admission="feasibility",
@@ -2069,7 +2114,13 @@ def phase_serve_events(args, rec):
                              "engines: run it with phase serve")
     cohort = _cohort()
     tpl, trie, wl, ann, obj, reqs = cohort
-    kw = _events_setup(cohort, engines, rec)
+    served = rec["paths"]["yi-9b"]["engines"]
+    missing = [e for e in engines if e not in served]
+    if missing:
+        raise AssertionError(f"phase serve made no stage invocation on "
+                             f"{missing}: no service time to model")
+    kw = _events_setup(cohort, {e: served[e]["stage_s"] for e in engines},
+                       timeout_k=4.0)
     obj_ev = dataclasses.replace(obj, lat_cap=None)
     tel = {e: {"prefill_s": [], "decode_s": []} for e in engines}
     execute = _engine_executor(engines, tpl, wl, tel)
@@ -2165,6 +2216,317 @@ def phase_serve_events(args, rec):
         max_memory_allocated_gb=peak_gb, planner_build_us=build_us)
     rec["events_planner"] = dict(capacity=stats.capacity, lat_cap=lat_cap)
     _after_serving(args, rec, "serve-events", cohort)
+
+
+# the compiled event engine's phase: epoch widths held identical, the
+# replay's request count (on an H100 the replay runs ~90 events/s at ~2.5
+# events a request: 1,000 requests take ~28 s a pass, the phase ~90 s),
+# the prefix held against the host loop, and the replay's load
+COMPILED_EPOCHS = (1, 7)  # and n
+REPLAY_REQUESTS = 1000
+REPLAY_PREFIX = 200
+REPLAY_RATE = 6.0         # requests / virtual second into 64 slots
+REPLAY_CAPACITY = 64
+# the replan's lane forms in the compiled engine: (preset, lanes); width 1
+# and a gathered subset held equal to the capacity-wide call
+WIDTH_CASES = (("nl2sql_2", 4), ("mathqa_4", REPLAY_CAPACITY))
+
+
+def _compiled_record(res, stats):
+    """What two runs of the compiled engine or the host loop must share:
+    every result field but the replan wall time, the timelines and the
+    counts."""
+    rec = _events_record(res, stats)
+    rec.pop("stage_versions")  # the host loop's alone
+    rec.update(success=[r.success for r in res],
+               slo=[r.slo_violated for r in res],
+               preempt_count=stats.preempt_count.tolist(),
+               peak=dict(stats.peak_occupancy))
+    return rec
+
+
+def _check_plan_widths(rec):
+    """The replan as the compiled engine makes it (all capacity lanes in
+    one call) against width 1 lane by lane, as `repro`'s engine plans,
+    and against a gathered subset of lanes, on the card at N 31 and N
+    5461: identical targets and next models, and the plain blocked
+    version's; then at N 5461 each form timed beside its plain version
+    and bound."""
+    import torch
+
+    from repro_torch.kernels.trie_plan import fleet_plan_blocked, trie_plan_cuda
+
+    for name, lanes in WIDTH_CASES:
+        c = _plan_case(name, lanes, seed=lanes + 7)
+        obj = c["objs"][0]
+        a, kw = _plan_args(c, obj, None)
+        n_t = len(_plan_tensors(c))
+        full = trie_plan_cuda(*a, **kw)
+        want = fleet_plan_blocked(*a, **kw)
+        if not all(torch.equal(x, y) for x, y in zip(full, want)):
+            raise AssertionError(f"trie_plan {name} B={lanes}: capacity-wide "
+                                 "!= plain blocked")
+
+        def sub(idx):
+            i = torch.as_tensor(idx, device="cuda")
+            return (*a[:9], *(t[i].contiguous() for t in a[9:n_t]),
+                    *a[n_t:])
+
+        for i in range(lanes):
+            one = trie_plan_cuda(*sub([i]), **kw)
+            if int(one[0][0]) != int(full[0][i]) or \
+                    int(one[1][0]) != int(full[1][i]):
+                raise AssertionError(f"trie_plan {name}: lane {i} at width "
+                                     "1 != the capacity-wide call")
+        gath = list(range(0, lanes, 3))
+        got = trie_plan_cuda(*sub(gath), **kw)
+        if not all(torch.equal(x, y[gath]) for x, y in zip(got, full)):
+            raise AssertionError(f"trie_plan {name}: gathered lanes != the "
+                                 "capacity-wide call")
+        log(f"  trie_plan {name} N={c['trie'].n_nodes} B={lanes}: width 1 "
+            f"(each lane), gathered ({len(gath)} lanes) and capacity-wide "
+            f"identical, and equal to the plain blocked version")
+        if name != "mathqa_4":
+            continue
+        for label, idx in (("width 1", [0]), (f"gathered {len(gath)}", gath),
+                           (f"capacity {lanes}", list(range(lanes)))):
+            s = sub(idx)
+            ms = graph_ms(lambda: trie_plan_cuda(*s, **kw))
+            plain_ms = graph_ms(lambda: fleet_plan_blocked(*s, **kw))
+            cs = dict(c, roots=c["roots"][idx], delays=c["delays"][idx])
+            b_ms, b_by = bound(*_plan_work(cs, obj), F32_OPS)
+            rec.setdefault("timing_cases", {})[
+                f"trie_plan compiled {label} (mathqa_4)"] = dict(
+                ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None)
+            log(f"  trie_plan compiled engine, {label} on mathqa_4 N="
+                f"{c['trie'].n_nodes}: kernel {ms:.4f} ms, plain "
+                f"{plain_ms:.4f} ms, bound {b_ms:.3g} ms ({b_by})")
+
+
+def _replay_setup(n):
+    """The replay: MathQA-4 (5461 nodes), ``n`` requests drawn from a
+    300-request workload, Poisson arrivals at REPLAY_RATE into
+    REPLAY_CAPACITY slots, load-aware with concurrency-4 engines, the
+    feasibility gate under the preset's 0.5 cost and 0.8 latency
+    quantiles."""
+    from repro_torch.core import presets
+    from repro_torch.core.controller import Objective
+    from repro_torch.core.runtime import make_workload_executor
+    from repro_torch.core.trie import Trie
+    from repro_torch.core.workload import generate_workload, poisson_arrivals
+    from repro_torch.serving.loadsim import EngineLoadModel, FleetLoadModel
+
+    tpl = presets.mathqa_4()
+    trie = Trie.build(tpl)
+    wl = generate_workload(tpl, 300, seed=0)
+    ann = wl.exact_annotations(trie)
+    term = trie.terminal
+    obj = Objective("max_acc",
+                    cost_cap=float(np.quantile(ann.cost[term], 0.5)),
+                    lat_cap=float(np.quantile(ann.lat[term], 0.8)))
+    engines = sorted({m.engine for m in tpl.models})
+    reqs = np.random.default_rng(SEED + 3).integers(0, 300, n)
+    kw = dict(arrivals=poisson_arrivals(n, rate=REPLAY_RATE, seed=SEED + 3),
+              capacity=REPLAY_CAPACITY, policy="dynamic_load_aware",
+              fleet_load=FleetLoadModel(
+                  engines={e: EngineLoadModel(e, concurrency=4, jitter=0.0)
+                           for e in engines},
+                  mean_service_s={e: 1.0 for e in engines}),
+              admission="feasibility")
+    return trie, ann, obj, reqs, make_workload_executor(wl), kw
+
+
+def _mask_replan(lines):
+    """A driver's printed lines with the wall-clock replan figure masked."""
+    return [re.sub(r"replan=[0-9.]+ms", "replan=<wall>ms", x) for x in lines]
+
+
+def _counted(fn):
+    """(result, launches, host reads, wall s) of ``fn()`` on the card,
+    launches counted from zero."""
+    import torch
+
+    from repro_torch.device import host_reads
+    from repro_torch.kernels import _build
+
+    _build.reset_launches()
+    torch.cuda.synchronize()
+    r0, t0 = host_reads(), time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (out, dict(_build.LAUNCHES), host_reads() - r0,
+            time.perf_counter() - t0)
+
+
+def phase_serve_compiled(args, rec):
+    """The port's compiled event engine on the card.  (a) The cohort
+    through `run_events(compiled=True, device="cuda")` with phase
+    serve-events' knobs less the timeout model and on unit mean service
+    (`_events_setup`), equal to the port's host loop
+    on the CPU on every field but the replan wall time, identical at epoch
+    widths 1, 7 and n, with trie_plan launches equal to its replan rounds;
+    the replan's width-1, gathered and capacity-wide calls held equal
+    first.  (b) A MathQA-4 replay of REPLAY_REQUESTS requests with
+    ``stream=True``: its summary against the materialised run's at
+    `repro`'s tolerances, a REPLAY_PREFIX-request prefix equal to the
+    host loop on the CPU, events/s against the host loop on the card.
+    (c) `quickstart` and `mathqa_loadaware` with ``--device cuda`` print
+    their CPU lines, the replan milliseconds aside."""
+    import torch
+
+    from repro_torch.core.events import run_events
+    from repro_torch.core.runtime import make_workload_executor
+    from repro_torch.examples import mathqa_loadaware, quickstart
+
+    smi = rec["smi"]
+    _check_plan_widths(rec)
+    cohort = _cohort()
+    tpl, trie, wl, ann, obj, reqs = cohort
+    obj_ev = dataclasses.replace(obj, lat_cap=None)
+    kw = _events_setup(cohort, {m.engine: 1.0 for m in tpl.models})
+    execu = make_workload_executor(wl)
+    paths = {}
+
+    # (a) the served cohort
+    (res, stats), launches, reads, wall = _counted(lambda: run_events(
+        trie, ann, obj_ev, reqs, execu, compiled=True, device="cuda",
+        epoch=len(reqs), **kw))
+    paths["cohort"] = launches
+    if launches["trie_plan"] != stats.replans or stats.replans <= 0 or \
+            any(v for k, v in launches.items() if k != "trie_plan"):
+        raise AssertionError(f"serve-compiled: launches {launches} for "
+                             f"{stats.replans} replan rounds")
+    if stats.annotation_swaps != 1 or stats.engine_outages != 1 or \
+            stats.explored < 1 or stats.preemptions < 1:
+        raise AssertionError(
+            f"serve-compiled missed a path: {stats.annotation_swaps} swaps, "
+            f"{stats.engine_outages} outages, {stats.explored} explored, "
+            f"{stats.preemptions} preemptions")
+    got = _compiled_record(res, stats)
+    host = _compiled_record(*run_events(trie, ann, obj_ev, reqs, execu,
+                                        device="cpu", **kw))
+    diff = [k for k in got if got[k] != host[k]]
+    if diff:
+        raise AssertionError(f"serve-compiled on the card differs from the "
+                             f"host loop on the CPU in {diff}")
+    for ep in COMPILED_EPOCHS:
+        other = _compiled_record(*run_events(
+            trie, ann, obj_ev, reqs, execu, compiled=True, device="cuda",
+            epoch=ep, **kw))
+        diff = [k for k in got if got[k] != other[k]]
+        if diff:
+            raise AssertionError(f"serve-compiled at epoch {ep} differs "
+                                 f"from epoch {len(reqs)} in {diff}")
+    log(f"[{smi}] compiled engine, {len(reqs)} NL2SQL-2 requests: "
+        f"{stats.events} events, {stats.replans} replan rounds = trie_plan "
+        f"launches, {reads} host reads ({reads / stats.events:.1f} an "
+        f"event), {wall:.2f} s wall; equal to the host loop on the CPU, and "
+        f"at epochs {COMPILED_EPOCHS + (len(reqs),)}; counts "
+        f"{got['counts']}")
+
+    # (b) the replay at scale
+    n = REPLAY_REQUESTS
+    trie4, ann4, obj4, reqs4, ex4, kw4 = _replay_setup(n)
+    torch.cuda.reset_peak_memory_stats()
+    base_gb = torch.cuda.memory_allocated() / 1e9
+    (summary, sstats), launches, reads, wall = _counted(
+        lambda: run_events(trie4, ann4, obj4, reqs4, ex4, compiled=True,
+                           device="cuda", stream=True, **kw4))
+    paths["replay"] = launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9 - base_gb
+    if launches["trie_plan"] != sstats.replans:
+        raise AssertionError(f"replay: {launches['trie_plan']} trie_plan "
+                             f"launches for {sstats.replans} replan rounds")
+    (mres, mstats), _, _, mwall = _counted(lambda: run_events(
+        trie4, ann4, obj4, reqs4, ex4, compiled=True, device="cuda", **kw4))
+    served = [r for r in mres if r.outcome == "served"]
+    lats = np.array([r.total_lat for r in served])
+    costs = np.array([r.total_cost for r in served])
+    checks = [
+        summary["n_requests"] == n, summary["served"] == len(served),
+        summary["succeeded"] == sum(r.success for r in mres),
+        (summary["rejected"], summary["shed"], summary["events"],
+         summary["replans"]) == (mstats.rejected, mstats.shed,
+                                 mstats.events, mstats.replans),
+        summary["slo_violations"] == sum(r.slo_violated for r in mres),
+        summary["latency"]["count"] == len(served),
+        abs(summary["latency"]["mean"] - lats.mean())
+        <= 1e-12 * abs(lats.mean()),
+        abs(summary["latency"]["std"] - lats.std()) <= 1e-9 * lats.std(),
+        abs(summary["cost"]["mean"] - costs.mean())
+        <= 1e-12 * abs(costs.mean())]
+    if not all(checks):
+        raise AssertionError(f"replay: stream summary != the materialised "
+                             f"run ({checks})")
+    pre = slice(0, REPLAY_PREFIX)
+    kwp = dict(kw4, arrivals=kw4["arrivals"][pre])
+    (pres, pstats), plaunch, preads, pwall = _counted(lambda: run_events(
+        trie4, ann4, obj4, reqs4[pre], ex4, compiled=True, device="cuda",
+        **kwp))
+    paths["prefix"] = plaunch
+    cpu = run_events(trie4, ann4, obj4, reqs4[pre], ex4, device="cpu", **kwp)
+    a, b = _compiled_record(pres, pstats), _compiled_record(*cpu)
+    diff = [k for k in a if a[k] != b[k]]
+    if diff:
+        raise AssertionError(f"replay prefix on the card != the host loop "
+                             f"on the CPU in {diff}")
+    (hres, hstats), hlaunch, _, hwall = _counted(lambda: run_events(
+        trie4, ann4, obj4, reqs4[pre], ex4, device="cuda", **kwp))
+    paths["prefix host loop"] = hlaunch
+    ev_s, hev_s = sstats.events / wall, hstats.events / hwall
+    pev_s = pstats.events / pwall
+    log(f"[{smi}] replay: MathQA-4 N={trie4.n_nodes}, {n} requests at "
+        f"{REPLAY_RATE} rps into {REPLAY_CAPACITY} slots, stream=True: "
+        f"{sstats.events} events, {sstats.replans} replans, {wall:.2f} s "
+        f"wall = {ev_s:.1f} events/s; {reads} host reads "
+        f"({reads / sstats.events:.1f} an event); peak device memory "
+        f"{peak_gb:.3f} GB above the {base_gb:.3f} GB held before; "
+        f"materialised run {mwall:.2f} s, summary equal "
+        f"at rel 1e-12 / 1e-9; served {summary['served']}, rejected "
+        f"{summary['rejected']}, shed {summary['shed']}, latency p50 "
+        f"{summary['latency_p50']:.3f} s p99 {summary['latency_p99']:.3f} s")
+    log(f"[{smi}] replay prefix ({REPLAY_PREFIX} requests): compiled on the "
+        f"card {pstats.events} events in {pwall:.2f} s = {pev_s:.1f} "
+        f"events/s ({preads / pstats.events:.1f} host reads an event), "
+        f"equal to the host loop on the CPU; the host loop on the card "
+        f"{hstats.events} events in {hwall:.2f} s = {hev_s:.1f} events/s")
+
+    # (c) the two host drivers: quickstart's dynamic cohort replans
+    # through the fleet planner's kernel; mathqa_loadaware serves one
+    # request a cohort, which `run_cohort` plans on the host
+    # (`select_path`), as `repro`'s does, so it launches no kernel
+    drivers = {}
+    for mod in (quickstart, mathqa_loadaware):
+        name = mod.__name__.rsplit(".", 1)[1]
+        lines, launch, _, dwall = _counted(lambda: mod.main(
+            ["--device", "cuda"]))
+        paths[name] = launch
+        cpu_lines = mod.main(["--device", "cpu"])
+
+        fleet = mod is quickstart
+        if _mask_replan(lines) != _mask_replan(cpu_lines) or \
+                (launch["trie_plan"] > 0) != fleet or \
+                sum(launch.values()) != launch["trie_plan"]:
+            raise AssertionError(f"{name} on the card printed {lines}, on the "
+                                 f"CPU {cpu_lines}; launches {launch}")
+        drivers[name] = dict(wall_s=dwall, lines=lines, launches=launch)
+        log(f"[{smi}] {name} --device cuda in {dwall:.1f} s, "
+            f"{launch['trie_plan']} trie_plan launches: its CPU lines")
+
+    rec["compiled_cohort"] = (lambda: run_events(
+        trie, ann, obj_ev, reqs, execu, compiled=True, device="cuda",
+        epoch=len(reqs), **kw), stats.events)
+    total = {k: sum(p[k] for p in paths.values()) for k in KERNELS}
+    rec.setdefault("paths", {})["serve-compiled"] = dict(
+        launches=total, by_run=paths, cohort_events=stats.events,
+        cohort_replans=stats.replans, replay_requests=n,
+        replay_events=sstats.events, replay_replans=sstats.replans,
+        replay_wall_s=wall, replay_events_per_s=ev_s,
+        replay_host_reads_per_event=reads / sstats.events,
+        replay_peak_gb=peak_gb, prefix_events_per_s=pev_s,
+        prefix_host_loop_events_per_s=hev_s, drivers=drivers)
+    _after_serving(args, rec, "serve-compiled", cohort)
 
 
 def phase_serve_ssm(args, rec):
@@ -3350,6 +3712,158 @@ def phase_train_hybrid(args, rec):
 
 
 # ----------------------------------------------------------------------
+# train-100m: repro's example driver's run on the card
+TRAIN_100M = (300, 8, 128)  # steps, batch, sequence
+
+
+def phase_train_100m(args, rec):
+    """`repro_torch.examples.train_100m` on the card as `repro`'s driver
+    configures it (12 layers, d 512, vocab 32768, float32, remat none;
+    AdamW on the cosine schedule, 2 accumulated microbatches, async
+    checkpoints every 100 steps into a temporary directory): 300 steps at
+    (8, 128) from `MarkovLMData(vocab=32768, kgram=1)`, its host memory
+    and build time taken first.  Launches of every step exact (twice
+    `_train_launches`), the mean loss of the last 10 steps below the
+    first 10's, and a restore of the last checkpoint equal to the final
+    parameters bit for bit; step time (steps 2-n), tokens/s, model-FLOP
+    share against the float32 peak, peak memory."""
+    import shutil
+    import signal
+    import tempfile
+    import tracemalloc
+
+    import torch
+
+    import repro_torch.train.loop as loop
+    from repro_torch.data import DataConfig, MarkovLMData
+    from repro_torch.examples import train_100m as t100
+    from repro_torch.kernels import _build
+    from repro_torch.train import CheckpointManager
+
+    smi = rec["smi"]
+    steps, B, S = TRAIN_100M
+    cfg = t100.config_100m()
+
+    # the host memory the source allocates at its peak (numpy's buffers
+    # are traced), and what it keeps
+    tracemalloc.start()
+    t0 = time.perf_counter()
+    data = MarkovLMData(DataConfig(vocab=cfg.vocab, seq_len=S, batch=B,
+                                   kgram=1))
+    data_s = time.perf_counter() - t0
+    held, peak_host = tracemalloc.get_traced_memory()
+    tracemalloc.stop()
+    data_gb = peak_host / 1e9
+    log(f"train-100m: MarkovLMData(vocab={cfg.vocab}, kgram=1) built in "
+        f"{data_s:.1f} s, host memory {data_gb:.2f} GB at its peak, "
+        f"{held / 1e9:.2f} GB kept (its {cfg.vocab}^2 float64 table); "
+        f"no cut")
+    batch_s = []
+    real_next = data.next_batch
+
+    def next_batch():
+        t = time.perf_counter()
+        out = real_next()
+        batch_s.append(time.perf_counter() - t)
+        return out
+
+    data.next_batch = next_batch
+    times, per_step = [], []
+    real_make = loop.make_train_step
+
+    def timed_make(model, tcfg):
+        init, step = real_make(model, tcfg)
+
+        def run(params, state, batch):
+            before = dict(_build.LAUNCHES)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = step(params, state, batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+            per_step.append({k: _build.LAUNCHES[k] - before[k]
+                             for k in before})
+            return out
+
+        return init, run
+
+    def quiet(s):
+        if not s.startswith("step ") or s.startswith(
+                tuple(f"step {i}:" for i in range(50, steps + 1, 50))):
+            log(f"  {s}")
+
+    ckpt = tempfile.mkdtemp(prefix="train100m_")
+    handlers = {g: signal.getsignal(g) for g in (signal.SIGTERM,
+                                                 signal.SIGINT)}
+    loop.make_train_step = timed_make
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    try:
+        out = t100.train_100m(cfg, data, steps, device="cuda", ckpt_dir=ckpt,
+                              log=quiet)
+        launches = dict(_build.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        expect = {k: 2 * v for k, v in _train_launches(cfg).items()}
+        bad = [i for i, d in enumerate(per_step) if d != expect]
+        if len(per_step) != steps or bad:
+            raise AssertionError(f"train-100m: steps {bad[:5]} launched "
+                                 f"{[per_step[i] for i in bad[:5]]}, "
+                                 f"expected {expect} a step")
+        losses = out["losses"]
+        first, last = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
+        if not (np.all(np.isfinite(losses)) and last < first):
+            raise AssertionError(f"train-100m: the loss did not fall: mean "
+                                 f"of the first 10 {first}, last 10 {last}")
+        mgr = CheckpointManager(ckpt)
+        kept = mgr.list_steps()
+        target = {"params": {k: torch.zeros_like(v)
+                             for k, v in out["params"].items()},
+                  "state": out["state"], "data": {"step": 0}}
+        back = mgr.restore(kept[-1], target)
+        same = [k for k, v in out["params"].items()
+                if not torch.equal(back["params"][k], v.detach())]
+        if kept[-1] != steps or same:
+            raise AssertionError(f"train-100m: checkpoints {kept}; the "
+                                 f"restore differs in {same}")
+        data_batch_s = float(np.mean(batch_s))
+        _, step = real_make(out["model"], out["tcfg"])
+        batch = data.next_batch()
+        _profile_call("train-100m step", lambda: step(
+            out["params"], out["state"], batch), rec, "one train step")
+    finally:  # the driver's preemption handler and checkpoints go
+        loop.make_train_step = real_make
+        for g, h in handlers.items():
+            signal.signal(g, h)
+        shutil.rmtree(ckpt, ignore_errors=True)
+    n_par = out["n_params"]
+    n_mat = n_par - out["model"].masters["embed"].numel()
+    step_s = float(np.median(times[1:]))
+    flops = _step_flops(cfg, n_mat, B, S)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    res = dict(launches=launches, per_step=expect, steps=steps,
+               losses_first10=first, losses_last10=last,
+               step_ms=step_s * 1e3, tokens_per_s=B * S / step_s,
+               model_flops=flops, mfu_f32=flops / step_s / F32_OPS,
+               tf32=tf32, max_memory_allocated_gb=peak, params=n_par,
+               data_build_s=data_s, data_host_peak_gb=data_gb,
+               data_batch_s=data_batch_s, checkpoints=kept,
+               stragglers=out["straggler_events"])
+    rec.setdefault("paths", {})["train-100m"] = res
+    log(f"[{smi}] train-100m: {n_par / 1e6:.1f}M parameters, {steps} steps "
+        f"at ({B},{S}), 2 microbatches; step {step_s * 1e3:.2f} ms (median "
+        f"of steps 2-{steps}), {B * S / step_s:.0f} tokens/s, model FLOPs "
+        f"{flops / 1e9:.1f} G a step = {res['mfu_f32']:.3f} of the float32 "
+        f"peak 67 TFLOP/s (TF32 {'on' if tf32 else 'off'}: float32 matmuls "
+        f"on CUDA cores), peak memory {peak:.2f} GB; loss mean {first:.4f} "
+        f"(first 10) -> {last:.4f} (last 10); launches a step {expect}; "
+        f"checkpoints {kept}, the last restored bit for bit; data "
+        f"{data_batch_s * 1e3:.1f} ms a batch on the host; "
+        f"stragglers {out['straggler_events']}")
+    del out, back, target
+    torch.cuda.empty_cache()
+
+
+# ----------------------------------------------------------------------
 # phase zoo: the trained ladder and the end-to-end example on the card
 # ----------------------------------------------------------------------
 ZOO_ARGS = ["--device", "cuda", "--requests", "24", "--profile-runs", "80"]
@@ -3425,14 +3939,16 @@ def phase_zoo(args, rec):
 
 PHASES = {"device": phase_device, "kernels": phase_kernels,
           "serve": phase_serve, "serve-events": phase_serve_events,
+          "serve-compiled": phase_serve_compiled,
           "serve-ssm": phase_serve_ssm, "serve-dense": phase_serve_dense,
           "serve-moe": phase_serve_moe, "serve-media": phase_serve_media,
           # after the serve phases: a short trace taken after a train step's
           # long one came back empty on the card (PERF.md section 7)
           "train": phase_train, "train-ssm": phase_train_ssm,
-          "train-hybrid": phase_train_hybrid, "zoo": phase_zoo}
-SERVE_PHASES = ("serve", "serve-events", "serve-ssm", "serve-dense",
-                "serve-moe", "serve-media")
+          "train-hybrid": phase_train_hybrid,
+          "train-100m": phase_train_100m, "zoo": phase_zoo}
+SERVE_PHASES = ("serve", "serve-events", "serve-compiled", "serve-ssm",
+                "serve-dense", "serve-moe", "serve-media")
 
 
 def _after_serving(args, rec, name, cohort):

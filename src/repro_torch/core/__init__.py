@@ -12,6 +12,7 @@
 - `runtime`          — request execution loop (policy x executor)
 - `fleet`            — lockstep cohort runtime: one batched replan per round
 - `events`           — open-arrival event-driven runtime (virtual clock)
+- `events_compiled`  — the same runtime as epoch steps over device tensors
 - `admission`, `faults`, `monitor`, `streaming`, `presets`
 
 Unlike `repro.core`, this package imports nothing at load time: the names

@@ -32,7 +32,7 @@ import torch
 
 from repro_torch.core.controller import Objective
 from repro_torch.core.trie import Trie, TrieAnnotations
-from repro_torch.device import resolve_device
+from repro_torch.device import host_reads, resolve_device  # noqa: F401
 from repro_torch.kernels import ops as kernel_ops
 
 _BIG = 1e30
@@ -187,7 +187,9 @@ def planner_builds() -> int:
     shape reuses it.  The event-driven runtime's planner
     (`ResidentPlanner`) binds both of its layouts when it is made and
     swaps annotations by copying columns, so within a run, annotation
-    swaps and refreshes included, this count stays flat."""
+    swaps and refreshes included, this count stays flat.  Beside it,
+    `host_reads` counts the one-element device reads the compiled event
+    engine decides its loops on (`repro_torch.device.host_read`)."""
     return _BUILDS
 
 
@@ -375,7 +377,7 @@ class ResidentPlanner:
         if mesh is not None:
             raise NotImplementedError(
                 "lane-sharded resident planning (mesh=) is not ported yet: "
-                "ROADMAP.md queue 1 item 6")
+                "ROADMAP.md queue 1 item 4")
         self.capacity = int(capacity)
         if self.capacity < 1:
             raise ValueError("capacity must be >= 1")
@@ -466,7 +468,7 @@ class ResidentPlanner:
         """Lane-to-engine occupancy columns of the sharded planner."""
         raise NotImplementedError(
             "update_loads needs the lane-sharded planner (mesh=), which "
-            "is not ported yet: ROADMAP.md queue 1 item 6")
+            "is not ported yet: ROADMAP.md queue 1 item 4")
 
     def replan(self, delay_row,
                blocked=None) -> tuple[np.ndarray, np.ndarray]:
@@ -489,7 +491,7 @@ class ResidentPlanner:
         """Load-coupled replan of the sharded planner."""
         raise NotImplementedError(
             "replan_coupled needs the lane-sharded planner (mesh=), which "
-            "is not ported yet: ROADMAP.md queue 1 item 6")
+            "is not ported yet: ROADMAP.md queue 1 item 4")
 
 
 def make_resident_planner(td: TrieDevice, obj: Objective, capacity: int,

@@ -343,9 +343,12 @@ def run_events(
     given) are measured from each request's *arrival*, so admission-queue
     wait counts against the deadline.
 
-    ``compiled=True`` (the epoch-batched compiled engine) and
-    ``devices > 1`` (the lane-sharded control plane) are not ported yet
-    and raise ``NotImplementedError`` (ROADMAP.md queue 1 items 5 and 6).
+    ``compiled=True`` runs the epoch-batched engine instead
+    (`repro_torch.core.events_compiled.run_events_compiled`, the engine
+    state on ``device``; ``**compiled_kwargs`` passes ``epoch=`` and
+    ``stream=`` through), with identical results.  ``devices > 1`` (the
+    lane-sharded control plane) is not ported yet and raises
+    ``NotImplementedError`` (ROADMAP.md queue 1 item 4).
 
     **Token-level engine model** (ISSUE 10): ``work_model`` takes a
     `repro.serving.loadsim.TokenWorkModel` — each dispatched stage's
@@ -391,9 +394,17 @@ def run_events(
                              "token calendar needs per-stage "
                              "(prefill, decode) token counts")
     if compiled:
-        raise NotImplementedError(
-            "the compiled event engine (compiled=True) is not ported yet: "
-            "ROADMAP.md queue 1 item 5")
+        from repro_torch.core.events_compiled import run_events_compiled
+        return run_events_compiled(
+            trie, ann, obj, requests, executor, arrivals=arrivals,
+            capacity=capacity, policy=policy, admission=admission,
+            classes=classes, class_specs=class_specs, preempt=preempt,
+            restrict_nodes=restrict_nodes, load_probe=load_probe,
+            fleet_load=fleet_load, work_model=work_model, t_start=t_start,
+            plan_variant=plan_variant,
+            annotation_schedule=annotation_schedule, refresh=refresh,
+            explore=explore, faults=faults, devices=devices, device=dev,
+            **compiled_kwargs)
     if compiled_kwargs:
         raise TypeError(f"unexpected keyword arguments for the host event "
                         f"loop: {sorted(compiled_kwargs)} (compiled=True "
@@ -422,7 +433,7 @@ def run_events(
         if int(devices) > 1:
             raise NotImplementedError(
                 "the lane-sharded control plane (devices > 1) is not "
-                "ported yet: ROADMAP.md queue 1 item 6")
+                "ported yet: ROADMAP.md queue 1 item 4")
 
     # ---- priority classes -------------------------------------------
     priorities = class_specs is not None

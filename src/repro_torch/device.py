@@ -18,3 +18,20 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}: expected cuda or cpu")
     return dev
+
+
+_READS = 0  # host reads of device values made by `host_read`
+
+
+def host_read(x) -> bool | int | float:
+    """One host read of a one-element tensor (a device synchronisation on
+    a CUDA tensor), counted: the compiled event engine decides each of its
+    loops and branches on one such read (`host_reads`)."""
+    global _READS
+    _READS += 1
+    return x.item()
+
+
+def host_reads() -> int:
+    """Host reads `host_read` has made in this process."""
+    return _READS

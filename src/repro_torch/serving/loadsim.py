@@ -13,8 +13,10 @@ curve; `LoadTrace` produces time-varying per-engine background load for the
 Fig-10 experiment; `delay_probe` converts live queue depth into the
 controller's delta_e(t) terms (§4.3).
 
-The port holds the host half of `repro.serving.loadsim`: the traced
-calendar mirrors of its compiled event engine are not ported yet.
+The traced calendar mirrors at the end (`traced_engine_rates`,
+`traced_token_rates`, `traced_job_rates`, `traced_advance`) are the
+compiled event engine's image of `FleetEngineSim`'s drain arithmetic, as
+float64 tensor functions on the caller's device.
 """
 from __future__ import annotations
 
@@ -732,6 +734,136 @@ class FleetEngineSim:
         self._work[slot] = 0.0
         self._remaining[slot] = np.inf
         self._weight[slot] = 1.0
+
+
+# ----------------------------------------------------------------------
+# traced calendar math (compiled event engine)
+# ----------------------------------------------------------------------
+# Tensor mirrors of the FleetEngineSim drain arithmetic, for the epoch
+# step of `repro_torch.core.events_compiled`.  Each function is the IEEE
+# image of the numpy method it mirrors: float64 tensors on the caller's
+# device, the same op order, one eager op per rounding (no fused form such
+# as addcmul or lerp, no torch.compile), so the compiled engine's virtual
+# clock equals the host calendar bit for bit.  torch is imported inside
+# each function: this module stays importable numpy-only.
+
+
+def bucket_add(n: int, idx, vals):
+    """(n,) sums of ``vals`` by bucket ``idx`` (ints in [0, n)).  On the
+    CPU the adds run in index order, numpy's `bincount` order; on a CUDA
+    device a fixed-order reduction over a one-hot table (``index_add_``
+    there adds by atomics in no fixed order).  Sums of integer-valued
+    floats are exact in any order."""
+    import torch
+
+    if vals.device.type == "cpu":
+        return torch.zeros(n, dtype=vals.dtype).index_add_(0, idx.long(),
+                                                           vals)
+    hot = idx.long()[None, :] == torch.arange(n, device=vals.device)[:, None]
+    return torch.where(hot, vals[None, :], 0.0).sum(dim=1)
+
+
+def traced_engine_rates(occ, conc):
+    """(E,) shared processor-sharing rate per engine — the image of
+    `FleetEngineSim._rates` under the standard `EngineLoadModel` slowdown
+    ``max(1, occupancy / concurrency)``; idle engines come out at 1.0
+    like the host's (whose loop skips them).  The reciprocal is its own
+    rounding, as on the host."""
+    import torch
+
+    s = torch.clamp(occ / conc, min=1.0)
+    return torch.ones_like(s) / s
+
+
+def traced_token_rates(occ, tkw, tkv, tkf, tkc, tk1):
+    """(E,) shared token-calendar rate per engine — the image of
+    `FleetEngineSim._rates` in token mode: ``(b / occ) * (step(1) /
+    step(b))`` with effective batch ``b = min(occ, kv_capacity)``.
+    ``tk1`` is ``decode_step_s(1)`` computed on the host and passed in;
+    idle engines come out at exactly 1.0.  ``tkv * b`` and each quotient
+    are separate ops, so each takes its own rounding as on the host."""
+    import torch
+
+    occ_s = torch.clamp(occ, min=1.0)
+    b = torch.minimum(occ_s, tkc)
+    prod = tkv * b
+    sb = torch.maximum(tkw + prod, tkf * b)
+    q1 = b / occ_s
+    q2 = tk1 / sb
+    return q1 * q2
+
+
+def traced_job_rates(job_engine, weight, active, rates, weighted):
+    """(C,) per-job drain rates — the image of `FleetEngineSim._job_rates`
+    (work-conserving bounded fair share with water-filling).
+    ``job_engine``/``weight``/``active`` are the (C,) slot columns,
+    ``rates`` the (E,) shared engine rates, ``weighted`` a one-element
+    bool tensor mirroring the host's ``_weighted`` latch.  Idle lanes
+    return 0.  The water-filling loop runs only when ``weighted`` holds
+    (the host returns the plain share otherwise), each pass deciding on
+    one host read (`repro_torch.device.host_read`)."""
+    import torch
+
+    from repro_torch.device import host_read
+
+    E = rates.shape[0]
+    je_safe = torch.clamp(job_engine, 0, E - 1).long()
+    je_park = torch.where(active, je_safe, E)  # park idle lanes off-engine
+    base = torch.where(active, rates[je_safe], 0.0)
+    if not host_read(weighted):
+        return base
+    occ = bucket_add(E + 1, je_park, torch.where(active, 1.0, 0.0).to(
+        base.dtype))[:E]
+    remaining = occ * rates
+    r = torch.zeros_like(base)
+    fixed = torch.zeros_like(active)
+    while True:
+        free = active & ~fixed
+        freef = torch.where(free, 1.0, 0.0).to(base.dtype)
+        sumw = bucket_add(E + 1, je_park, weight * freef)[:E]
+        sumw_safe = torch.where(sumw > 0.0, sumw, 1.0)
+        share = torch.where(free,
+                            remaining[je_safe] * weight / sumw_safe[je_safe],
+                            0.0)
+        newly = free & (share >= 1.0)
+        any_free = free.any()
+        any_new = newly.any()
+        r = torch.where(newly, 1.0, r)
+        r = torch.where(any_free & ~any_new & free, share, r)
+        fixed = fixed | newly
+        remaining = remaining - bucket_add(
+            E + 1, je_park, torch.where(newly, 1.0, 0.0).to(base.dtype))[:E]
+        if host_read(~any_free | ~any_new):
+            return r
+
+
+def traced_advance(remaining, t_last, t, job_engine, weight, active,
+                   conc, weighted, tok=None):
+    """Drain the (C,) remaining-work column to virtual time ``t`` — the
+    image of `FleetEngineSim._advance` for processor-sharing engines.
+    Returns ``(remaining, t_last)``; same guard as the host (positive dt
+    and at least one active job), same single ``remaining -= dt *
+    job_rate`` update (``dt * jr`` and the subtraction are two ops, two
+    roundings; the max with 0 is the identity under the guard, and idle
+    lanes subtract an exact 0.0).
+
+    ``tok`` switches the engine rate curve to the token calendar: a
+    ``(tkw, tkv, tkf, tkc, tk1)`` tuple of (E,) decode-step coefficient
+    tensors (see `traced_token_rates`); ``conc`` is then only a shape
+    source."""
+    import torch
+
+    E = conc.shape[0]
+    dt = t - t_last
+    park = torch.where(active, torch.clamp(job_engine, 0, E - 1).long(), E)
+    occ = bucket_add(E + 1, park,
+                     torch.where(active, 1.0, 0.0).to(remaining.dtype))[:E]
+    rates = (traced_token_rates(occ, *tok) if tok is not None
+             else traced_engine_rates(occ, conc))
+    jr = traced_job_rates(job_engine, weight, active, rates, weighted)
+    do = (dt > 0.0) & active.any()
+    drained = torch.where(do & active, torch.clamp(dt * jr, min=0.0), 0.0)
+    return remaining - drained, torch.maximum(t_last, t)
 
 
 @dataclasses.dataclass

@@ -251,14 +251,24 @@ def test_port_events_rejects_bad_arguments():
 
 
 def test_port_events_refuses_unported_engines():
-    """The compiled engine and the lane-sharded control plane are later
-    slices: each raises naming its ROADMAP item."""
+    """``compiled=True`` runs the compiled engine, with the host loop's
+    results; the lane-sharded control plane is a later slice and raises
+    naming its ROADMAP item."""
     tpl, trie, wl, ann, obj, reqs = _setup("nl2sql_2")
     execu = make_workload_executor(wl)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        run_events(trie, ann, obj, reqs, execu, compiled=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 6"):
+    kw = _overload_kw(tpl)
+    host, hstats = run_events(trie, ann, obj, reqs, execu, **kw)
+    comp, cstats = run_events(trie, ann, obj, reqs, execu, compiled=True,
+                              epoch=3, **kw)
+    assert [(r.outcome, r.models, r.total_cost, r.total_lat) for r in host] \
+        == [(r.outcome, r.models, r.total_cost, r.total_lat) for r in comp]
+    assert (hstats.events, hstats.replans, hstats.shed) == \
+        (cstats.events, cstats.replans, cstats.shed)
+    with pytest.raises(NotImplementedError, match="item 4"):
         run_events(trie, ann, obj, reqs, execu, devices=2, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 4"):
+        run_events(trie, ann, obj, reqs, execu, compiled=True, devices=2,
+                   device="cpu")
     res, _ = run_events(trie, ann, obj, reqs, execu, devices=1,
                         device="cpu")
     assert len(res) == len(reqs)

@@ -21,6 +21,7 @@ from oracle_sim import (
     random_chaos_scenario,
     random_drift_scenario,
     random_scenario,
+    random_token_scenario,
     run_oracle,
 )
 
@@ -61,8 +62,9 @@ def _chain_setup(sc: Scenario):
     return trie, _chain_ann(trie, sc.ann_step)
 
 
-def _run_port(sc: Scenario):
-    """`oracle_sim.run_subject`'s host lane on the port."""
+def _run_port(sc: Scenario, compiled: bool = False):
+    """`oracle_sim.run_subject` on the port: the host loop, or with
+    ``compiled`` the compiled engine."""
     trie, ann = _chain_setup(sc)
 
     def executor(q, d, m, t):
@@ -102,12 +104,12 @@ def _run_port(sc: Scenario):
         np.arange(sc.n_requests), executor, arrivals=sc.arrivals,
         capacity=sc.capacity, admission=sc.admission, classes=sc.classes,
         class_specs=specs, preempt=sc.preempt, annotation_schedule=sched,
-        device="cpu", **kw)
+        compiled=compiled, device="cpu", **kw)
 
 
-def _assert_matches_oracle(sc: Scenario) -> None:
+def _assert_matches_oracle(sc: Scenario, compiled: bool = False) -> None:
     """`oracle_sim.assert_scenario_matches` with the port as the subject."""
-    res, stats = _run_port(sc)
+    res, stats = _run_port(sc, compiled)
     ref = run_oracle(sc)
     assert stats.annotation_swaps == len(sc.drift)
     assert stats.engine_outages == len(sc.outages)
@@ -178,3 +180,32 @@ def test_port_chaos_sweep_is_not_trivial():
         for k in seen:
             seen[k] += getattr(stats, k)
     assert all(v > 0 for v in seen.values()), seen
+
+
+# the compiled lane: the compiled engine on the same scenarios (every
+# seed of the random, drift and chaos sweeps above, the preemption
+# sweep's at preempt=True, and the oracle's token-calendar scenarios)
+@pytest.mark.parametrize("seed", range(40))
+def test_port_compiled_random_scenarios_match_oracle(seed):
+    _assert_matches_oracle(random_scenario(seed), compiled=True)
+
+
+@pytest.mark.parametrize("seed", range(40, 60))
+def test_port_compiled_preempt_scenarios_match_oracle(seed):
+    _assert_matches_oracle(dataclasses.replace(random_scenario(seed),
+                                               preempt=True), compiled=True)
+
+
+@pytest.mark.parametrize("seed", range(20))
+def test_port_compiled_drift_scenarios_match_oracle(seed):
+    _assert_matches_oracle(random_drift_scenario(seed), compiled=True)
+
+
+@pytest.mark.parametrize("seed", range(30))
+def test_port_compiled_chaos_scenarios_match_oracle(seed):
+    _assert_matches_oracle(random_chaos_scenario(seed), compiled=True)
+
+
+@pytest.mark.parametrize("seed", range(10))
+def test_port_compiled_token_scenarios_match_oracle(seed):
+    _assert_matches_oracle(random_token_scenario(seed), compiled=True)

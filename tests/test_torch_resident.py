@@ -225,12 +225,12 @@ def test_admission_probe_matches_repro():
 def test_resident_planner_refuses_what_is_not_ported():
     trie, ann, obj, *_ = _pair("nl2sql_2")
     td = tc.TrieDevice.build(trie, ann, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(NotImplementedError, match="item 4"):
         tc.make_resident_planner(td, obj, 4, mesh=object())
     p = tc.make_resident_planner(td, obj, 4)
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(NotImplementedError, match="item 4"):
         p.update_loads([0], [0], [1.0])
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(NotImplementedError, match="item 4"):
         p.replan_coupled(None, None, None)
     with pytest.raises(ValueError, match="slots"):
         p.update([4], [0], [0.0], [0.0])
