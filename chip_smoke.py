@@ -9,6 +9,7 @@
     python3 chip_smoke.py --phases device,kernels,serve-moe,train-hybrid
     python3 chip_smoke.py --phases device,kernels,serve-media,train-hybrid
     python3 chip_smoke.py --phases device,serve-compiled,train-100m
+    python3 chip_smoke.py --phases device,serve-sharded
 
 Phases (any failure exits non-zero and prints no result):
 
@@ -32,7 +33,10 @@ Phases (any failure exits non-zero and prints no result):
                forward's training form timed at each bf16 one (Whisper's
                encoder and cross attention non-causal, Sq != Sk); the
                attention kernels also at the zoo's head dims 16 and 32 in
-               float32 and at MLA's 96 (v padded from 64); a gradient through each autograd `Function` of
+               float32 (decode timed at the zoo's cache too) and at MLA's
+               96 (v padded from 64); the SSD scan also timed at its
+               training form (2048 steps, no final state); a gradient
+               through each autograd `Function` of
                `kernels.ops` is held against autograd through the plain
                version (`check_autograd`);
 3. serve     — an NL2SQL-2 cohort through the fleet runtime: first with the
@@ -58,7 +62,17 @@ Phases (any failure exits non-zero and prints no result):
                CPU, events/s beside the host loop's on the card, host reads
                an event), and the `quickstart` and `mathqa_loadaware`
                drivers with ``--device cuda``, their CPU lines;
-6. serve-ssm — the same cohort served by a full-width, full-depth
+6. serve-sharded — the lane-sharded control plane (`repro_torch.dist`):
+               2 ranks on the one card over gloo run the resident planner
+               with ``mesh=`` at 64 lanes on NL2SQL-2 and MathQA-4,
+               `run_events(devices=2)` on serve-events' cohort and the
+               compiled engine on serve-compiled's cohort and its replay's
+               200-request prefix with ``stream=True``, each equal bit for
+               bit to the single-device run on the card, every rank
+               agreeing, one collective a replan, each rank's trie_plan
+               launches equal to its plans; then the planner at world size
+               1 over NCCL in this process;
+7. serve-ssm — the same cohort served by a full-width, full-depth
                Mamba2-1.3B engine (engine-a) and Zamba2-2.7B engine
                (engine-b), with their launches counted the same way; then
                the replan's wall time per round over the serve phases, and
@@ -66,12 +80,12 @@ Phases (any failure exits non-zero and prints no result):
                under `torch.profiler`, each of which must be one kernel and
                two copies (after the last serve phase that runs: a
                profiler session slows later launches).
-7. serve-dense — the same cohort served by full-width, full-depth
+8. serve-dense — the same cohort served by full-width, full-depth
                MiniCPM3-4B (engine-a, MLA) and Mistral-NeMo-12B (engine-b)
                engines, then one stage invocation of Qwen2-72B (QKV bias)
                at 36 of its 80 layers, each engine's 2-layer copy held
                against its float32 CPU copy, launches exact;
-8. serve-moe — the same cohort served by Granite-MoE-1B-A400M (engine-a,
+9. serve-moe — the same cohort served by Granite-MoE-1B-A400M (engine-a,
                full width and depth) and Arctic-480B (engine-b, full width,
                all 128 experts and the dense residual, 2 of 35 layers): the
                routing of each engine's first 2 layers held at full E
@@ -80,7 +94,7 @@ Phases (any failure exits non-zero and prints no result):
                copy and a 1-layer, 16-expert Arctic copy held against
                float32 on the CPU over a prefill and 8 decode steps,
                launches exact;
-9. serve-media — LLaVA-NeXT-34B (VLM backbone) at full width and depth:
+10. serve-media — LLaVA-NeXT-34B (VLM backbone) at full width and depth:
                a 2-layer copy held against float32 on the CPU over a
                prefill with 64 patch embeddings and 8 decode steps, then
                one text-only stage invocation through the engine and one
@@ -89,16 +103,16 @@ Phases (any failure exits non-zero and prints no result):
                against float32 on the CPU at B = 2 over encode, prefill
                and 8 decode steps, and a batch of 4 requests (1500 frames
                each, a 64-token prompt, 32 greedy tokens); launches exact;
-10. train    — Yi-9B at full width, 12 layers (2.60B parameters), float32
+11. train    — Yi-9B at full width, 12 layers (2.60B parameters), float32
                masters, AdamW, remat, a (2, 2048) batch from a 256-symbol
                Markov source, 4 steps: every gradient present and nonzero,
                the loss falling, a 2-layer copy's loss and gradients
                against its float32 CPU copy, launches per step exact; step
                time, tokens/s, model-FLOP share, peak memory, and one step
                under `torch.profiler`;
-11. train-ssm — the same for Mamba2-1.3B at full width and depth, (1, 2048),
+12. train-ssm — the same for Mamba2-1.3B at full width and depth, (1, 2048),
                3 steps (the SSD kernel forward, the plain recompute back);
-12. train-hybrid — the same for Zamba2-2.7B at full width and depth, (1,
+13. train-hybrid — the same for Zamba2-2.7B at full width and depth, (1,
                2048), 3 steps (checkpointed layers inside checkpointed
                groups), then one step of a full-width copy of each dense
                family (2 layers), MoE family (Granite 2 layers, Arctic 1
@@ -107,14 +121,14 @@ Phases (any failure exits non-zero and prints no result):
                CPU copy, launches exact; then Whisper-base whole, (2, 448)
                tokens over 1500 frames, 3 steps, one held against its
                float32 CPU copy;
-13. train-100m — `repro_torch.examples.train_100m` as `repro`'s driver
+14. train-100m — `repro_torch.examples.train_100m` as `repro`'s driver
                sets it (12 layers, d 512, vocab 32768, float32) for 300
                steps at (8, 128), 2 microbatches, async checkpoints every
                100 steps: launches of every step exact, the loss falling,
                the last checkpoint restored bit for bit; step time, tokens/s,
                float32 model-FLOP share, and the data source's host memory
                and build time;
-14. zoo      — `build_zoo` with `repro`'s ladder on the card (its launches
+15. zoo      — `build_zoo` with `repro`'s ladder on the card (its launches
                exact), held-out accuracy rising from zoo-s to zoo-m to
                zoo-l, then the end-to-end example's loop
                (`repro_torch.examples.serve_workflow`, ``--requests 24
@@ -198,6 +212,10 @@ ATTN_SHAPES = {"yi-9b": (32, 4, 128, 0), "zamba2-2.7b": (32, 32, 80, 4096),
 MLA_ATTN = ("minicpm3-4b", 40, 96, 64)
 # the zoo's attention (repro's ladder: head dims 16, 16, 32; float32)
 ZOO_ATTN = {"zoo-s": (2, 2, 16), "zoo-m": (4, 4, 16), "zoo-l": (4, 4, 32)}
+# the zoo's decode as the end-to-end example's loop makes it: one
+# request, a 16-token prompt in a cache of 16 + 64 slots, timed at the
+# 4th of its 8 steps
+ZOO_DECODE = (80, 20)  # (cache slots, length)
 # the flash forward at the serve-media phase's shapes, bf16, each checked
 # and timed: (label, B, H, KV, Sq, Sk, D, causal); llava's image prefill
 # is 2880 patches and a 448-token prompt, whisper's encoder 1500 frames,
@@ -1022,14 +1040,20 @@ def check_decode(rec):
 
     # timed at every serving shape: batch 1 at a 448-token prompt's
     # cache, then llava's image cache, whisper's self attention at B = 4
-    # and its cross attention over a full cache (every length = capacity)
-    timed = [(arch, 1, H, KV, D, S, L, window)
+    # and its cross attention over a full cache (every length = capacity),
+    # then the zoo's float32 decode (ZOO_DECODE)
+    bf16 = torch.bfloat16
+    timed = [(arch, 1, H, KV, D, S, L, window, bf16)
              for arch, (H, KV, D, window) in ATTN_SHAPES.items()]
-    timed += [c + (0,) for c in MEDIA_DECODE]
-    for arch, B, H, KV, D, Sc, Lc, window in timed:
-        q1 = rn(B, H, D, dt=torch.bfloat16)
-        k1 = rn(B, KV, Sc, D, dt=torch.bfloat16)
-        v1 = rn(B, KV, Sc, D, dt=torch.bfloat16)
+    timed += [c + (0, bf16) for c in MEDIA_DECODE]
+    timed += [(arch, 1, H, KV, D, ZOO_DECODE[0], ZOO_DECODE[1], 0,
+               torch.float32) for arch, (H, KV, D) in ZOO_ATTN.items()]
+    for arch, B, H, KV, D, Sc, Lc, window, dt in timed:
+        tol = BF16_TOL if dt == bf16 else F32_TOL
+        q1 = rn(B, H, D, dt=dt)
+        k1 = rn(B, KV, Sc, D, dt=dt)
+        v1 = rn(B, KV, Sc, D, dt=dt)
+        isz = q1.element_size()
         l1 = torch.full((B,), Lc, dtype=torch.int32, device="cuda")
         mask = (torch.arange(Sc, device="cuda") < Lc)[None, None, None, :]
         want = ref.decode_attention(q1, k1, v1, l1, window=window)
@@ -1044,17 +1068,18 @@ def check_decode(rec):
         # every plan the rule weighs, each held against the plain version
         # and timed, for the record of the choice
         plans, chosen = [], None
-        for p in _decode_plans(dmod, B, KV, H // KV, Sc, D, sms):
+        for p in _decode_plans(dmod, B, KV, H // KV, Sc, D, sms,
+                               itemsize=isz):
             chosen = chosen or p
             out = dmod._launch(q1, k1, v1, l1, window, p)
-            e = check_close("decode_attention", out, want, BF16_TOL)
+            e = check_close("decode_attention", out, want, tol)
             p_ms = graph_ms(lambda p=p: dmod._launch(q1, k1, v1, l1, window,
                                                      p))
             plans.append(dict(plan=p._asdict(), ms=p_ms, max_abs_err=e))
             log(f"    plan {_plan_str(p)}: {p_ms:.4f} ms, max abs err "
                 f"{e:.3g}{' (chosen)' if p is chosen else ''}")
         err = max(err, check_close("decode_attention", kernel(q1, k1, v1),
-                                   want, BF16_TOL))
+                                   want, tol))
         ms = graph_ms(lambda: kernel(q1, k1, v1))
         plain_ms = graph_ms(lambda: ref.decode_attention(q1, k1, v1, l1,
                                                          window=window))
@@ -1063,16 +1088,16 @@ def check_decode(rec):
         cold_ms = graph_ms(kernel, inputs=cold)
         lib_cold_ms = graph_ms(sdpa, inputs=cold)
         err = max(err, check_close("decode_attention", kernel(*cold[-1]),
-                                   want, BF16_TOL))
+                                   want, tol))
         del cold
-        nbytes = 2 * (2 * q1.numel() + 2 * B * KV * Lc * D) + 4 * B
+        nbytes = isz * (2 * q1.numel() + 2 * B * KV * Lc * D) + 4 * B
         ops = 4.0 * B * H * D * Lc
-        b_ms, b_by = bound(nbytes, ops, BF16_OPS)
+        b_ms, b_by = bound(nbytes, ops, BF16_OPS if dt == bf16 else F32_OPS)
         case = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                     library_ms=lib_ms, cold_ms=cold_ms,
-                    library_cold_ms=lib_cold_ms, plans=plans, tol=BF16_TOL)
-        label = (f"decode_attention {arch} ({B},{H},{D}) kv {KV} cache {Sc} "
-                 f"len {Lc} window {window}")
+                    library_cold_ms=lib_cold_ms, plans=plans, tol=tol)
+        label = (f"decode_attention {arch} {str(dt)[6:]} ({B},{H},{D}) kv "
+                 f"{KV} cache {Sc} len {Lc} window {window}")
         rec.setdefault("timing_cases", {})[label] = case
         if arch == "yi-9b":
             rec["kernels"]["decode_attention"] = case
@@ -1161,13 +1186,15 @@ def _ssd_inputs(g, S, Hn, P, N, dt_, state):
     return x, dt, A, Bm, Cm, h0
 
 
-def _ssd_work(S, Hn, P, N, Q):
-    """(bytes, operations) of one scan: x, dt, A, B, C read and y and the
-    final state written once; per chunk of n steps, C.B once for all heads
-    (ngroups = 1) over the n(n+1)/2 causal pairs, and per head the decay
-    weights (~4 operations a pair), M.x (2P a pair) and the two state
-    terms (C.h and the update, 2PN a step each)."""
-    nbytes = 2 * (2 * S * Hn * P + 2 * S * N) + 4 * (S * Hn + Hn + Hn * P * N)
+def _ssd_work(S, Hn, P, N, Q, final=True):
+    """(bytes, operations) of one scan: x, dt, A, B, C read and y (and,
+    with ``final``, the final state) written once; per chunk of n steps,
+    C.B once for all heads (ngroups = 1) over the n(n+1)/2 causal pairs,
+    and per head the decay weights (~4 operations a pair), M.x (2P a
+    pair) and the two state terms (C.h and the update, 2PN a step
+    each)."""
+    nbytes = 2 * (2 * S * Hn * P + 2 * S * N) + 4 * (
+        S * Hn + Hn + (Hn * P * N if final else 0))
     ops = 0.0
     for c0 in range(0, S, Q):
         n = min(Q, S - c0)
@@ -1196,6 +1223,49 @@ def _ssd_odd_shapes(g, ssd_scan, ref) -> float:
         log(f"  ssd_scan {str(dt_)[6:]} x (1,100,3,20) N 12 chunk 32 init=True"
             f" final=True: max abs err {e:.3g}")
         err = max(err, e)
+    return err
+
+
+def _time_ssd_train(rec, g, arch, c, Hn, P, N) -> float:
+    """The training form of the SSD scan (train-ssm / train-hybrid's
+    forward): bf16 x (1, S, Hn, P) at the training sequence, no final
+    state, held against the plain version and timed warm and cold beside
+    it and its bound; returns the max abs error."""
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ssd_scan import ssd_scan
+
+    path = "train-ssm" if arch == SSM_ENGINES["engine-a"] else "train-hybrid"
+    S = TRAIN_PATHS[path][2][1]
+    x, dt, A, Bm, Cm, _ = _ssd_inputs(g, S, Hn, P, N, torch.bfloat16, False)
+    want = ref.ssd_scan_chunked(x, dt, A, Bm, Cm, chunk=c.chunk)
+
+    def kernel(*a):
+        return ssd_scan(*a, chunk=c.chunk)
+
+    err = check_close("ssd_scan y", kernel(x, dt, A, Bm, Cm), want, BF16_TOL)
+    ms = graph_ms(lambda: kernel(x, dt, A, Bm, Cm))
+    plain_ms = graph_ms(lambda: ref.ssd_scan_chunked(x, dt, A, Bm, Cm,
+                                                     chunk=c.chunk))
+    cold = cold_inputs(x, dt, A, Bm, Cm)
+    cold_ms = graph_ms(kernel, inputs=cold)
+    err = max(err, check_close("ssd_scan y", kernel(*cold[-1]), want,
+                               BF16_TOL))
+    del cold
+    work = _ssd_work(S, Hn, P, N, c.chunk, final=False)
+    b_ms, b_by = bound(*work, BF16_OPS)
+    f32_ms, f32_by = bound(*work, F32_OPS)
+    rec.setdefault("timing_cases", {})[
+        f"ssd_scan {arch} train x (1,{S},{Hn},{P}) N {N}"] = dict(
+        ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+        bound_f32_ms=f32_ms, bound_f32_by=f32_by, library_ms=None,
+        cold_ms=cold_ms, tol=BF16_TOL, max_abs_err=err)
+    log(f"  ssd_scan {arch} training form x (1,{S},{Hn},{P}) N {N} bf16, no "
+        f"final state ({path}): kernel {ms:.4f} ms (cold L2 {cold_ms:.4f}), "
+        f"plain {plain_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by}; at the "
+        f"float32 peak {f32_ms:.6f}, {f32_by}), max abs err {err:.3g}, no "
+        f"single PyTorch call")
     return err
 
 
@@ -1301,6 +1371,7 @@ def check_ssd_scan(rec):
             f"{cold_ms:.4f}), plain {plain_ms:.4f} ms, bound {b_ms:.6f} ms "
             f"({b_by}; at the float32 peak {f32_ms:.6f}, {f32_by}), no "
             f"single PyTorch call")
+        err = max(err, _time_ssd_train(rec, g, arch, c, Hn, P, N))
     rec["kernels"]["ssd_scan"]["max_abs_err"] = err
     log(f"ssd_scan: ok, max abs err {err:.3g}")
 
@@ -2527,6 +2598,306 @@ def phase_serve_compiled(args, rec):
         replay_peak_gb=peak_gb, prefix_events_per_s=pev_s,
         prefix_host_loop_events_per_s=hev_s, drivers=drivers)
     _after_serving(args, rec, "serve-compiled", cohort)
+
+
+# the sharded control plane's phase: 2 ranks on the one card over gloo
+# (NCCL refuses two ranks on one device), then the planner at world size
+# 1 over NCCL; the planner's capacity and random rounds, and the budget
+SHARDED_WORLD = 2
+SHARDED_CAPACITY = 64
+SHARDED_ROUNDS = 3
+SHARDED_PRESETS = (("nl2sql_2", 21), ("mathqa_4", 22))  # (preset, seed)
+SHARDED_BUDGET_S = 60.0
+
+
+def _sharded_planner_case(name, seed):
+    """The resident planner's steps on one preset at SHARDED_CAPACITY
+    lanes: SHARDED_ROUNDS rounds of random lane updates, each replanned
+    against a random delay row, then every lane's occupancy (integer
+    weights, so the float row is exact in any order) and one coupled
+    replan; the case for `repro_torch.dist.runs.run_cases`."""
+    from repro_torch.core import presets
+    from repro_torch.core.controller import Objective
+    from repro_torch.core.trie import Trie
+    from repro_torch.core.workload import generate_workload
+
+    tpl = presets.PRESETS[name]()
+    trie = Trie.build(tpl)
+    ann = generate_workload(tpl, 300, seed=0).exact_annotations(trie)
+    term = trie.terminal
+    obj = Objective("max_acc",
+                    cost_cap=float(np.quantile(ann.cost[term], 0.5)),
+                    lat_cap=float(np.quantile(ann.lat[term], 0.8)))
+    E = len({m.engine for m in tpl.models})
+    C = SHARDED_CAPACITY
+    rng = np.random.default_rng(seed)
+    steps = []
+    for _ in range(SHARDED_ROUNDS):
+        k = int(rng.integers(1, C + 1))
+        slots = rng.choice(C, size=k, replace=False)
+        steps.append(("update", slots,
+                      rng.integers(0, trie.n_nodes, k).astype(np.int32),
+                      (rng.random(k) * obj.lat_cap).astype(np.float32),
+                      (rng.random(k) * obj.cost_cap).astype(np.float32)))
+        steps.append(("replan", (rng.random(E) * 0.1).astype(np.float32),
+                      None))
+    slots = np.arange(C)
+    steps.append(("loads", slots,
+                  rng.integers(-1, E, C).astype(np.int32),
+                  rng.integers(0, 4, C).astype(np.float32)))
+    steps.append(("coupled", np.full(E, 4.0), np.full(E, 0.05),
+                  np.ones(E, bool), None))
+    return dict(kind="planner", trie=trie, ann=ann, obj=obj, capacity=C,
+                steps=steps)
+
+
+def _single_planner(case):
+    """The case's steps through the unsharded planner on the card: its
+    plans (the coupled replan as a plain replan against the row summed on
+    the host) and the wall microseconds of each replan."""
+    from repro_torch.core.controller_torch import (TrieDevice,
+                                                   make_resident_planner)
+    from repro_torch.dist.runs import planner_record
+
+    td = TrieDevice.build(case["trie"], case["ann"], device="cuda")
+    p = make_resident_planner(td, case["obj"], case["capacity"])
+    plans, us, loads = [], [], None
+    for kind, *a in case["steps"]:
+        if kind == "update":
+            p.update(*a)
+        elif kind == "loads":
+            loads = a
+        else:
+            if kind == "coupled":
+                # the delay row in float32 from float32 operands, as the
+                # sharded planner and `repro` take it
+                conc, ms, hasm, blocked = a
+                conc, ms = (np.asarray(v, np.float32) for v in (conc, ms))
+                _, park, w = loads
+                occ = np.zeros(len(conc), np.float32)
+                for e, wv in zip(park, w):
+                    if e >= 0:
+                        occ[e] += wv
+                one = np.float32(1.0)
+                row = np.where(hasm, (np.maximum(one, (occ + one) / conc)
+                                      - one) * ms,
+                               np.float32(0.0)).astype(np.float32)
+                a = (row, blocked)
+            t0 = time.perf_counter()
+            out = p.replan(*a)
+            us.append((time.perf_counter() - t0) * 1e6)
+            plans.append(out if kind == "replan" else (*out, row))
+    return planner_record(plans), us
+
+
+SHARDED_MERGES = 20  # merges timed alone, before the cases
+
+
+def _sharded_group(cases, world, backend, smi):
+    """Run the plan merge alone, then the cases, on ``world`` ranks of the
+    card over ``backend`` (a world of one in this process, started
+    processes else); every rank's digest must equal rank 0's.  Returns
+    the group's output (its records and measures without the merge's)
+    and its wall seconds."""
+    import torch
+
+    from repro_torch.dist import lane_mesh, one_rank_group, spawn
+    from repro_torch.dist.runs import run_cases
+
+    merge = {"kind": "merge", "lanes": SHARDED_CAPACITY,
+             "calls": SHARDED_MERGES}
+    t0 = time.perf_counter()
+    if world == 1:
+        torch.cuda.set_device(0)
+        with one_rank_group(backend):
+            out = run_cases(lane_mesh(1, device="cuda"), [merge] + cases,
+                            time.time())
+    else:
+        out = spawn(run_cases, world, device="cuda", backend=backend,
+                    args=([merge] + cases, time.time()), timeout_s=60.0,
+                    deadline_s=180.0)
+    wall = time.perf_counter() - t0
+    if len(out["digests"]) != world or len(set(out["digests"])) != 1:
+        raise AssertionError(f"serve-sharded: the {world} ranks over "
+                             f"{backend} disagree: {out['digests']}")
+    want = np.arange(2 * SHARDED_CAPACITY).reshape(2, -1).tolist()
+    if out["records"][0]["merged"] != want:
+        raise AssertionError(f"serve-sharded: the merge over {backend} "
+                             f"gave {out['records'][0]['merged']}")
+    us = [m[0]["us"] for m in out["measures"]]
+    times = out["times"]
+    log(f"[{smi}] serve-sharded {backend}, {world} rank(s): group {wall:.1f}"
+        f" s; ranks started {[round(t['start_s'], 1) for t in times]} s "
+        f"after the spawn call, ran their cases in "
+        f"{[round(t['cases_s'], 1) for t in times]} s; the merge alone "
+        f"(2 x {SHARDED_CAPACITY} int32 from the card, copies included): "
+        f"median {[round(float(np.median(u[1:])), 1) for u in us]} us a "
+        f"call per rank (first {[round(u[0], 1) for u in us]})")
+    out = dict(out, records=out["records"][1:],
+               measures=[m[1:] for m in out["measures"]],
+               merge_us=us)
+    return out, wall
+
+
+def _check_planner_part(label, out, i, case, single, single_us, smi):
+    """Part (a): one planner case of a group against the single-device
+    planner; per call one collective a replan and two a coupled replan,
+    one trie_plan launch on every rank."""
+    got = out["records"][i]
+    if got["plans"] != single:
+        raise AssertionError(f"serve-sharded {label}: the sharded planner's "
+                             f"plans differ from the single-device planner")
+    calls = [m[i]["calls"] for m in out["measures"]]
+    kinds = [c["kind"] for c in calls[0]]
+    for r, rc in enumerate(calls):
+        col = [c["collectives"] for c in rc]
+        lau = [c["launches"] for c in rc]
+        if col != [1 if k == "replan" else 2 for k in kinds] or \
+                lau != [1] * len(kinds):
+            raise AssertionError(f"serve-sharded {label}: rank {r} made "
+                                 f"{col} collectives and {lau} trie_plan "
+                                 f"launches for the calls {kinds}")
+    sh_us = [c["s"] * 1e6 for c in calls[0] if c["kind"] == "replan"]
+    co_us = [c["s"] * 1e6 for c in calls[0] if c["kind"] == "coupled"]
+    log(f"[{smi}] serve-sharded {label}: {case['trie'].n_nodes} nodes, "
+        f"capacity {case['capacity']}: replan {np.median(sh_us):.1f} us a "
+        f"call sharded (coupled {co_us[0]:.1f} us) vs "
+        f"{np.median(single_us):.1f} us single; collectives a replan "
+        f"{np.mean([c['collectives'] for c in calls[0] if c['kind'] == 'replan']):.3f}"
+        f", a coupled replan 2.000; trie_plan launches per rank "
+        f"{[sum(c['launches'] for c in rc) for rc in calls]} = its plans "
+        f"{[len(rc) for rc in calls]}; plans equal bit for bit, ranks agree")
+    return dict(sharded_us=sh_us, coupled_us=co_us, single_us=single_us,
+                launches=[sum(c["launches"] for c in rc) for rc in calls])
+
+
+def _check_events_part(label, out, i, single, single_m, smi):
+    """Parts (b) and (c): one event run of a group against the
+    single-device run on the card; one collective and one trie_plan
+    launch on every rank a replan (round), the single run's host reads."""
+    from repro_torch.dist.runs import events_record
+
+    got = {k: v for k, v in out["records"][i].items() if k != "measure"}
+    want = events_record(single)
+    diff = [k for k in want if got.get(k) != want[k]]
+    if diff:
+        raise AssertionError(f"serve-sharded {label}: differs from the "
+                             f"single-device run in {diff}")
+    replans = want["counts"]["replans"]
+    ms = [m[i] for m in out["measures"]]
+    for r, m in enumerate(ms):
+        if m["collectives"] != replans or m["launches"] != replans or \
+                m["host_reads"] != single_m["host_reads"]:
+            raise AssertionError(
+                f"serve-sharded {label}: rank {r} made {m['collectives']} "
+                f"collectives, {m['launches']} trie_plan launches and "
+                f"{m['host_reads']} host reads for {replans} replans (the "
+                f"single run: {single_m['host_reads']} host reads)")
+    events = want["counts"]["events"]
+    rep = ms[0]["replan_s"]
+    rep_str = (f"replan {np.median(rep) * 1e6:.1f} us a call sharded vs "
+               f"{np.median(single[1].replan_s) * 1e6:.1f} us single; "
+               if rep else "")
+    log(f"[{smi}] serve-sharded {label}: {events} events, {replans} replans; "
+        f"{rep_str}{events / ms[0]['s']:.1f} events/s sharded (rank 0) vs "
+        f"{events / single_m['s']:.1f} single; collectives a replan "
+        f"{ms[0]['collectives'] / replans:.3f}; host reads an event "
+        f"{ms[0]['host_reads'] / events:.2f} (single "
+        f"{single_m['host_reads'] / events:.2f}); trie_plan launches per "
+        f"rank {[m['launches'] for m in ms]} = its plans "
+        f"{[replans] * len(ms)}; equal bit for bit, ranks agree")
+    return dict(events=events, replans=replans,
+                events_per_s=events / ms[0]["s"],
+                single_events_per_s=events / single_m["s"],
+                host_reads_per_event=ms[0]["host_reads"] / events,
+                launches=[m["launches"] for m in ms],
+                replan_us=[x * 1e6 for x in rep])
+
+
+def phase_serve_sharded(args, rec):
+    """The lane-sharded control plane on the card
+    (`repro_torch.dist`): the kernels are built here first, then
+    SHARDED_WORLD ranks on cuda:0 over gloo (NCCL refuses two ranks on
+    one device; gloo's collectives go through host copies) run (a) the
+    resident planner with ``mesh=`` at SHARDED_CAPACITY lanes on NL2SQL-2
+    and MathQA-4 (`_sharded_planner_case`), (b) `run_events(devices=2)`
+    on serve-events' cohort and knobs (timeouts included) over the
+    workload's stage tables and (c) `run_events(compiled=True,
+    devices=2)` on serve-compiled's cohort and on its replay's
+    REPLAY_PREFIX-request prefix with ``stream=True``; each equal bit for
+    bit to the single-device run on the card, every rank's digest equal
+    to rank 0's, one collective a replan (round), the trie_plan launches
+    of each rank equal to its plans.  Then (a) once more at world size 1
+    over NCCL, in this process (`one_rank_group`: a started process
+    takes ~9 s to reach the card).  No profiler session opens here."""
+    from repro_torch.core.events import run_events
+    from repro_torch.core.runtime import make_workload_executor
+    from repro_torch.device import host_reads
+    from repro_torch.kernels import _build
+
+    smi = rec["smi"]
+    t_phase = time.perf_counter()
+    _build.extension()  # the ranks load this build, never compile
+    planners = [_sharded_planner_case(n, s) for n, s in SHARDED_PRESETS]
+    cohort = _cohort()
+    tpl, trie, wl, ann, obj, reqs = cohort
+    obj_ev = dataclasses.replace(obj, lat_cap=None)
+    execu = make_workload_executor(wl)
+    unit = {m.engine: 1.0 for m in tpl.models}
+    host_kw = _events_setup(cohort, unit, timeout_k=4.0)
+    comp_kw = dict(_events_setup(cohort, unit), compiled=True,
+                   epoch=len(reqs))
+    trie4, ann4, obj4, reqs4, ex4, kw4 = _replay_setup(REPLAY_REQUESTS)
+    pre = slice(0, REPLAY_PREFIX)
+    pre_kw = dict(kw4, arrivals=kw4["arrivals"][pre], compiled=True,
+                  stream=True)
+    events = [("(b) host loop, serve-events' cohort",
+               (trie, ann, obj_ev, reqs, execu), host_kw),
+              ("(c) compiled engine, serve-compiled's cohort",
+               (trie, ann, obj_ev, reqs, execu), comp_kw),
+              (f"(c) compiled engine, the replay's {REPLAY_PREFIX}-request "
+               f"prefix, stream=True", (trie4, ann4, obj4, reqs4[pre], ex4),
+               pre_kw)]
+
+    # the single-device runs on the card, each timed and its host reads
+    # counted
+    singles = [_single_planner(c) for c in planners]
+    single_ev = []
+    for _, a, kw in events:
+        (out, _, reads, wall) = _counted(lambda: run_events(
+            *a, device="cuda", **kw))
+        single_ev.append((out, dict(s=wall, host_reads=reads)))
+    t_single = time.perf_counter() - t_phase
+
+    cases = planners + [{"kind": "events", "args": a, "kw": kw}
+                        for _, a, kw in events]
+    out, wall = _sharded_group(cases, SHARDED_WORLD, "gloo", smi)
+    parts = {}
+    for i, ((name, _), c) in enumerate(zip(SHARDED_PRESETS, planners)):
+        parts[f"(a) planner {name}, gloo"] = _check_planner_part(
+            f"(a) planner {name}, gloo, {SHARDED_WORLD} ranks on cuda:0",
+            out, i, c, singles[i][0], singles[i][1], smi)
+    for j, (label, _, _) in enumerate(events):
+        parts[f"{label}, gloo"] = _check_events_part(
+            f"{label}, gloo, {SHARDED_WORLD} ranks on cuda:0", out,
+            len(planners) + j, *single_ev[j], smi)
+    nccl, nwall = _sharded_group(planners, 1, "nccl", smi)
+    for i, ((name, _), c) in enumerate(zip(SHARDED_PRESETS, planners)):
+        parts[f"(a) planner {name}, nccl"] = _check_planner_part(
+            f"(a) planner {name}, nccl, world size 1", nccl, i, c,
+            singles[i][0], singles[i][1], smi)
+    total = time.perf_counter() - t_phase
+    log(f"[{smi}] serve-sharded: {total:.1f} s (budget "
+        f"{SHARDED_BUDGET_S:.0f} s): single-device runs {t_single:.1f} s, "
+        f"the gloo group {wall:.1f} s, the NCCL group {nwall:.1f} s"
+        + ("" if total <= SHARDED_BUDGET_S else "; OVER ITS BUDGET"))
+    launches = {k: 0 for k in KERNELS}
+    launches["trie_plan"] = sum(sum(p["launches"]) for p in parts.values())
+    rec.setdefault("paths", {})["serve-sharded"] = dict(
+        launches=launches, parts=parts, wall_s=total, gloo_group_s=wall,
+        nccl_group_s=nwall, single_s=t_single,
+        merge_us={"gloo": out["merge_us"], "nccl": nccl["merge_us"]},
+        rank_times={"gloo": out["times"], "nccl": nccl["times"]})
 
 
 def phase_serve_ssm(args, rec):
@@ -3940,6 +4311,7 @@ def phase_zoo(args, rec):
 PHASES = {"device": phase_device, "kernels": phase_kernels,
           "serve": phase_serve, "serve-events": phase_serve_events,
           "serve-compiled": phase_serve_compiled,
+          "serve-sharded": phase_serve_sharded,
           "serve-ssm": phase_serve_ssm, "serve-dense": phase_serve_dense,
           "serve-moe": phase_serve_moe, "serve-media": phase_serve_media,
           # after the serve phases: a short trace taken after a train step's
@@ -3947,8 +4319,8 @@ PHASES = {"device": phase_device, "kernels": phase_kernels,
           "train": phase_train, "train-ssm": phase_train_ssm,
           "train-hybrid": phase_train_hybrid,
           "train-100m": phase_train_100m, "zoo": phase_zoo}
-SERVE_PHASES = ("serve", "serve-events", "serve-compiled", "serve-ssm",
-                "serve-dense", "serve-moe", "serve-media")
+SERVE_PHASES = ("serve", "serve-events", "serve-compiled", "serve-sharded",
+                "serve-ssm", "serve-dense", "serve-moe", "serve-media")
 
 
 def _after_serving(args, rec, name, cohort):

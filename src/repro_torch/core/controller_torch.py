@@ -19,9 +19,11 @@ the identical node.
 
 The event-driven runtime plans through `ResidentPlanner`, a host mirror
 of its slot state whose every replan is one `LanePlanner` round over all
-capacity lanes.  A replan is bound to its operands once (`planner_builds`
-counts the bindings): a resident planner binds when it is made, and an
-annotation swap copies columns into its own instead of binding anew.
+capacity lanes or, with ``mesh=``, over the rank's own block of lanes
+followed by one plan merge across the process group.  A replan is bound
+to its operands once (`planner_builds` counts the bindings): a resident
+planner binds when it is made, and an annotation swap copies columns
+into its own instead of binding anew.
 """
 from __future__ import annotations
 
@@ -368,19 +370,43 @@ class ResidentPlanner:
     made, so no replan binds.  `swap_device` copies a re-annotated
     device's acc/cost/lat into those columns, so a swap binds nothing
     either (`planner_builds`).
-    ``mesh`` (lane-sharded planning across devices) is not ported yet.
+
+    ``mesh`` (a `repro_torch.dist.sharding.LaneMesh`, built by
+    `lane_mesh` on every rank of a process group) shards the slot lanes
+    over the group: capacity is padded to a multiple of the group's size
+    (`lane_counts`; pad lanes are dead) and each rank owns one contiguous
+    block of lanes (`lane_block`), the block `repro`'s ``lane_spec``
+    gives its device.  `update` keeps only the rank's own lanes, as
+    `repro`'s masked block scatter does; `replan` launches the replan on
+    the rank's block alone (its `LanePlanner` is bound at the block's
+    width) and then makes one collective, the plan merge
+    (`merge_plans`), the counterpart of `repro`'s gather of the
+    lane-sharded output.  The planner is lane-independent, so every
+    rank's result equals the single-device call bit for bit.
+    `update_loads` and `replan_coupled` mirror the lane-to-engine
+    occupancy that the load-coupled replan derives its delay row from.
+    The trie's columns should lie on ``mesh.device``.
     """
 
     def __init__(self, td: TrieDevice, obj: Objective, capacity: int,
                  variant: str | None = None, lat_cap: float | None = None,
                  mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "lane-sharded resident planning (mesh=) is not ported yet: "
-                "ROADMAP.md queue 1 item 4")
+        from repro_torch.dist.sharding import LaneMesh, lane_block, lane_counts
+
+        if mesh is not None and not isinstance(mesh, LaneMesh):
+            raise TypeError("mesh must be a repro_torch.dist.sharding."
+                            f"LaneMesh (lane_mesh(n)), got "
+                            f"{type(mesh).__name__}")
         self.capacity = int(capacity)
         if self.capacity < 1:
             raise ValueError("capacity must be >= 1")
+        self.mesh = mesh
+        if mesh is None:
+            self._n_lanes, self._base, self._per = self.capacity, 0, \
+                self.capacity
+        else:
+            self._n_lanes, _ = lane_counts(self.capacity, mesh)
+            self._base, self._per = lane_block(self.capacity, mesh)
         if lat_cap is not None:
             obj = dataclasses.replace(obj, lat_cap=float(lat_cap))
         self._td = td
@@ -389,8 +415,8 @@ class ResidentPlanner:
         self._lanes = LanePlanner(own, obj, variant)
         # the blocked layout first: it sizes the shared lane buffer, so
         # binding the unblocked one after it never reallocates
-        self._lanes._layout(self.capacity, td.n_engines, True)
-        self._lanes._layout(self.capacity, td.n_engines, False)
+        self._lanes._layout(self._per, td.n_engines, True)
+        self._lanes._layout(self._per, td.n_engines, False)
         self.variant = self._lanes.variant
         self._scalars = self._lanes.scalars
         self._n_engines = td.n_engines
@@ -398,10 +424,15 @@ class ResidentPlanner:
         self._materialize()
 
     def _materialize(self) -> None:
-        c = self.capacity
+        c = self._per  # this rank's lanes (all of them without a mesh)
         self._u = np.zeros(c, dtype=np.int32)
         self._el = np.zeros(c, dtype=np.float32)
         self._ec = np.zeros(c, dtype=np.float32)
+        # lane->engine occupancy columns of `replan_coupled` (sharded mode
+        # only; -1 = the lane holds no running stage)
+        self._park = None if self.mesh is None \
+            else np.full(c, -1, dtype=np.int32)
+        self._w = None if self.mesh is None else np.zeros(c, np.float32)
 
     def _check_live(self) -> None:
         self._td.check_live()  # superseded annotation versions fail loudly
@@ -452,23 +483,65 @@ class ResidentPlanner:
         own.lat.copy_(td.lat)
         return old
 
+    def _own(self, slots, *cols):
+        """The entries of ``slots`` (and of each column beside them) that
+        fall in this rank's block, as local lane indices: every rank
+        applies the same update batch to its own block."""
+        slots = np.asarray(slots, dtype=np.int64)
+        cols = [np.broadcast_to(np.asarray(c), slots.shape) for c in cols]
+        if self.mesh is None:
+            return (slots, *cols)
+        loc = slots - self._base
+        keep = (loc >= 0) & (loc < self._per)
+        return (loc[keep], *(c[keep] for c in cols))
+
     def update(self, slots, u_vals, el_vals, ec_vals) -> None:
-        """Mirror host-side state for ``slots`` into the slot lanes."""
+        """Mirror host-side state for ``slots`` into the slot lanes (this
+        rank's own lanes under a mesh)."""
         self._check_live()
         slots, u_vals = np.asarray(slots), np.asarray(u_vals)
         if slots.size and (slots.min() < 0 or slots.max() >= self.capacity
                            or u_vals.min() < 0 or u_vals.max() >= self._n):
             raise ValueError(f"slots must lie in [0, {self.capacity}) and "
                              f"prefixes in [0, {self._n})")
-        self._u[slots] = u_vals
-        self._el[slots] = el_vals
-        self._ec[slots] = ec_vals
+        loc, u, el, ec = self._own(slots, u_vals, el_vals, ec_vals)
+        self._u[loc] = u
+        self._el[loc] = el
+        self._ec[loc] = ec
 
     def update_loads(self, slots, engine_ids, weights) -> None:
-        """Lane-to-engine occupancy columns of the sharded planner."""
-        raise NotImplementedError(
-            "update_loads needs the lane-sharded planner (mesh=), which "
-            "is not ported yet: ROADMAP.md queue 1 item 4")
+        """Mirror lane->engine occupancy (engine index or -1, weighted
+        share) for ``slots`` into the load columns that `replan_coupled`
+        derives the delay row from (sharded mode)."""
+        if self.mesh is None:
+            raise RuntimeError("update_loads requires a lane mesh "
+                               "(make_resident_planner(..., mesh=))")
+        self._check_live()
+        slots = np.asarray(slots)
+        if slots.size and (slots.min() < 0 or slots.max() >= self.capacity):
+            raise ValueError(f"slots must lie in [0, {self.capacity})")
+        loc, e, w = self._own(slots, engine_ids, weights)
+        self._park[loc] = e
+        self._w[loc] = w
+
+    def _plan(self, row, blocked) -> tuple[np.ndarray, np.ndarray]:
+        """This rank's replan round, then (sharded) the one plan merge:
+        host (targets, next_models) of the C lanes."""
+        out = self._lanes.round(self._u, self._el, row, blocked)
+        if self.mesh is None:
+            tgt, nxt = out.cpu().numpy()
+            return tgt, nxt
+        from repro_torch.dist.sharding import merge_plans
+
+        block = slice(self._base, self._base + self._per)
+        full = torch.zeros((2, self._n_lanes), dtype=torch.int32,
+                           device=out.device)
+        full[:, block] = out
+        owned = torch.zeros(self._n_lanes, dtype=torch.bool,
+                            device=out.device)
+        owned[block] = True
+        tgt, nxt = merge_plans(full, owned, self.mesh).cpu().numpy()
+        return tgt[:self.capacity], nxt[:self.capacity]
 
     def replan(self, delay_row,
                blocked=None) -> tuple[np.ndarray, np.ndarray]:
@@ -483,15 +556,44 @@ class ResidentPlanner:
                              f"({self._n_engines},)")
         if blocked is not None:
             blocked = np.asarray(blocked, dtype=np.float32)
-        tgt, nxt = self._lanes.round(self._u, self._el, row,
-                                     blocked).cpu().numpy()
-        return tgt, nxt
+        return self._plan(row, blocked)
 
     def replan_coupled(self, conc, ms, hasm, blocked=None):
-        """Load-coupled replan of the sharded planner."""
-        raise NotImplementedError(
-            "replan_coupled needs the lane-sharded planner (mesh=), which "
-            "is not ported yet: ROADMAP.md queue 1 item 4")
+        """Load-coupled sharded replan: the per-engine delay row comes
+        from the occupancy columns (`update_loads`), then every lane is
+        planned against it.  The rank sums its lanes' weights per engine
+        in lane order into a float32 row, one all-reduce (the counterpart
+        of `repro`'s one ``psum``) sums the rows, and the slowdown
+        ``(max(1, (occ + 1) / conc) - 1) * ms`` on ``hasm`` engines is
+        taken in float32, as `repro` computes it; the plan and its merge
+        follow, two collectives in all.  A float all-reduce sums in the
+        backend's order, so the row is exact only where every order gives
+        the same sum, as integer weights do.  ``conc``/``ms``/``hasm`` are
+        the (E,) `FleetLoadModel` parameter rows.  Returns host
+        ``(targets, next_models, delay_row)``."""
+        if self.mesh is None:
+            raise RuntimeError("replan_coupled requires a lane mesh "
+                               "(make_resident_planner(..., mesh=))")
+        self._check_live()
+        from repro_torch.dist.sharding import all_reduce_sum
+
+        E = self._n_engines
+        act = self._park >= 0
+        park = np.where(act, np.clip(self._park, 0, E - 1), E)
+        part = np.zeros(E + 1, dtype=np.float32)
+        np.add.at(part, park, np.where(act, self._w, np.float32(0.0)))
+        occ = all_reduce_sum(torch.from_numpy(part[:E].copy()),
+                             self.mesh).cpu().numpy()
+        conc = np.asarray(conc, dtype=np.float32)
+        ms = np.asarray(ms, dtype=np.float32)
+        hasm = np.asarray(hasm, dtype=bool)
+        one = np.float32(1.0)
+        row = np.where(hasm, (np.maximum(one, (occ + one) / conc) - one) * ms,
+                       np.float32(0.0)).astype(np.float32)
+        if blocked is not None:
+            blocked = np.asarray(blocked, dtype=np.float32)
+        tgt, nxt = self._plan(row, blocked)
+        return tgt, nxt, row
 
 
 def make_resident_planner(td: TrieDevice, obj: Objective, capacity: int,
@@ -503,7 +605,8 @@ def make_resident_planner(td: TrieDevice, obj: Objective, capacity: int,
     ``lat_cap`` overrides the objective's latency cap with the effective
     (largest) per-class deadline so priority classes can express per-slot
     deadlines through elapsed-latency shifts — see `ResidentPlanner`.
-    ``mesh`` raises: lane-sharded planning is not ported yet."""
+    ``mesh`` (`repro_torch.dist.sharding.lane_mesh`) shards the lanes over
+    a process group."""
     return ResidentPlanner(td, obj, capacity, variant, lat_cap, mesh)
 
 

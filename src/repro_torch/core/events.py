@@ -346,9 +346,14 @@ def run_events(
     ``compiled=True`` runs the epoch-batched engine instead
     (`repro_torch.core.events_compiled.run_events_compiled`, the engine
     state on ``device``; ``**compiled_kwargs`` passes ``epoch=`` and
-    ``stream=`` through), with identical results.  ``devices > 1`` (the
-    lane-sharded control plane) is not ported yet and raises
-    ``NotImplementedError`` (ROADMAP.md queue 1 item 4).
+    ``stream=`` through), with identical results.  ``devices`` shards the
+    control plane over a lane mesh (`repro_torch.dist.sharding.lane_mesh`):
+    every rank of a process group of that size calls this with the same
+    arguments, each plans its own lanes on its own device (``cuda:{rank %
+    device_count}``), one collective a replan merges the plans, and every
+    rank returns the single-device results.  ``devices=1`` stays
+    unsharded; without a group of that size it raises ``ValueError``
+    naming the recipe (`repro_torch.dist.spawn`).
 
     **Token-level engine model** (ISSUE 10): ``work_model`` takes a
     `repro.serving.loadsim.TokenWorkModel` — each dispatched stage's
@@ -431,9 +436,10 @@ def run_events(
         if int(devices) < 1:
             raise ValueError(f"devices must be >= 1, got {devices}")
         if int(devices) > 1:
-            raise NotImplementedError(
-                "the lane-sharded control plane (devices > 1) is not "
-                "ported yet: ROADMAP.md queue 1 item 4")
+            from repro_torch.dist.sharding import lane_mesh
+            mesh = lane_mesh(int(devices), device=dev)
+            mesh_kw = {"mesh": mesh}
+            dev = mesh.device
 
     # ---- priority classes -------------------------------------------
     priorities = class_specs is not None

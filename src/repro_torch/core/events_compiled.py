@@ -31,6 +31,15 @@ t_hi)`` call, as `repro.core.events_compiled` does in one jitted step:
   once more for downgraded lanes when a round has any.  `repro` plans
   each needy lane at width 1; the planner is lane-independent, so lane i
   of the capacity-wide call is that width-1 result;
+- **sharding** (``devices=N``, every rank of a process group of size N
+  calling with the same arguments): every rank keeps the whole engine
+  state, replicated, and a replan round plans only the rank's residue
+  class of lanes ``lane % N == rank`` (one launch over that fixed lane
+  set, the downgrade plan applied to it too), then merges the plans in
+  exactly one collective (`repro_torch.dist.sharding.merge_plans`), as
+  `repro`'s engine does in one ``psum``; the exploration override
+  follows on replicated values.  Every host read decides on replicated
+  values, so every rank takes the same trips between collectives;
 - **bit-compatibility**: float64 clock and work in `repro`'s op order,
   one eager op per rounding (no fused multiply-add form); the planner
   stays float32.  Bucketed adds (occupancy, backlog) run in index order
@@ -45,8 +54,7 @@ policies, `FleetLoadModel` / `TokenWorkModel` load coupling and
 ``recovery="restart"`` and faults combined with forecast- or
 occupancy-gated admission stay on the host loop.  ``replan_overhead_s``
 and `EventStats.replan_s` are host-loop wall-clock concepts and are
-reported as zero / empty here.  ``devices > 1`` (the lane-sharded
-control plane) is not ported (ROADMAP.md queue 1 item 4).
+reported as zero / empty here.
 """
 from __future__ import annotations
 
@@ -81,6 +89,7 @@ from repro_torch.core.streaming import (QuantileSketch, welford_finalize,
                                         welford_init, welford_merge)
 from repro_torch.core.trie import Trie, TrieAnnotations
 from repro_torch.device import host_read, host_reads, resolve_device
+from repro_torch.dist.sharding import lane_mesh, merge_plans
 from repro_torch.kernels import ops as kernel_ops
 
 __all__ = ["run_events_compiled", "merge_stream_summaries",
@@ -133,6 +142,7 @@ class _EngineConfig:
     max_retries: int = 0
     paused_cap: int = 0    # paused-buffer rows per class (C normally; B
     #                        under outages, whose victims can stack past C)
+    n_shards: int = 1      # lane-mesh size (1 = single device)
 
 
 _ENGINE_CACHE: dict[_EngineConfig, Callable] = {}
@@ -878,14 +888,14 @@ def _build_step(cfg: _EngineConfig):
             s["snd"] = s["snd"] | (onehot_c & (~isp | isrp))
             st = s
 
-    def plan(td, st, el32, ec32, delay_row, sc, kind, blocked):
-        """One replan over all capacity lanes (`kernels.ops.trie_plan`:
-        the kernel on a CUDA device, its plain version on the CPU)."""
-        delays = delay_row[None, :].expand(C, E).contiguous()
+    def plan(td, su, el32, ec32, delay_row, sc, kind, blocked):
+        """One replan over the given lanes (`kernels.ops.trie_plan`: the
+        kernel on a CUDA device, its plain version on the CPU)."""
+        delays = delay_row[None, :].expand(su.shape[0], E).contiguous()
         return kernel_ops.trie_plan(
             td.terminal, td.depth, td.acc, td.cost, td.lat,
             td.subtree_size, td.path_models, td.path_counts,
-            td.engine_of_model, st["su"].to(torch.int32), el32, ec32,
+            td.engine_of_model, su.to(torch.int32), el32, ec32,
             delays, *sc, kind=kind, variant=cfg.variant,
             blocked_depth=blocked)
 
@@ -956,18 +966,48 @@ def _build_step(cfg: _EngineConfig):
         else:
             bd = None
         need = st["snd"]
-        tgt, nxt = plan(cn["td"], st, el32, ec32, delay_row, cn["sc"],
-                        cfg.kind, bd)
-        tgt = torch.where(need, tgt.long(), -1)
-        nxt = torch.where(need, nxt.long(), -1)
+        su = st["su"]
+        if cfg.n_shards > 1:
+            # Sharded control plane: every rank keeps the whole replicated
+            # engine state, and plans only the lanes of its residue class
+            # ``lane % n_shards == rank`` (cn["own"], a fixed gather index:
+            # no host read), as `repro` partitions its per-lane sweeps.
+            # The planner is lane-independent, so each lane's plan is the
+            # capacity-wide call's.
+            own = cn["own"]
+            su, el32o, ec32o = su[own], el32[own], ec32[own]
+        else:
+            own, el32o, ec32o = None, el32, ec32
+        if su.shape[0]:
+            tgt, nxt = plan(cn["td"], su, el32o, ec32o, delay_row, cn["sc"],
+                            cfg.kind, bd)
+            tgt, nxt = tgt.long(), nxt.long()
+        else:  # more ranks than lanes: this rank owns none
+            tgt = nxt = su
         if pol.max_occupancy is not None and pol.downgrade:
-            # downgraded lanes plan min-cost, with no blocked column
+            # downgraded lanes plan min-cost, with no blocked column; the
+            # read is of the replicated mask, so every rank takes it alike
             dgl = need & st["sdg"]
             if _read(dgl.any()):
-                tdg, ndg = plan(cn["td"], st, el32, ec32, delay_row,
-                                cn["scdg"], cfg.kind_dg, None)
-                tgt = torch.where(dgl, tdg.long(), tgt)
-                nxt = torch.where(dgl, ndg.long(), nxt)
+                dglo = dgl if own is None else dgl[own]
+                if su.shape[0]:
+                    tdg, ndg = plan(cn["td"], su, el32o, ec32o, delay_row,
+                                    cn["scdg"], cfg.kind_dg, None)
+                    tgt = torch.where(dglo, tdg.long(), tgt)
+                    nxt = torch.where(dglo, ndg.long(), nxt)
+        if own is None:
+            tgt = torch.where(need, tgt, -1)
+            nxt = torch.where(need, nxt, -1)
+        else:
+            # the one collective of a replan round, after the downgrade
+            # override: each needy lane has exactly one owner, which sends
+            # its plan + 1 while every other rank sends 0
+            full = torch.zeros((2, C), dtype=I64, device=dev)
+            full[:, own] = torch.stack([tgt, nxt])
+            merged = merge_plans(full, cn["ownm"] & need,
+                                 cn["mesh"]).to(dev)
+            tgt = torch.where(need, merged[0].long(), -1)
+            nxt = torch.where(need, merged[1].long(), -1)
         if cfg.explore:
             # exploration lane (host 4c): a pre-drawn request's FIRST
             # dispatch (root prefix) overrides the planner's pick with
@@ -1265,9 +1305,15 @@ def run_events_compiled(
 
     Raises `NotImplementedError` for what stays on the host loop:
     ``load_probe``, ``refresh``, ``timeout_k``, ``recovery="restart"``,
-    custom admission policies or duck-typed load / work models, faults
-    with forecast- or occupancy-gated admission, and ``devices > 1`` (the
-    lane-sharded control plane, ROADMAP.md queue 1 item 4)."""
+    custom admission policies or duck-typed load / work models, and faults
+    with forecast- or occupancy-gated admission.
+
+    ``devices`` shards the replan rounds over a lane mesh
+    (`repro_torch.dist.sharding.lane_mesh`; see the module docstring):
+    every rank of a process group of that size calls with the same
+    arguments and returns the single-device results, the engine state on
+    ``cuda:{rank % device_count}`` (or the CPU).  Without a group of that
+    size it raises ``ValueError`` naming the recipe."""
     dev = resolve_device(device)
     if policy not in ("dynamic", "dynamic_load_aware"):
         raise ValueError(f"unsupported events policy {policy!r}: the static "
@@ -1300,12 +1346,13 @@ def run_events_compiled(
             "compiled event engine cannot run the online estimator refresh "
             "(posterior updates are host-side observations); use the host "
             "loop (compiled=False) or a precomputed annotation_schedule")
-    if devices is not None and int(devices) < 1:
+    n_shards = 1 if devices is None else int(devices)
+    if n_shards < 1:
         raise ValueError(f"devices must be >= 1, got {devices}")
-    if devices is not None and int(devices) > 1:
-        raise NotImplementedError(
-            "the lane-sharded control plane (devices > 1) is not ported "
-            "yet: ROADMAP.md queue 1 item 4")
+    mesh = None
+    if n_shards > 1:
+        mesh = lane_mesh(n_shards, device=dev)  # the group's refusal first
+        dev = mesh.device
     pol = get_policy(admission)
     traced_admission(pol)  # raises for custom policy subclasses
     fault_outages = faults is not None and bool(faults.outages)
@@ -1514,7 +1561,8 @@ def run_events_compiled(
         max_retries=int(faults.max_retries) if faults is not None else 0,
         # outage victims can stack past C across repeated outages, so the
         # paused buffer is sized B under fault injection
-        paused_cap=B if fault_outages else (C if priorities else 0))
+        paused_cap=B if fault_outages else (C if priorities else 0),
+        n_shards=n_shards)
     step = _build_step(cfg)
 
     def col(a, dtype=None):
@@ -1550,6 +1598,10 @@ def run_events_compiled(
         "mcost": col(min_cost, np.float64),
         "edges": col(sketch.edges),
     }
+    if mesh is not None:
+        cn["mesh"] = mesh
+        cn["own"] = torch.arange(mesh.rank, C, n_shards, device=dev)
+        cn["ownm"] = torch.arange(C, device=dev) % n_shards == mesh.rank
     if tokens:
         cn.update(tkw=col(tkw), tkv=col(tkv), tkf=col(tkf), tkc=col(tkc),
                   tk1=col(tk1))

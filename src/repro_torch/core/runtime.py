@@ -51,19 +51,27 @@ class ExecutionResult:
 StageExecutor = Callable[[int, int, int, float], tuple[bool, float, float]]
 
 
+@dataclasses.dataclass(frozen=True, eq=False)
+class WorkloadExecutor:
+    """`make_workload_executor`'s executor: an object, so that it pickles
+    to the ranks of a spawned group whenever ``slowdown_fn`` does."""
+
+    workload: object
+    slowdown_fn: Callable | None = None
+
+    def __call__(self, q: int, depth: int, model: int, t_now: float):
+        s, c, lat = self.workload.execute_stage(q, depth, model)
+        if self.slowdown_fn is not None:
+            engine = self.workload.template.models[model].engine
+            lat = lat * float(self.slowdown_fn(engine, t_now))
+        return s, c, lat
+
+
 def make_workload_executor(workload, slowdown_fn=None) -> StageExecutor:
     """Executor backed by the synthetic workload tables.  ``slowdown_fn``
     maps (engine, t_now) -> multiplicative latency slowdown, modelling
     transient backend load (paper §5.4's utilization-conditioned curve)."""
-
-    def executor(q: int, depth: int, model: int, t_now: float):
-        s, c, lat = workload.execute_stage(q, depth, model)
-        if slowdown_fn is not None:
-            engine = workload.template.models[model].engine
-            lat = lat * float(slowdown_fn(engine, t_now))
-        return s, c, lat
-
-    return executor
+    return WorkloadExecutor(workload, slowdown_fn)
 
 
 def run_request(

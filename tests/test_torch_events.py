@@ -252,8 +252,8 @@ def test_port_events_rejects_bad_arguments():
 
 def test_port_events_refuses_unported_engines():
     """``compiled=True`` runs the compiled engine, with the host loop's
-    results; the lane-sharded control plane is a later slice and raises
-    naming its ROADMAP item."""
+    results; ``devices=2`` without a process group of size 2 raises on
+    both engines, naming the recipe that starts one."""
     tpl, trie, wl, ann, obj, reqs = _setup("nl2sql_2")
     execu = make_workload_executor(wl)
     kw = _overload_kw(tpl)
@@ -264,9 +264,9 @@ def test_port_events_refuses_unported_engines():
         == [(r.outcome, r.models, r.total_cost, r.total_lat) for r in comp]
     assert (hstats.events, hstats.replans, hstats.shed) == \
         (cstats.events, cstats.replans, cstats.shed)
-    with pytest.raises(NotImplementedError, match="item 4"):
+    with pytest.raises(ValueError, match="repro_torch.dist.spawn"):
         run_events(trie, ann, obj, reqs, execu, devices=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 4"):
+    with pytest.raises(ValueError, match="repro_torch.dist.spawn"):
         run_events(trie, ann, obj, reqs, execu, compiled=True, devices=2,
                    device="cpu")
     res, _ = run_events(trie, ann, obj, reqs, execu, devices=1,

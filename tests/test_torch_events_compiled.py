@@ -413,7 +413,7 @@ def test_port_compiled_refuses_host_only_features():
     with pytest.raises(NotImplementedError, match="fault injection"):
         comp(faults=FaultSchedule(outages=((0, 0.5, 1.0),)),
              admission="predictive")
-    with pytest.raises(NotImplementedError, match="item 4"):
+    with pytest.raises(ValueError, match="repro_torch.dist.spawn"):
         comp(devices=2)
     with pytest.raises(ValueError, match="devices"):
         comp(devices=0)

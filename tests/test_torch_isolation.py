@@ -23,6 +23,8 @@ from repro_torch.core.profiler import profile_cascade
 from repro_torch.core.runtime import make_workload_executor, run_cohort
 from repro_torch.core.trie import Trie
 from repro_torch.core.workload import generate_workload
+from repro_torch.dist import spawn
+from repro_torch.dist.runs import run_cases
 from repro_torch.models.config import MoEConfig
 from repro_torch.models.convert import params_from_jax
 from repro_torch.models.transformer import Model
@@ -52,6 +54,8 @@ def _port_files():
 def test_port_imports_neither_jax_nor_repro():
     files = _port_files()
     assert len(files) > 20 and files[-1].exists()
+    dist = {p.name for p in files if p.parent.name == "dist"}
+    assert {"__init__.py", "sharding.py", "group.py", "runs.py"} <= dist
     bad = [f"{p.relative_to(ROOT)}:{line} imports {mod}"
            for p in files for mod, line in _imported_roots(p)
            if mod in FORBIDDEN]
@@ -93,6 +97,7 @@ def test_entry_points_refuse_the_cpu_unasked(no_cuda):
         lambda: run_events(trie, ann, obj, reqs[:0], execu),
         lambda: make_resident_planner(TrieDevice.build(trie, ann), obj, 4),
         lambda: TrieDevice.build(trie, ann),
+        lambda: spawn(run_cases, 2, device="cuda", args=([],)),
         annot.publish,
         lambda: Model(cfg),
         lambda: params_from_jax(cfg, {}),

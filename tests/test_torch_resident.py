@@ -223,14 +223,21 @@ def test_admission_probe_matches_repro():
 
 
 def test_resident_planner_refuses_what_is_not_ported():
+    """Bad operands are refused; so are a ``mesh`` that is not a
+    `LaneMesh`, a lane mesh without a process group of its size, and the
+    load-coupled calls of an unsharded planner."""
+    from repro_torch.dist.sharding import lane_mesh
+
     trie, ann, obj, *_ = _pair("nl2sql_2")
     td = tc.TrieDevice.build(trie, ann, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 4"):
+    with pytest.raises(TypeError, match="LaneMesh"):
         tc.make_resident_planner(td, obj, 4, mesh=object())
+    with pytest.raises(ValueError, match="repro_torch.dist.spawn"):
+        lane_mesh(2, device="cpu")
     p = tc.make_resident_planner(td, obj, 4)
-    with pytest.raises(NotImplementedError, match="item 4"):
+    with pytest.raises(RuntimeError, match="mesh"):
         p.update_loads([0], [0], [1.0])
-    with pytest.raises(NotImplementedError, match="item 4"):
+    with pytest.raises(RuntimeError, match="mesh"):
         p.replan_coupled(None, None, None)
     with pytest.raises(ValueError, match="slots"):
         p.update([4], [0], [0.0], [0.0])
