@@ -27,9 +27,14 @@ Phases (any failure exits non-zero and prints no result):
                256 lanes on a 5461-node trie), exact against its plain
                versions and the host search, and in the event runtime's
                lane forms (`CLASS_SHAPES`).  The flash backward runs at the
-               training shapes (`BWD_SHAPES`) from the forward's own output
-               and log-sum-exp (held against `ref.attention_fwd`), against
-               `ref.attention_bwd` and beside SDPA's backward, with the
+               training shapes (`BWD_SHAPES`) and at small ragged,
+               windowed and GQA cases (`BWD_SMALL`: G = 7 and 8 run
+               clusters of 7 and 8) from the forward's own output and
+               log-sum-exp (held against `ref.attention_fwd`), against
+               `ref.attention_bwd`, every case called twice and equal bit
+               for bit, beside SDPA's backward, every launch plan its rule
+               weighs checked and timed, and its parts (prep, dq, dkdv)
+               timed alone at `BWD_PARTS`, with the
                forward's training form timed at each bf16 one (Whisper's
                encoder and cross attention non-causal, Sq != Sk); the
                attention kernels also at the zoo's head dims 16 and 32 in
@@ -858,30 +863,69 @@ def _sdpa_bwd_ms(q, k, v, do, causal: bool) -> tuple[float, float]:
     return both_ms - fwd_ms, fwd_ms
 
 
+# the flash backward's small cases, each in both dtypes at B = 2: (H, KV,
+# Sq, Sk, D, causal, window); G = 7 and 8 run bf16 clusters of 7 and 8
+BWD_SMALL = ((8, 2, 100, 100, 64, True, 0), (8, 2, 100, 100, 64, True, 48),
+             (4, 1, 130, 130, 128, True, 0), (4, 4, 77, 77, 80, True, 16),
+             (4, 4, 77, 77, 96, True, 0), (2, 2, 40, 40, 16, True, 0),
+             (4, 2, 33, 33, 32, True, 8), (8, 8, 37, 150, 64, False, 0),
+             (8, 2, 150, 37, 64, False, 0), (4, 4, 100, 100, 128, False, 0),
+             (7, 1, 70, 70, 64, True, 0), (14, 2, 90, 90, 128, True, 24),
+             (7, 1, 130, 50, 96, False, 0), (8, 1, 100, 100, 80, True, 0),
+             (16, 2, 75, 75, 64, True, 32), (8, 1, 50, 130, 32, False, 0))
+# BWD_SHAPES rows whose parts (prep, dq, dkdv) and launch plans are timed
+BWD_PARTS = ("yi-9b train", "zamba2-2.7b train", "train-100m")
+
+
+def _bwd_plans(fmod, B, H, KV, Sq, Sk, D, causal, itemsize, sms):
+    """The plan `bwd_plan` picks, then the plans its rule passes over: in
+    bf16 every dkdv step of query rows compiled at D; in float32 every
+    tile (dq rows and dkdv keys alike)."""
+    chosen = fmod.bwd_plan(B, H, KV, Sq, Sk, D, causal, itemsize, sms)
+    plans = [chosen]
+    if itemsize == 2:
+        for rows in fmod.BWD_MMA_ROWS:
+            if rows != chosen.kv_rows and (
+                    rows == 32 or D in fmod.BWD_MMA_ROWS64_DIMS):
+                plans.append(chosen._replace(kv_rows=rows))
+    else:
+        for t in fmod.BWD_F32_TILES:
+            p = chosen._replace(dq_rows=t, kv_keys=t,
+                                dq_grid=(B * H, -(-Sq // t)),
+                                kv_grid=(B * KV, -(-Sk // t)))
+            if p not in plans:
+                plans.append(p)
+    return plans
+
+
+def _bwd_plan_str(p) -> str:
+    return (f"dq {p.dq_rows} rows x {p.dq_keys} keys, grid {p.dq_grid}; "
+            f"dkdv {p.kv_keys} keys x {p.kv_rows} rows, {p.heads} heads a "
+            f"block, cluster {p.cluster}, grid {p.kv_grid}")
+
+
 def check_flash_bwd(rec):
     """The flash backward against `ref.attention_bwd` at the training
-    shapes (and windowed, ragged and GQA cases at small sizes), from the
-    forward's own output and log-sum-exp, which is held against
-    `ref.attention_fwd` first; timed warm and cold beside its bound, the
-    plain version and SDPA's backward."""
+    shapes (and windowed, ragged and GQA cases at small sizes, G = 7 and 8
+    among them), from the forward's own output and log-sum-exp, which is
+    held against `ref.attention_fwd` first; every case called twice and
+    equal bit for bit; timed warm and cold beside its bound, the plain
+    version and SDPA's backward, and at `BWD_PARTS` each part (prep, dq,
+    dkdv) alone and every launch plan the rule weighs."""
     import torch
 
+    from repro_torch.kernels import flash_attention as fmod
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_bwd)
 
     g = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     err = 0.0
     small = [(f"small G={H // KV} Sq={Sq} Sk={Sk} window={w}", dt, 2, H, KV,
               Sq, Sk, D, c, w)
              for dt in ("bfloat16", "float32")
-             for H, KV, Sq, Sk, D, c, w in (
-                 (8, 2, 100, 100, 64, True, 0), (8, 2, 100, 100, 64, True, 48),
-                 (4, 1, 130, 130, 128, True, 0), (4, 4, 77, 77, 80, True, 16),
-                 (4, 4, 77, 77, 96, True, 0), (2, 2, 40, 40, 16, True, 0),
-                 (4, 2, 33, 33, 32, True, 8), (8, 8, 37, 150, 64, False, 0),
-                 (8, 2, 150, 37, 64, False, 0), (4, 4, 100, 100, 128, False,
-                                                  0))]
+             for H, KV, Sq, Sk, D, c, w in BWD_SMALL]
     cases = [c + (0,) for c in BWD_SHAPES] + small
     for label, dts, B, H, KV, Sq, Sk, D, causal, window in cases:
         dt = getattr(torch, dts)
@@ -901,17 +945,29 @@ def check_flash_bwd(rec):
             err = max(err, check_close("flash_attention", o, want_o, tol))
         del want_o
         got = flash_attention_bwd(q, k, v, o, lse, do, **mask)
+        again = flash_attention_bwd(q, k, v, o, lse, do, **mask)
         torch.cuda.synchronize()
+        for name, a, b in zip(("dq", "dk", "dv"), got, again):
+            if not torch.equal(a, b):
+                raise AssertionError(f"flash_attention_bwd {label}: two "
+                                     f"calls gave different {name}")
+        del again
         want = ref.attention_bwd(q, k, v, o, lse, do, **mask)
         for name, a, b in zip(("dq", "dk", "dv"), got, want):
             err = max(err, check_close(f"flash_attention_bwd {name}", a, b,
                                        tol))
         shape = f"({B},{H},{Sq},{D}) kv {KV}" + (f" Sk {Sk}" if Sk != Sq
                                                   else "")
-        log(f"  flash_attention_bwd {label} {dts} {shape} causal={causal}: "
-            f"lse {err_str(lse, want_lse, F32_TOL)}; "
+        plan = fmod.bwd_plan(B, H, KV, Sq, Sk, D, causal, q.element_size(),
+                             sms)
+        log(f"  flash_attention_bwd {label} {dts} {shape} causal={causal} "
+            f"({_bwd_plan_str(plan)}): lse "
+            f"{err_str(lse, want_lse, F32_TOL)}; "
             + "; ".join(f"{n} {err_str(a, b, tol)}"
                         for n, a, b in zip(("dq", "dk", "dv"), got, want)))
+        if not label.startswith("small"):
+            _time_bwd_plans(rec, fmod, label, shape, q, k, v, o, lse, do,
+                            want, tol, sms, causal, label in BWD_PARTS)
         del want
         if label.startswith("small"):
             continue
@@ -948,6 +1004,44 @@ def check_flash_bwd(rec):
             f"forward {lib_fwd_ms:.4f}), bound {b_ms:.6f} ms ({b_by})")
     rec["kernels"]["flash_attention_bwd"]["max_abs_err"] = err
     log(f"flash_attention_bwd: ok, max abs err {err:.3g}")
+
+
+def _time_bwd_plans(rec, fmod, label, shape, q, k, v, o, lse, do, want,
+                    tol, sms, causal, parts):
+    """At a training shape: every launch plan `_bwd_plans` lists, held
+    against ``want`` and timed whole, then with ``parts`` the chosen
+    plan's parts alone (prep; dq and dkdv from the prep's D), each by
+    `graph_ms`."""
+    import torch
+
+    B, H, Sq, D = q.shape
+    KV, Sk = k.shape[1], k.shape[2]
+    plans = _bwd_plans(fmod, B, H, KV, Sq, Sk, D, causal, q.element_size(),
+                       sms)
+    times = {}
+    for i, plan in enumerate(plans):
+        out = fmod._launch_bwd(q, k, v, o, lse, do, causal, 0, plan)
+        torch.cuda.synchronize()
+        for name, a, b in zip(("dq", "dk", "dv"), out, want):
+            check_close(f"flash_attention_bwd {name}", a, b, tol)
+        del out
+        times[_bwd_plan_str(plan)] = ms = graph_ms(
+            lambda: fmod._launch_bwd(q, k, v, o, lse, do, causal, 0, plan))
+        log(f"  flash_attention_bwd {label} {shape} plan "
+            f"{'(chosen) ' if i == 0 else ''}{_bwd_plan_str(plan)}: "
+            f"{ms:.4f} ms")
+    case = rec.setdefault("timing_cases", {})[
+        f"flash_attention_bwd plans {label} {shape}"] = dict(plans=times)
+    if not parts:
+        return
+    plan = plans[0]
+    delta = fmod._launch_bwd(q, k, v, o, lse, do, causal, 0, plan,
+                             parts=fmod.PARTS["prep"])[3]
+    case["parts"] = {name: graph_ms(lambda: fmod._launch_bwd(
+        q, k, v, o, lse, do, causal, 0, plan, parts=bits, delta=delta))
+        for name, bits in fmod.PARTS.items()}
+    log(f"  flash_attention_bwd {label} {shape} parts: "
+        + ", ".join(f"{n} {t:.4f} ms" for n, t in case["parts"].items()))
 
 
 def _plan_str(p) -> str:

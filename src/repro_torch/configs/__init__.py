@@ -1,7 +1,7 @@
 """Architecture config registry: ``get_config("<arch-id>", smoke=...)``.
 
 The port registers every architecture of `repro.configs`, under the same
-ids.
+ids and in the same order.
 """
 from __future__ import annotations
 
@@ -11,15 +11,15 @@ import importlib
 from repro_torch.models.config import ArchConfig
 
 _MODULES = {
-    "yi-9b": "yi_9b",
+    "zamba2-2.7b": "zamba2_2p7b",
+    "llava-next-34b": "llava_next_34b",
     "mistral-nemo-12b": "mistral_nemo_12b",
+    "yi-9b": "yi_9b",
     "qwen2-72b": "qwen2_72b",
     "minicpm3-4b": "minicpm3_4b",
     "granite-moe-1b-a400m": "granite_moe_1b",
     "arctic-480b": "arctic_480b",
     "mamba2-1.3b": "mamba2_1p3b",
-    "zamba2-2.7b": "zamba2_2p7b",
-    "llava-next-34b": "llava_next_34b",
     "whisper-base": "whisper_base",
 }
 

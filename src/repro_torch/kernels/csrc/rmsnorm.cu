@@ -144,12 +144,12 @@ extern "C" int repro_rms_norm(const void* x, const void* scale, void* out,
 extern "C" const char* repro_error_string(int code) {
   if (code == repro::kStatusBadHeadDim) {
     return "head dimension not compiled into the attention kernels "
-           "(32, 64, 80, 128)";
+           "(16, 32, 64, 80, 96, 128)";
   }
   if (code == repro::kStatusBadArgs) {
     return "inconsistent launch arguments (decode split, column slice or head "
            "chunk sizes; SSD channel slice or chunk runs; replan sizes, "
-           "slices or lanes a block)";
+           "slices or lanes a block; flash backward plan)";
   }
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

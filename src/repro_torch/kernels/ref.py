@@ -103,6 +103,59 @@ def attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
             dv.to(v.dtype))
 
 
+def attention_bwd_tiled(q, k, v, o, lse, do, *, causal: bool = True,
+                        window: int = 0, plan):
+    """`attention_bwd` summed the way `csrc/flash_attention_bwd.cu` sums
+    under ``plan`` (`flash_attention.bwd_plan`): D = rowsum(dO o) in
+    float32; where the operands are bf16, P and dS are rounded to bf16
+    where they enter a product (dV = P^T dO, dQ = dS K, dK = dS^T Q), as
+    the kernels' mma operands; dQ sums its key tiles of ``plan.dq_keys``
+    in order; dK and dV are float32 partials per (key tile, query head),
+    summed in head order inside each dkdv block of ``plan.heads`` heads and
+    then over the ``plan.cluster`` blocks of a cluster in rank order.  A
+    key tile holds every term of its keys, so the tiling itself changes no
+    key's arithmetic."""
+    B, H, Sq, D = q.shape
+    KV, Sk = k.shape[1], k.shape[2]
+    G = H // KV
+    scale = D ** -0.5
+    low = q.dtype if q.dtype == torch.bfloat16 else torch.float32
+
+    def rnd(x):
+        return x.to(low).float()
+
+    qg = q.reshape(B, KV, G, Sq, D).float()
+    dog = do.reshape(B, KV, G, Sq, D).float()
+    kf, vf = k.float(), v.float()
+    Dsum = (dog * o.reshape(B, KV, G, Sq, D).float()).sum(-1)
+    s = torch.einsum("bkgqd,bkTd->bkgqT", qg, kf) * scale
+    p = torch.exp(s - lse.reshape(B, KV, G, Sq, 1).float())
+    mask = _attn_mask(Sq, Sk, causal, window, q.device)
+    if mask is not None:
+        p = torch.where(mask, p, 0.0)
+    dp = torch.einsum("bkgqd,bkTd->bkgqT", dog, vf)
+    ds = rnd(p * (dp - Dsum[..., None]))
+    dq = torch.zeros(B, KV, G, Sq, D, device=q.device)
+    for k0 in range(0, Sk, plan.dq_keys):
+        t = slice(k0, k0 + plan.dq_keys)
+        dq = dq + torch.einsum("bkgqT,bkTd->bkgqd", ds[..., t], kf[:, :, t])
+    # per query head partials, (B, KV, cluster, heads, Sk, D)
+    parts = [torch.einsum("bkgqT,bkgqd->bkgTd", a, b).reshape(
+        B, KV, plan.cluster, plan.heads, Sk, D)
+        for a, b in ((ds, qg), (rnd(p), dog))]
+    sums = []
+    for part in parts:
+        blocks = part[:, :, :, 0]
+        for j in range(1, plan.heads):
+            blocks = blocks + part[:, :, :, j]
+        total = blocks[:, :, 0]
+        for r in range(1, plan.cluster):
+            total = total + blocks[:, :, r]
+        sums.append(total)
+    return ((dq * scale).reshape(B, H, Sq, D).to(q.dtype),
+            (sums[0] * scale).to(k.dtype), sums[1].to(v.dtype))
+
+
 def decode_attention(q, k_cache, v_cache, cache_len, *, window: int = 0,
                      scale: float | None = None):
     """Single-token decode attention over a KV cache: (B,H,D) x

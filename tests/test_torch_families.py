@@ -220,6 +220,13 @@ def test_every_arch_builds_in_both_forms(arch):
     assert set(train.masters) == set(want)
 
 
+def test_arch_ids_in_repro_order():
+    """The registry lists `repro`'s ids in `repro`'s order: a driver that
+    takes its choices from the list, or iterates it, sees the same ids
+    in the same order in both packages."""
+    assert ARCH_IDS == JAX_ARCH_IDS
+
+
 def test_tied_embeddings_match_repro():
     """A tied SMOKE dense config: no ``unembed`` leaf in either package,
     the logits unembedded by ``embed.T``, and the train step's ``embed``
