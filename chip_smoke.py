@@ -10,6 +10,7 @@
     python3 chip_smoke.py --phases device,kernels,serve-media,train-hybrid
     python3 chip_smoke.py --phases device,serve-compiled,train-100m
     python3 chip_smoke.py --phases device,serve-sharded
+    python3 chip_smoke.py --phases device,train-sharded
 
 Phases (any failure exits non-zero and prints no result):
 
@@ -61,7 +62,7 @@ Phases (any failure exits non-zero and prints no result):
                the host loop on the CPU and at every epoch width, trie_plan
                launches equal to its replan rounds, after the replan's
                width-1, gathered and capacity-wide calls are held equal;
-               then a MathQA-4 replay of 1,000 requests with
+               then a MathQA-4 replay of 250 requests with
                ``stream=True`` (its summary against the materialised
                run's, a 200-request prefix against the host loop on the
                CPU, events/s beside the host loop's on the card, host reads
@@ -77,21 +78,21 @@ Phases (any failure exits non-zero and prints no result):
                agreeing, one collective a replan, each rank's trie_plan
                launches equal to its plans; then the planner at world size
                1 over NCCL in this process;
-7. serve-ssm — the same cohort served by a full-width, full-depth
-               Mamba2-1.3B engine (engine-a) and Zamba2-2.7B engine
-               (engine-b), with their launches counted the same way; then
+7. serve-ssm — the same cohort served by a full-width Mamba2-1.3B
+               engine (engine-a, 24 of 48 layers) and a full-width,
+               full-depth Zamba2-2.7B engine (engine-b), with their launches counted the same way; then
                the replan's wall time per round over the serve phases, and
                one fleet round and one resident replan of the event runtime
                under `torch.profiler`, each of which must be one kernel and
                two copies (after the last serve phase that runs: a
                profiler session slows later launches).
-8. serve-dense — the same cohort served by full-width, full-depth
-               MiniCPM3-4B (engine-a, MLA) and Mistral-NeMo-12B (engine-b)
-               engines, then one stage invocation of Qwen2-72B (QKV bias)
+8. serve-dense — the same cohort served by full-width MiniCPM3-4B
+               (engine-a, MLA, 16 of 62 layers) and Mistral-NeMo-12B
+               (engine-b, full depth) engines, then one stage invocation of Qwen2-72B (QKV bias)
                at 36 of its 80 layers, each engine's 2-layer copy held
                against its float32 CPU copy, launches exact;
 9. serve-moe — the same cohort served by Granite-MoE-1B-A400M (engine-a,
-               full width and depth) and Arctic-480B (engine-b, full width,
+               full width, 12 of 24 layers) and Arctic-480B (engine-b, full width,
                all 128 experts and the dense residual, 2 of 35 layers): the
                routing of each engine's first 2 layers held at full E
                against a float32 reference that routes by its own scores
@@ -115,25 +116,36 @@ Phases (any failure exits non-zero and prints no result):
                against its float32 CPU copy, launches per step exact; step
                time, tokens/s, model-FLOP share, peak memory, and one step
                under `torch.profiler`;
-12. train-ssm — the same for Mamba2-1.3B at full width and depth, (1, 2048),
+12. train-sharded — FSDP-style sharded training (`repro_torch.dist.fsdp`,
+               ``train(mesh=)``): Yi-9B at full width, 2 layers, (2, 2048),
+               3 steps, AdamW: (a) the single-device step on the card, (b)
+               2 ranks on the card over gloo (collectives staged through
+               the host) running ``train(mesh=)`` with a checkpoint at
+               step 2, (c) the same at world size 1 over NCCL, each held
+               to (a) (loss, grad norm, parameter movement), every rank
+               agreeing, launches and collectives a step exact; (d) (b)'s
+               checkpoint restored onto the NCCL mesh
+               (``restore(shardings=)``) equal bit for bit to the restore
+               onto no mesh;
+13. train-ssm — the same for Mamba2-1.3B at full width and depth, (1, 2048),
                3 steps (the SSD kernel forward, the plain recompute back);
-13. train-hybrid — the same for Zamba2-2.7B at full width and depth, (1,
+14. train-hybrid — the same for Zamba2-2.7B at full width and depth, (1,
                2048), 3 steps (checkpointed layers inside checkpointed
-               groups), then one step of a full-width copy of each dense
-               family (2 layers), MoE family (Granite 2 layers, Arctic 1
-               layer of 16 experts; the loss with its aux) and of LLaVA (2
-               layers, 64 patches under ignore-labels) against its float32
-               CPU copy, launches exact; then Whisper-base whole, (2, 448)
+               groups), then one step of a full-width, 1-layer copy of
+               Mistral-NeMo-12B, MiniCPM3-4B, Granite-MoE (the loss with
+               its aux) and LLaVA (64 patches under ignore-labels) on
+               (1, 128) tokens against its float32 CPU copy, launches
+               exact; then Whisper-base whole, (2, 448)
                tokens over 1500 frames, 3 steps, one held against its
                float32 CPU copy;
-14. train-100m — `repro_torch.examples.train_100m` as `repro`'s driver
-               sets it (12 layers, d 512, vocab 32768, float32) for 300
+15. train-100m — `repro_torch.examples.train_100m` as `repro`'s example
+               sets it (12 layers, d 512, vocab 32768, float32) for 50
                steps at (8, 128), 2 microbatches, async checkpoints every
-               100 steps: launches of every step exact, the loss falling,
+               third of the run: launches of every step exact, the loss falling,
                the last checkpoint restored bit for bit; step time, tokens/s,
                float32 model-FLOP share, and the data source's host memory
                and build time;
-15. zoo      — `build_zoo` with `repro`'s ladder on the card (its launches
+16. zoo      — `build_zoo` with `repro`'s ladder on the card (its launches
                exact), held-out accuracy rising from zoo-s to zoo-m to
                zoo-l, then the end-to-end example's loop
                (`repro_torch.examples.serve_workflow`, ``--requests 24
@@ -153,6 +165,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import pathlib
 import re
 import statistics
@@ -180,6 +193,8 @@ ENGINE_LAYERS = {"engine-a": 12, "engine-b": 48}  # yi-9b has 48
 # the SSM path: every engine at full depth, and the depth of the reduced
 # copy held against float32 on the CPU (zamba2: its shared block twice)
 SSM_ENGINES = {"engine-a": "mamba2-1.3b", "engine-b": "zamba2-2.7b"}
+# engine-a's depth cut (its decode, most of the phase, is host-bound)
+SSM_ENGINE_LAYERS = {"mamba2-1.3b": 24}
 SSM_CHECK_LAYERS = {"mamba2-1.3b": 6, "zamba2-2.7b": 12}
 BF16_TOL, F32_TOL = 2e-2, 2e-5
 # the SSD scan against its plain version: f32 outputs and the f32 state
@@ -231,7 +246,7 @@ MEDIA_FLASH = (("llava-next-34b image prefill", 1, 56, 8, 3328, 3328, 128,
                ("whisper-base cross prefill", 4, 8, 8, 64, 1500, 64, False),
                ("whisper-base decoder prefill", 4, 8, 8, 64, 64, 64, True))
 # the flash backward at the training shapes: (label, dtype, B, H, KV, Sq,
-# Sk, D, causal); llava's 2-layer copy trains on 64 patches + 256 tokens,
+# Sk, D, causal); llava's 1-layer copy trains on 64 patches + 128 tokens,
 # whisper on (2, 448) tokens over 1500 frames
 BWD_SHAPES = (("yi-9b train", "bfloat16", 2, 32, 4, 2048, 2048, 128, True),
               ("zamba2-2.7b train", "bfloat16", 1, 32, 32, 2048, 2048, 80,
@@ -240,7 +255,7 @@ BWD_SHAPES = (("yi-9b train", "bfloat16", 2, 32, 4, 2048, 2048, 128, True),
                True),
               ("granite-moe-1b-a400m train", "bfloat16", 1, 16, 8, 2048,
                2048, 64, True),
-              ("llava-next-34b train", "bfloat16", 1, 56, 8, 320, 320, 128,
+              ("llava-next-34b train", "bfloat16", 1, 56, 8, 192, 192, 128,
                True),
               ("whisper-base encoder train", "bfloat16", 2, 8, 8, 1500, 1500,
                64, False),
@@ -268,13 +283,21 @@ def log(*a):
 # ----------------------------------------------------------------------
 # timing
 # ----------------------------------------------------------------------
+# a warm graph holds ``calls`` calls, or fewer where they would pass this
+# many milliseconds of device work (the plain versions at training shapes)
+GRAPH_MIN_MS = 10.0
+
+
 def graph_ms(fn, calls: int = 20, reps: int = 7, inputs=None) -> float:
     """Median device milliseconds of one call: ``calls`` back-to-back
-    calls captured in a CUDA graph, replayed ``reps`` times between CUDA
-    events (no host launch cost in the reading).  Without ``inputs`` each
-    call is ``fn()`` and its operands stay warm in L2; with ``inputs`` (a
-    list of argument tuples, see `cold_inputs`) call i is
-    ``fn(*inputs[i])``, one call per copy."""
+    calls (fewer past GRAPH_MIN_MS of device work, at least one) captured
+    in a CUDA graph, replayed ``reps`` times between CUDA events (no host
+    launch cost in the reading).  Without ``inputs`` each call is ``fn()``
+    and its operands stay warm in L2; with ``inputs`` (a list of argument
+    tuples, see `cold_inputs`) call i is ``fn(*inputs[i])``, one call per
+    copy."""
+    import math
+
     import torch
 
     if inputs is not None:
@@ -287,6 +310,15 @@ def graph_ms(fn, calls: int = 20, reps: int = 7, inputs=None) -> float:
             call(i % calls)
     torch.cuda.current_stream().wait_stream(side)
     torch.cuda.synchronize()
+    if inputs is None:
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        call(0)
+        b.record()
+        b.synchronize()
+        calls = max(1, min(calls, math.ceil(GRAPH_MIN_MS / max(
+            a.elapsed_time(b), 1e-3))))
     g = torch.cuda.CUDAGraph()
     with torch.cuda.graph(g):
         for i in range(calls):
@@ -1532,7 +1564,9 @@ def phase_kernels(args, rec):
     rec["kernels"] = {}
     for check in (check_trie_plan, check_flash, check_flash_bwd, check_decode,
                   check_rms_norm, check_ssd_scan, check_autograd):
+        t0 = time.perf_counter()
         check(rec)
+        log(f"{check.__name__}: {time.perf_counter() - t0:.1f} s")
     log("kernels: " + ", ".join(f"{k} ok (max abs err "
                                 f"{v['max_abs_err']:.3g}, tol {v['tol']})"
                                 for k, v in rec["kernels"].items()))
@@ -2072,6 +2106,23 @@ def _replan_summary(rec):
         f"over {len(us)} rounds")
 
 
+def _cut(arch, layers: dict):
+    """``arch``'s config, its depth cut to ``layers[arch]`` where given."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    return dataclasses.replace(cfg, n_layers=layers[arch]) \
+        if arch in layers else cfg
+
+
+def _cut_str(layers: dict) -> str:
+    """"arch n of N layers" for each depth cut of ``layers``."""
+    from repro_torch.configs import get_config
+
+    return ", ".join(f"{a} {n} of {get_config(a).n_layers} layers"
+                     for a, n in layers.items())
+
+
 def _engine(tpl, ename, cfg, seed):
     """A `ServingEngine` named ``ename`` with random weights of ``cfg``
     from ``seed``, priced as the preset's model on that engine."""
@@ -2385,10 +2436,11 @@ def phase_serve_events(args, rec):
 
 # the compiled event engine's phase: epoch widths held identical, the
 # replay's request count (on an H100 the replay runs ~90 events/s at ~2.5
-# events a request: 1,000 requests take ~28 s a pass, the phase ~90 s),
+# events a request: 1,000 requests took ~28 s a pass, the phase ~90 s;
+# 250 requests take a quarter),
 # the prefix held against the host loop, and the replay's load
 COMPILED_EPOCHS = (1, 7)  # and n
-REPLAY_REQUESTS = 1000
+REPLAY_REQUESTS = 250
 REPLAY_PREFIX = 200
 REPLAY_RATE = 6.0         # requests / virtual second into 64 slots
 REPLAY_CAPACITY = 64
@@ -2997,17 +3049,17 @@ def phase_serve_sharded(args, rec):
 def phase_serve_ssm(args, rec):
     import torch
 
-    from repro_torch.configs import get_config
-
     rec.pop("yi_engines", None)
     torch.cuda.empty_cache()  # the dense path's engines are gone
     cohort = _cohort()
     t0 = time.perf_counter()
-    engines = {e: _engine(cohort[0], e, get_config(arch), SEED + 10 + i)
+    engines = {e: _engine(cohort[0], e, _cut(arch, SSM_ENGINE_LAYERS),
+                          SEED + 10 + i)
                for i, (e, arch) in enumerate(sorted(SSM_ENGINES.items()))}
     torch.cuda.synchronize()
-    log(f"reduced: nothing (every layer, full width); weights random from "
-        f"seed {SEED + 10}; init {time.perf_counter() - t0:.1f} s")
+    log(f"reduced: depth only, {_cut_str(SSM_ENGINE_LAYERS)} (full width); "
+        f"weights random from seed {SEED + 10}; init "
+        f"{time.perf_counter() - t0:.1f} s")
     for eng in engines.values():
         # a ragged prompt of 300 tokens spans two SSD chunks of 256
         n = SSM_CHECK_LAYERS[eng.model.cfg.name]
@@ -3019,9 +3071,12 @@ def phase_serve_ssm(args, rec):
     _after_serving(args, rec, "serve-ssm", cohort)
 
 
-# the dense families' path: two engines at full width and depth, then
-# qwen2-72b alone, depth cut to fit the card (80 layers of 0.89B would not)
+# the dense families' path: two engines at full width, minicpm3-4b's
+# depth cut (DENSE_ENGINE_LAYERS: its host-bound MLA decode at 62 layers
+# was most of the phase), then qwen2-72b alone, depth cut to fit the card
+# (80 layers of 0.89B would not)
 DENSE_ENGINES = {"engine-a": "minicpm3-4b", "engine-b": "mistral-nemo-12b"}
+DENSE_ENGINE_LAYERS = {"minicpm3-4b": 16}
 QWEN_LAYERS = 36
 DENSE_CHECK_LAYERS = 2
 
@@ -3085,8 +3140,9 @@ def _engine_reading(name, model, path, rec, what=f"{PROMPT} tokens"):
 
 
 def phase_serve_dense(args, rec):
-    """The cohort on minicpm3-4b (engine-a, MLA) and mistral-nemo-12b
-    (engine-b), both at full width and depth, with a 2-layer copy of each
+    """The cohort on minicpm3-4b (engine-a, MLA, DENSE_ENGINE_LAYERS' 16
+    of 62 layers) and mistral-nemo-12b (engine-b, full depth), both at
+    full width, with a 2-layer copy of each
     held against its float32 CPU copy and the launches exact; then, with
     both freed, qwen2-72b (QKV bias) at full width, depth cut to
     QWEN_LAYERS, for one stage invocation: its 2-layer model (drawn from
@@ -3105,11 +3161,13 @@ def phase_serve_dense(args, rec):
     cohort = _cohort()
     tpl = cohort[0]
     t0 = time.perf_counter()
-    engines = {e: _dense_engine(tpl, e, get_config(arch), SEED + 30 + i)
+    engines = {e: _dense_engine(tpl, e, _cut(arch, DENSE_ENGINE_LAYERS),
+                                SEED + 30 + i)
                for i, (e, arch) in enumerate(sorted(DENSE_ENGINES.items()))}
     torch.cuda.synchronize()
-    log(f"reduced: nothing (every layer, full width); weights random from "
-        f"seed {SEED + 30}; init {time.perf_counter() - t0:.1f} s")
+    log(f"reduced: depth only, {_cut_str(DENSE_ENGINE_LAYERS)} (full "
+        f"width); weights random from seed {SEED + 30}; init "
+        f"{time.perf_counter() - t0:.1f} s")
     for eng in engines.values():
         small = _reduced_copy(eng.model, DENSE_CHECK_LAYERS)
         _model_check(small, rec, f"{eng.model.cfg.name} {eng.name} first "
@@ -3167,11 +3225,12 @@ def phase_serve_dense(args, rec):
 # ----------------------------------------------------------------------
 # phase serve-moe: the MoE families, their routing held against float32
 # ----------------------------------------------------------------------
-# engine-a: granite-moe-1b-a400m at full width and depth; engine-b:
+# engine-a: granite-moe-1b-a400m at full width, depth cut to 12 of 24
+# layers (its host-bound decode was most of the phase); engine-b:
 # arctic-480b at full width with all 128 experts and its dense residual,
 # depth cut to 2 of 35 layers (a layer is 13.6B parameters, 27.2 GB of
 # bf16: 2 layers and the embeddings are 55.4 GB, 3 would not fit 80 GB)
-MOE_ENGINES = {"engine-a": ("granite-moe-1b-a400m", None),
+MOE_ENGINES = {"engine-a": ("granite-moe-1b-a400m", 12),
                "engine-b": ("arctic-480b", 2)}
 MOE_ROUTE_LAYERS = 2  # each engine's first layers routed at full E
 # the copies held against float32 on the CPU: (layers, experts); arctic's
@@ -3584,8 +3643,8 @@ def _moe_model_check(model, rec, label):
 
 
 def phase_serve_moe(args, rec):
-    """The cohort on granite-moe-1b-a400m (engine-a, full width and depth)
-    and arctic-480b (engine-b, full width, all 128 experts, 2 of 35
+    """The cohort on granite-moe-1b-a400m (engine-a, full width, 12 of 24
+    layers) and arctic-480b (engine-b, full width, all 128 experts, 2 of 35
     layers): first the routing of each engine's first layers at full E
     (`_moe_layer_check`), then a 2-layer granite copy and a 1-layer,
     16-expert arctic copy against float32 on the CPU
@@ -3618,7 +3677,8 @@ def phase_serve_moe(args, rec):
         f"{2 * per_layer / 1e9:.1f} GB of bf16; 2 layers and the embeddings "
         f"{(2 * 2 * per_layer + 2 * 2 * arctic.vocab * arctic.d_model) / 1e9:.1f}"
         f" GB, 3 would not fit the card's 80 GB); granite-moe-1b-a400m "
-        f"nothing; weights random from seed {SEED + 60}; init "
+        f"depth only, {MOE_ENGINES['engine-a'][1]} of "
+        f"{get_config('granite-moe-1b-a400m').n_layers} layers; weights random from seed {SEED + 60}; init "
         f"{time.perf_counter() - t0:.1f} s")
     for eng in engines.values():
         _moe_layer_check(eng.model, rec, f"{eng.model.cfg.name} {eng.name}")
@@ -3811,7 +3871,7 @@ TRAIN_PATHS = {"train": ("yi-9b", 12, (2, 2048), 4),
 # runs over the whole padded vocabulary (a cut, PERF.md section 4)
 TRAIN_DATA = (256, 2)
 # the reduced copy held against float32 on the CPU: layers, (batch, seq)
-TRAIN_CHECK = (2, (1, 512))
+TRAIN_CHECK = (2, (1, 256))
 
 
 def _token_batch(cfg, B: int, S: int, seed: int, patches: int = 0) -> dict:
@@ -4000,17 +4060,17 @@ def _hold_train_copy(small, label, rec, shape, patches: int = 0):
     del cpu, grads, wgrads
 
 
-# the dense and MoE families' one-step checks (phase train-hybrid): a
-# full-width copy drawn from a seed, on a (1, 256) batch: arch -> (layers,
-# experts kept (None: all)); arctic-480b keeps 16 of its 128 experts (an
-# expert cut: its float32 masters, gradients and CPU copy would not fit)
-FAMILY_TRAIN = {"mistral-nemo-12b": (TRAIN_CHECK[0], None),
-                "qwen2-72b": (TRAIN_CHECK[0], None),
-                "minicpm3-4b": (TRAIN_CHECK[0], None),
-                "granite-moe-1b-a400m": (TRAIN_CHECK[0], None),
-                "arctic-480b": (1, 16),
-                "llava-next-34b": (LLAVA_CHECK[0], None)}
-FAMILY_TRAIN_SHAPE = (1, 256)
+# the dense, MoE and VLM families' one-step checks (phase train-hybrid): a
+# full-width copy of FAMILY_TRAIN_LAYERS drawn from a seed, on a
+# FAMILY_TRAIN_SHAPE batch, against float32 on the CPU.  That CPU step is
+# most of the phase's time, so qwen2-72b's copy (3.4B parameters at one
+# layer) and arctic-480b's (2.3B at 16 experts) are left out: mistral's
+# and llava's copies train their attention's G and head dim, granite's a
+# MoE, and serve-dense and serve-moe hold both models' forward
+FAMILY_TRAIN = ("mistral-nemo-12b", "minicpm3-4b", "granite-moe-1b-a400m",
+                "llava-next-34b")
+FAMILY_TRAIN_LAYERS = 1
+FAMILY_TRAIN_SHAPE = (1, 128)
 
 
 def _step_flops(cfg, n_mat: int, B: int, S: int) -> float:
@@ -4159,13 +4219,9 @@ def phase_train_hybrid(args, rec):
     from repro_torch.models.transformer import TrainModel
 
     _train_path("train-hybrid", rec, args)
-    for i, (arch, (layers, experts)) in enumerate(FAMILY_TRAIN.items()):
-        cfg = dataclasses.replace(get_config(arch), n_layers=layers)
-        if experts:
-            cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
-                cfg.moe, n_experts=experts))
-            log(f"reduced: {arch} train copy, {experts} of "
-                f"{get_config(arch).moe.n_experts} experts, {layers} layer")
+    for i, arch in enumerate(FAMILY_TRAIN):
+        cfg = dataclasses.replace(get_config(arch),
+                                  n_layers=FAMILY_TRAIN_LAYERS)
         gen = torch.Generator(device="cuda").manual_seed(SEED + 50 + i)
         small = TrainModel(cfg, device="cuda").init(gen)
         patches = LLAVA_CHECK[1] if cfg.vlm is not None else 0
@@ -4177,17 +4233,265 @@ def phase_train_hybrid(args, rec):
 
 
 # ----------------------------------------------------------------------
+# train-sharded: FSDP-style sharded training (repro_torch.dist.fsdp)
+# (arch, layers, (batch, sequence), steps): full width, depth cut
+SHARDED_TRAIN = ("yi-9b", 2, (2, 2048), 3)
+SHARDED_TRAIN_CKPT = 2         # the gloo run checkpoints at this step
+SHARDED_TRAIN_WORLD = 2        # gloo ranks on cuda:0
+# relative: loss, grad norm, parameter movement (tests/test_dist.py's)
+SHARDED_TRAIN_TOL = (2e-4, 1e-3, 0.05)
+SHARDED_TRAIN_BUDGET_S = 120.0
+
+
+def _sharded_single(cfg, tcfg, dcfg, key, steps, expect):
+    """Part (a): the single-device step on cuda:0 in this process, on the
+    masters drawn from ``key`` and the Markov source's first ``steps``
+    batches; launches per step exact.  Returns ((loss, grad norm) a
+    step, the parameter movement, step seconds)."""
+    import torch
+
+    from repro_torch.data import MarkovLMData
+    from repro_torch.kernels import _build
+    from repro_torch.models import build_model
+    from repro_torch.train import make_train_step
+
+    model = build_model(cfg, device="cuda", train=True).init(
+        torch.Generator(device="cuda").manual_seed(key))
+    init, step = make_train_step(model, tcfg)
+    params = model.params()
+    state = init(params)
+    before = {k: p.detach().clone() for k, p in params.items()}
+    data = MarkovLMData(dcfg)
+    out, times = [], []
+    for i in range(steps):
+        batch = data.next_batch()
+        launches = dict(_build.LAUNCHES)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        got = {k: _build.LAUNCHES[k] - launches[k] for k in launches}
+        if got != expect:
+            raise AssertionError(f"train-sharded (a): step {i + 1} launched "
+                                 f"{got}, expected {expect}")
+        out.append((float(m["loss"]), float(m["grad_norm"])))
+    moved = sum(float(torch.sum((p.detach().double() - before[k].double())
+                                ** 2)) for k, p in params.items())
+    del model, params, state, before, m
+    torch.cuda.empty_cache()
+    return out, moved, times
+
+
+def _check_sharded_run(label, rec_out, measures, single, moved, steps,
+                       expect, collectives):
+    """A sharded run against part (a): every step's loss and grad norm and
+    the movement within SHARDED_TRAIN_TOL, launches per rank exact
+    (``steps`` x ``expect``), collectives per step and rank exact."""
+    tl, tg, tm = SHARDED_TRAIN_TOL
+    got = [(m["loss"], m["grad_norm"]) for m in rec_out["metrics"]]
+    for i, ((loss, gn), (wl, wg)) in enumerate(zip(got, single)):
+        if abs(loss - wl) > tl * abs(wl) or abs(gn - wg) > tg * abs(wg):
+            raise AssertionError(f"{label}: step {i + 1} loss {loss} grad "
+                                 f"norm {gn}, single device {wl} / {wg}")
+    if len(got) != steps or abs(rec_out["movement"] - moved) > tm * moved:
+        raise AssertionError(f"{label}: {len(got)} steps, movement "
+                             f"{rec_out['movement']} vs {moved}")
+    want = {k: steps * v for k, v in expect.items()}
+    for r, m in enumerate(measures):
+        if m["launches"] != want:
+            raise AssertionError(f"{label}: rank {r} launched "
+                                 f"{m['launches']}, expected {want}")
+        per = [s["collectives"] for s in m["steps"]]
+        if per != [collectives] * steps:
+            raise AssertionError(f"{label}: rank {r} collectives a step "
+                                 f"{per}, predicted {collectives}")
+    return got
+
+
+def phase_train_sharded(args, rec):
+    """FSDP-style sharded training on the card (`repro_torch.dist.fsdp`,
+    ``train(mesh=)``): Yi-9B at full width, SHARDED_TRAIN's 2 layers,
+    float32 masters, AdamW, remat, a (2, 2048) batch a step from the
+    Markov source, 3 steps.  (a) the single-device step on cuda:0 in this
+    process; (b) SHARDED_TRAIN_WORLD ranks on cuda:0 over gloo (NCCL
+    refuses two ranks on one card; every collective goes through host
+    copies), ``("data",)`` mesh, ``train(mesh=)`` checkpointing at step
+    SHARDED_TRAIN_CKPT and its last; (c) the same at world size 1 over
+    NCCL in this process (`one_rank_group`), and there (d) a restore of
+    (b)'s step-2 checkpoint onto that mesh (``restore(shardings=)``), whose
+    every gathered leaf must equal the restore onto no mesh bit for bit.
+    (b) and (c) are held to (a) within SHARDED_TRAIN_TOL, every rank's
+    losses equal (one digest), launches per rank and step exact
+    (`_train_launches`), collectives per step exact
+    (`sharded_step_collectives`)."""
+    import shutil
+    import tempfile
+    import types
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, MarkovLMData
+    from repro_torch.dist import lane_mesh, one_rank_group, spawn
+    from repro_torch.dist.train_runs import leaf_digests, run_train_cases
+    from repro_torch.kernels import _build
+    from repro_torch.models import param_shapes
+    from repro_torch.train import (CheckpointManager, LoopConfig, OptConfig,
+                                   TrainConfig)
+    from repro_torch.train.optimizer import make_optimizer
+    from repro_torch.train.step import sharded_step_collectives
+
+    smi = rec["smi"]
+    t_phase = time.perf_counter()
+    _build.extension()  # the ranks load this build, never compile
+    arch, layers, (B, S), steps = SHARDED_TRAIN
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+    vocab, kgram = TRAIN_DATA
+    dcfg = DataConfig(vocab=vocab, seq_len=S, batch=B, seed=SEED,
+                      kgram=kgram)
+    tcfg = TrainConfig(opt=OptConfig(warmup_steps=1))
+    key = SEED + 70
+    expect = _train_launches(cfg)
+    n_par = sum(int(np.prod(s)) for s in param_shapes(cfg).values())
+    log(f"train-sharded: {arch} at full width (d {cfg.d_model}, vocab "
+        f"{cfg.vocab}), {layers} of {get_config(arch).n_layers} layers, "
+        f"{n_par / 1e9:.3f}B parameters ({4 * n_par / 1e9:.2f} GB of "
+        f"float32 masters), AdamW, remat {cfg.remat}, ({B},{S}) a step "
+        f"from MarkovLMData(vocab={vocab}, kgram={kgram}), {steps} steps")
+    log("reduced: depth only (2 of 48 layers); one card, so the gloo ranks "
+        "share it and NCCL runs at world size 1")
+
+    single, moved, t_single = _sharded_single(cfg, tcfg, dcfg, key, steps,
+                                              expect)
+    log(f"  [{smi}] (a) single device: step ms "
+        f"{[round(t * 1e3, 1) for t in t_single]}, losses "
+        f"{[round(x, 6) for x, _ in single]}, grad norms "
+        f"{[round(g, 6) for _, g in single]}, movement {moved:.6g}")
+
+    tmp = tempfile.mkdtemp(prefix="repro_torch_train_sharded_")
+    try:
+        def loop_case(mesh, d, every):
+            return dict(kind="loop", mesh=mesh, cfg=cfg, key=key, tcfg=tcfg,
+                        data=dcfg, lcfg=LoopConfig(
+                            total_steps=steps, ckpt_every=every, keep=2,
+                            ckpt_dir=os.path.join(tmp, d), log_every=100))
+
+        world = SHARDED_TRAIN_WORLD
+        mesh_b = ((world,), ("data",))
+        pred_b = sharded_step_collectives(cfg, tcfg, types.SimpleNamespace(
+            axis_names=("data",), shape={"data": world}))
+        t0 = time.perf_counter()
+        gl = spawn(run_train_cases, world, device="cuda", backend="gloo",
+                   args=([loop_case(mesh_b, "gloo", SHARDED_TRAIN_CKPT)],
+                         time.time()), timeout_s=120.0, deadline_s=600.0)
+        wall_b = time.perf_counter() - t0
+        if len(set(gl["digests"])) != 1:
+            raise AssertionError(f"train-sharded (b): the ranks disagree: "
+                                 f"{gl['digests']}")
+        rb, mb = gl["records"][0], [m[0] for m in gl["measures"]]
+        got_b = _check_sharded_run("train-sharded (b) gloo", rb, mb, single,
+                                   moved, steps, expect, pred_b)
+        _log_sharded(f"(b) gloo, {world} ranks on cuda:0", got_b, rb, mb,
+                     gl["times"], wall_b, smi)
+
+        pred_c = sharded_step_collectives(cfg, tcfg, types.SimpleNamespace(
+            axis_names=("data",), shape={"data": 1}))
+        restore = dict(kind="restore", mesh=((1,), ("data",)), cfg=cfg,
+                       tcfg=tcfg, data=dcfg, dir=os.path.join(tmp, "gloo"),
+                       step=SHARDED_TRAIN_CKPT)
+        torch.cuda.set_device(0)
+        t0 = time.perf_counter()
+        with one_rank_group("nccl", timeout_s=120.0):
+            nc = run_train_cases(lane_mesh(1, device="cuda"),
+                                 [loop_case(((1,), ("data",)), "nccl", steps),
+                                  restore])
+        wall_c = time.perf_counter() - t0
+        rc, mc = nc["records"][0], [m[0] for m in nc["measures"]]
+        got_c = _check_sharded_run("train-sharded (c) nccl", rc, mc, single,
+                                   moved, steps, expect, pred_c)
+        _log_sharded("(c) nccl, world size 1", got_c, rc, mc, nc["times"],
+                     wall_c, smi)
+
+        # (d): the gloo run's checkpoint onto world size 1 against the
+        # restore onto no mesh
+        t0 = time.perf_counter()
+        meta = {k: torch.empty(s, device="meta")
+                for k, s in param_shapes(cfg).items()}
+
+        def host(tree):
+            return {k: host(v) for k, v in tree.items()} \
+                if isinstance(tree, dict) else np.empty(0)
+
+        target = {"params": host(meta),
+                  "state": {"opt": host(make_optimizer(tcfg.opt)[0](meta))},
+                  "data": MarkovLMData(dcfg).checkpoint_state()}
+        want = leaf_digests(CheckpointManager(os.path.join(tmp, "gloo"))
+                            .restore(SHARDED_TRAIN_CKPT, target))
+        got = nc["records"][1]["digests"]
+        if got != want:
+            bad = sorted(k for k in want if got.get(k) != want[k])
+            raise AssertionError(f"train-sharded (d): the restore onto the "
+                                 f"NCCL mesh differs from the unsharded one "
+                                 f"at {bad}")
+        rd = nc["measures"][0][1]
+        log(f"  [{smi}] (d) the gloo run's step-{SHARDED_TRAIN_CKPT} "
+            f"checkpoint restored onto world size 1 over NCCL "
+            f"(restore(shardings=)) in {rd['restore_s']:.1f} s, gathered "
+            f"in {rd['gather_s']:.1f} s: {len(want)} leaves equal bit for "
+            f"bit to the restore onto no mesh "
+            f"({time.perf_counter() - t0:.1f} s)")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    total = time.perf_counter() - t_phase
+    log(f"[{smi}] train-sharded: {total:.1f} s (budget "
+        f"{SHARDED_TRAIN_BUDGET_S:.0f} s): gloo group {wall_b:.1f} s, NCCL "
+        f"group {wall_c:.1f} s"
+        + ("" if total <= SHARDED_TRAIN_BUDGET_S else "; OVER ITS BUDGET"))
+    launches = {k: steps * v for k, v in expect.items()}
+    for m in mb + mc:
+        launches = {k: launches[k] + m["launches"][k] for k in launches}
+    rec.setdefault("paths", {})["train-sharded"] = dict(
+        launches=launches, per_step=expect, single=single, single_s=t_single,
+        gloo=dict(record=rb, measures=mb, times=gl["times"], wall_s=wall_b),
+        nccl=dict(record=rc, measures=mc, wall_s=wall_c), wall_s=total)
+
+
+def _log_sharded(label, got, r, measures, times, wall, smi):
+    """One sharded run's readings: step ms a rank (and the median of steps
+    2-n), bytes gathered and reduced a step, collectives a step, peak GB a
+    rank, rank start-up seconds, the loop's and the group's wall
+    seconds."""
+    step = measures[0]["steps"][0]
+    ms = [[round(t * 1e3, 1) for t in m["times"]] for m in measures]
+    med = [round(float(np.median(m["times"][1:])) * 1e3, 1)
+           for m in measures]
+    start = [None if t["start_s"] is None else round(t["start_s"], 1)
+             for t in times]
+    log(f"  [{smi}] {label}: losses {[round(x, 6) for x, _ in got]}, grad "
+        f"norms {[round(g, 6) for _, g in got]}, movement "
+        f"{r['movement']:.6g}; step ms a rank {ms} (median of steps 2-n "
+        f"{med}); a step: {step['collectives']} collectives, "
+        f"{step['gathered_bytes'] / 1e9:.3f} GB gathered, "
+        f"{step['reduced_bytes'] / 1e9:.3f} GB reduced; peak "
+        f"{[round(m.get('peak_gb', 0.0), 2) for m in measures]} GB a rank; "
+        f"ranks started {start} s after the call; the loop "
+        f"{[round(m['s'], 1) for m in measures]} s (checkpoints included); "
+        f"group {wall:.1f} s")
+
+
+# ----------------------------------------------------------------------
 # train-100m: repro's example driver's run on the card
-TRAIN_100M = (300, 8, 128)  # steps, batch, sequence
+TRAIN_100M = (50, 8, 128)  # steps, batch, sequence
 
 
 def phase_train_100m(args, rec):
     """`repro_torch.examples.train_100m` on the card as `repro`'s driver
     configures it (12 layers, d 512, vocab 32768, float32, remat none;
     AdamW on the cosine schedule, 2 accumulated microbatches, async
-    checkpoints every 100 steps into a temporary directory): 300 steps at
-    (8, 128) from `MarkovLMData(vocab=32768, kgram=1)`, its host memory
-    and build time taken first.  Launches of every step exact (twice
+    checkpoints every third of the run into a temporary directory):
+    TRAIN_100M's 50 steps at (8, 128) from `MarkovLMData(vocab=32768,
+    kgram=1)`, its host memory and build time taken first.  Launches of every step exact (twice
     `_train_launches`), the mean loss of the last 10 steps below the
     first 10's, and a restore of the last checkpoint equal to the final
     parameters bit for bit; step time (steps 2-n), tokens/s, model-FLOP
@@ -4236,8 +4540,8 @@ def phase_train_100m(args, rec):
     times, per_step = [], []
     real_make = loop.make_train_step
 
-    def timed_make(model, tcfg):
-        init, step = real_make(model, tcfg)
+    def timed_make(model, tcfg, **kw):
+        init, step = real_make(model, tcfg, **kw)
 
         def run(params, state, batch):
             before = dict(_build.LAUNCHES)
@@ -4410,7 +4714,8 @@ PHASES = {"device": phase_device, "kernels": phase_kernels,
           "serve-moe": phase_serve_moe, "serve-media": phase_serve_media,
           # after the serve phases: a short trace taken after a train step's
           # long one came back empty on the card (PERF.md section 7)
-          "train": phase_train, "train-ssm": phase_train_ssm,
+          "train": phase_train, "train-sharded": phase_train_sharded,
+          "train-ssm": phase_train_ssm,
           "train-hybrid": phase_train_hybrid,
           "train-100m": phase_train_100m, "zoo": phase_zoo}
 SERVE_PHASES = ("serve", "serve-events", "serve-compiled", "serve-sharded",

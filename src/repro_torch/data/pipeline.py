@@ -33,8 +33,13 @@ class MarkovLMData:
         V = cfg.vocab
         # k-gram context: harder sources separate model capacities
         n_ctx = V ** max(1, cfg.kgram)
-        logits = rng.gumbel(size=(n_ctx, V)) * 2.0
-        self.trans = np.exp(logits) / np.exp(logits).sum(1, keepdims=True)
+        # repro's exp(2 g) / sum(exp(2 g)), each step in place: the same
+        # values in a third of the peak host memory
+        trans = rng.gumbel(size=(n_ctx, V))
+        trans *= 2.0
+        np.exp(trans, out=trans)
+        trans /= trans.sum(1, keepdims=True)
+        self.trans = trans
         self.state = {"step": 0}
 
     def checkpoint_state(self) -> dict:

@@ -1,2 +1,2 @@
 """Model stack of the port (`repro.models` counterpart)."""
-from repro_torch.models.transformer import build_model  # noqa: F401
+from repro_torch.models.transformer import build_model, param_shapes  # noqa: F401

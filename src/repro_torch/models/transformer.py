@@ -805,7 +805,8 @@ class _TrainForm(nn.Module):
     def __init__(self, cfg: ArchConfig, device):
         super().__init__()
         self.cfg = cfg
-        self._dev = resolve_device(device)
+        # None: the leaves' specs only, no masters (`param_shapes`)
+        self._dev = None if device is None else resolve_device(device)
         self._dt = compute_dtype(cfg)
         self._specs: dict = {}
 
@@ -823,7 +824,11 @@ class _TrainForm(nn.Module):
         return tpl, names
 
     def _make_masters(self) -> None:
+        """Allocate a zero master for every leaf of the specs (none when
+        the form was built for its shapes alone)."""
         self.use_dtype = {k: t for k, (_, t) in self._specs.items()}
+        if self._dev is None:
+            return
         self.masters = nn.ParameterDict({
             k: nn.Parameter(torch.zeros(self._specs[k][0], device=self._dev))
             for k in sorted(self._specs)})
@@ -873,7 +878,9 @@ class TrainModel(_TrainForm):
     caller asks for "cpu"), its masters as `_TrainForm` keeps them (no
     ``unembed`` with tied embeddings, the VLM's ``patch_proj``).
     `forward` records the graph for autograd; serve a trained model through
-    `models.convert` (``params_from_jax(cfg, params_to_numpy(model))``)."""
+    `models.convert` (``params_from_jax(cfg, params_to_numpy(model))``).
+    ``device=None`` builds the leaves' specs alone, with no masters
+    (`param_shapes`)."""
 
     def __init__(self, cfg: ArchConfig, *, device: str | torch.device = "cuda"):
         super().__init__(cfg, device)
@@ -992,7 +999,8 @@ class TrainEncDecModel(_TrainForm):
     V), ``enc_norm``, ``final_norm`` and the stacked ``enc_layers@...``
     and ``dec_layers@...`` leaves; ``remat="full"`` checkpoints each
     encoder and each decoder layer (the decoder layer's cross keys and
-    values recomputed inside it)."""
+    values recomputed inside it).  ``device=None``: specs alone, as
+    `TrainModel`."""
 
     def __init__(self, cfg: ArchConfig, *, device: str | torch.device = "cuda"):
         super().__init__(cfg, device)
@@ -1047,6 +1055,16 @@ class TrainEncDecModel(_TrainForm):
         nll = _xent_full(x, self.unembed_matrix(), labels,
                          (labels >= 0).float())
         return nll, {"nll": nll, "aux": torch.zeros((), device=x.device)}
+
+
+def param_shapes(cfg: ArchConfig) -> dict[str, tuple[int, ...]]:
+    """The training form's master keys and shapes for ``cfg`` (`TrainModel`
+    or `TrainEncDecModel`, in `repro`'s leaf order), from the same specs
+    the form allocates its masters from, without allocating: any config,
+    Arctic-480B's full one included."""
+    cls = TrainEncDecModel if cfg.encdec is not None else TrainModel
+    form = cls(cfg, device=None)
+    return {k: form._specs[k][0] for k in sorted(form._specs)}
 
 
 def build_model(cfg: ArchConfig, *, device: str | torch.device = "cuda",

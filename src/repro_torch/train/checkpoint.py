@@ -10,7 +10,10 @@ package writes restores into the other:
   writes on a background thread;
 - **integrity**: every leaf's checksum is verified on restore;
 - retention of the newest ``keep`` checkpoints, and
-  `install_preemption_handler` for an emergency save on SIGTERM / SIGINT.
+  `install_preemption_handler` for an emergency save on SIGTERM / SIGINT;
+- **elastic restore**: leaves are stored whole, whatever mesh wrote them,
+  and ``restore(shardings=)`` returns each as this rank's shard under a
+  `repro_torch.dist.Sharding`, onto a mesh of any size.
 
 A tree is nested dicts (and lists / tuples) of tensors, numpy arrays or
 Python numbers.  A bfloat16 leaf, which numpy cannot hold, is stored as
@@ -26,6 +29,7 @@ import re
 import shutil
 import signal
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Callable
 
 import numpy as np
@@ -65,7 +69,14 @@ def _flatten(tree) -> dict[str, tuple[np.ndarray, str]]:
 
 
 def _checksum(a: np.ndarray) -> str:
-    return hashlib.sha256(a.tobytes()).hexdigest()[:16]
+    """sha256 prefix of the leaf's bytes in C order (hashed in place)."""
+    return hashlib.sha256(np.ascontiguousarray(a).data).hexdigest()[:16]
+
+
+def _pool() -> ThreadPoolExecutor:
+    """Threads for the leaves' file reads and checksums, which release
+    the GIL: a 10 GB checkpoint hashes at one core's ~0.8 GB/s."""
+    return ThreadPoolExecutor(min(8, os.cpu_count() or 1))
 
 
 def _rebuild(tree, leaves):
@@ -109,15 +120,17 @@ class CheckpointManager:
             shutil.rmtree(tmp)
         os.makedirs(tmp)
         manifest = {"step": step, "leaves": {}}
-        for key, (arr, dtype) in host.items():
-            fname = hashlib.md5(key.encode()).hexdigest()[:20] + ".npy"
-            np.save(os.path.join(tmp, fname), arr)
-            manifest["leaves"][key] = {
-                "file": fname,
-                "shape": list(arr.shape),
-                "dtype": dtype,
-                "sha": _checksum(arr),
-            }
+        with _pool() as pool:
+            shas = pool.map(_checksum, [arr for arr, _ in host.values()])
+            for (key, (arr, dtype)), sha in zip(host.items(), shas):
+                fname = hashlib.md5(key.encode()).hexdigest()[:20] + ".npy"
+                np.save(os.path.join(tmp, fname), arr)
+                manifest["leaves"][key] = {
+                    "file": fname,
+                    "shape": list(arr.shape),
+                    "dtype": dtype,
+                    "sha": sha,
+                }
         with open(os.path.join(tmp, "manifest.json"), "w") as f:
             json.dump(manifest, f)
         if os.path.exists(final):
@@ -146,30 +159,56 @@ class CheckpointManager:
         steps = self.list_steps()
         return steps[-1] if steps else None
 
-    def restore(self, step: int, target: Any, *, verify: bool = True) -> Any:
+    def restore(self, step: int, target: Any, *, shardings: Any = None,
+                verify: bool = True) -> Any:
         """Restore into the structure of ``target``: a tensor leaf of
         ``target`` comes back as a tensor on its device (in the stored
-        dtype), any other leaf as a numpy array."""
+        dtype), any other leaf as a numpy array.  ``shardings`` (a tree of
+        `repro_torch.dist.Sharding` of ``target``'s structure, as
+        `repro_torch.dist.sharding_tree` gives, or one `Sharding` for every
+        leaf) returns every leaf instead as this rank's shard under it, a
+        tensor on its mesh's device: the elastic restore onto a mesh other
+        than the one that wrote the checkpoint.  Checksums are verified
+        first either way."""
         path = os.path.join(self.dir, f"step_{step:08d}")
         with open(os.path.join(path, "manifest.json")) as f:
             manifest = json.load(f)
-        leaves = []
-        for p, leaf in _items(target):
-            key = _SEP.join(p)
+        one = _is_sharding(shardings)
+        by_key = {} if shardings is None or one else {
+            _SEP.join(p): sh for p, sh in _items(shardings)}
+
+        def load(key):
             meta = manifest["leaves"][key]
             arr = np.load(os.path.join(path, meta["file"]))
             if verify and _checksum(arr) != meta["sha"]:
                 raise IOError(f"checksum mismatch for {key}")
-            if meta["dtype"] == _BF16:
+            return meta["dtype"], arr
+
+        def leaf(key, like, dtype, arr):
+            t = arr
+            if dtype == _BF16:
                 t = torch.from_numpy(np.ascontiguousarray(
                     arr.view(np.int16))).view(torch.bfloat16)
-                leaves.append(t.to(leaf.device) if isinstance(
-                    leaf, torch.Tensor) else t)
-            elif isinstance(leaf, torch.Tensor):
-                leaves.append(torch.from_numpy(arr).to(leaf.device))
-            else:
-                leaves.append(arr)
+            elif isinstance(like, torch.Tensor) or shardings is not None:
+                t = torch.from_numpy(arr)
+            if shardings is None:
+                return t.to(like.device) if isinstance(like, torch.Tensor) \
+                    else t
+            try:
+                return (shardings if one else by_key[key]).shard(t)
+            except ValueError as e:
+                raise ValueError(f"leaf {key!r}: {e}") from None
+
+        items = [(_SEP.join(p), like) for p, like in _items(target)]
+        with _pool() as pool:
+            loaded = pool.map(load, [k for k, _ in items])
+            leaves = [leaf(k, like, *got)
+                      for (k, like), got in zip(items, loaded)]
         return _rebuild(target, iter(leaves))
+
+
+def _is_sharding(x) -> bool:
+    return hasattr(x, "mesh") and hasattr(x, "spec")
 
 
 def install_preemption_handler(save_fn: Callable[[], None]):

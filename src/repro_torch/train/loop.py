@@ -11,6 +11,14 @@ manager, with
 
 A step's time is taken after the loss's device has finished it (a
 synchronise where `repro` waits with ``block_until_ready``).
+
+With ``mesh=`` the loop shards after restore-on-start, as `repro` does:
+each rank keeps its shards of the masters and the optimizer state
+(`repro_torch.dist.fsdp`) and steps with the sharded step.  A checkpoint
+of a sharded run is the same files and manifest as an unsharded one: the
+leaves are gathered to rank 0 and written by it alone, so either
+restores into the other, onto any number of ranks
+(`CheckpointManager.restore(shardings=)`).
 """
 from __future__ import annotations
 
@@ -22,6 +30,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.dist import fsdp
 from repro_torch.train.checkpoint import (CheckpointManager,
                                           install_preemption_handler)
 from repro_torch.train.step import TrainConfig, make_train_step
@@ -59,18 +68,48 @@ def train(
     lcfg: LoopConfig,
     *,
     device: str | torch.device = "cuda",
+    key=None,
+    mesh=None,
+    params=None,
     handle_preemption: bool = False,
     log: Callable[[str], None] = print,
 ) -> dict:
-    """Train ``model`` (a `TrainModel` on ``device``, "cuda" unless the
-    caller asks for "cpu") on ``data`` for ``lcfg.total_steps`` steps,
-    resuming from the latest checkpoint in ``lcfg.ckpt_dir`` if there is
-    one.  Returns {"params", "state", "losses", "straggler_events",
+    """Train ``model`` (a `TrainModel` or `TrainEncDecModel` on ``device``,
+    "cuda" unless the caller asks for "cpu") on ``data`` for
+    ``lcfg.total_steps`` steps, resuming from the latest checkpoint in
+    ``lcfg.ckpt_dir`` if there is one.
+
+    - ``key``: an int seed (or a ``torch.Generator``) that draws the
+      masters (`TrainModel.init`) first; None keeps the model's own;
+    - ``params``: a master dict (tensors or numpy arrays by the model's
+      keys, e.g. ``params_to_numpy``'s leaves or a carried `repro` tree
+      flattened) the run starts from, copied in after ``key``;
+    - ``mesh``: a `repro_torch.dist.TrainMesh` on the model's device;
+      every rank of it calls ``train`` with the same arguments, and the
+      returned params and state are this rank's shards.
+
+    Returns {"params", "state", "losses", "metrics" (each step's metrics
+    as host numbers), "times" (each step's seconds), "straggler_events",
     "manager"}."""
     dev = resolve_device(device)
     if model.device.type != dev.type:
         raise ValueError(f"train on {dev} got a model on {model.device}")
-    init_state, train_step = make_train_step(model, tcfg)
+    if mesh is not None and mesh.device != model.device:
+        raise ValueError(f"the mesh computes on {mesh.device}, the model "
+                         f"lies on {model.device}")
+    if key is not None:
+        gen = key if isinstance(key, torch.Generator) else \
+            torch.Generator(device=model.device).manual_seed(int(key))
+        model.init(gen)
+    if params is not None:
+        masters = model.params()
+        if set(params) != set(masters):
+            raise ValueError("params must hold exactly the model's master "
+                             f"keys; differ: {set(params) ^ set(masters)}")
+        _copy_into(masters, {k: v if isinstance(v, torch.Tensor) else
+                             torch.from_numpy(np.array(v, np.float32))
+                             for k, v in params.items()})
+    init_state, train_step = make_train_step(model, tcfg, mesh=mesh)
     params = model.params()
     state = init_state(params)
     mgr = CheckpointManager(lcfg.ckpt_dir, keep=lcfg.keep)
@@ -88,18 +127,35 @@ def train(
         start_step = latest
         log(f"[restore] resumed from step {latest}")
 
+    if mesh is not None:
+        pspecs, sspecs = fsdp.train_specs(model.cfg, tcfg.opt, mesh)
+        params = fsdp.shard_masters(model, pspecs, mesh)
+        state = fsdp.shard_tree(state, sspecs, mesh)
+
+    def save(step: int, blocking: bool) -> None:
+        if mesh is None:
+            mgr.save(step, {"params": params, "state": state,
+                            "data": data.checkpoint_state()},
+                     blocking=blocking)
+            return
+        tree = {"params": fsdp.gather_tree(params, pspecs, mesh, "cpu",
+                                           root=True),
+                "state": fsdp.gather_tree(state, sspecs, mesh, "cpu",
+                                          root=True),
+                "data": data.checkpoint_state()}
+        if mesh.rank == 0:
+            mgr.save(step, tree, blocking=blocking)
+
     def emergency_save():
         mgr.wait()
-        mgr.save(lcfg.total_steps + 10**6,
-                 {"params": params, "state": state,
-                  "data": data.checkpoint_state()}, blocking=True)
+        save(lcfg.total_steps + 10**6, blocking=True)
 
     if handle_preemption:
         install_preemption_handler(emergency_save)
 
     times: list[float] = []
     straggler_events = 0
-    losses = []
+    losses, history = [], []
     for step in range(start_step, lcfg.total_steps):
         batch = data.next_batch()
         t0 = time.perf_counter()
@@ -112,20 +168,21 @@ def train(
             log(f"[watchdog] step {step} took {dt:.3f}s "
                 f"(median {np.median(times):.3f}s) — straggler event")
         times.append(dt)
-        losses.append(float(metrics["loss"]))
+        history.append({k: float(v) if isinstance(v, torch.Tensor) else v
+                        for k, v in metrics.items()})
+        losses.append(history[-1]["loss"])
         if (step + 1) % lcfg.log_every == 0:
             log(f"step {step+1}: loss={losses[-1]:.4f} "
-                f"lr={float(metrics['lr']):.2e} {dt*1e3:.0f}ms")
+                f"lr={history[-1]['lr']:.2e} {dt*1e3:.0f}ms")
         if (step + 1) % lcfg.ckpt_every == 0 or step + 1 == lcfg.total_steps:
-            mgr.save(step + 1,
-                     {"params": params, "state": state,
-                      "data": data.checkpoint_state()},
-                     blocking=not lcfg.async_ckpt)
+            save(step + 1, blocking=not lcfg.async_ckpt)
     mgr.wait()
     return {
         "params": params,
         "state": state,
         "losses": losses,
+        "metrics": history,
+        "times": times,
         "straggler_events": straggler_events,
         "manager": mgr,
     }

@@ -9,11 +9,15 @@ leaf: decoupled weight decay where ``p.ndim >= 2`` (a stacked per-layer
 norm scale is decayed, ``final_norm`` is not), Adafactor's factoring of
 the last two axes and its one update-RMS clip per leaf, and the int8
 moment blocks of 256 over the flattened leaf.  The arithmetic is
-`repro`'s, op for op, in float32.  ``update`` writes the new parameters
-into the given tensors in place (the port keeps one float32 master set,
-where `repro` returns a new tree) and returns them with the new state;
-AdamW also updates its float32 moments and scales the given gradients in
-place, so that a step holds no second copy of a leaf's state.
+`repro`'s, op for op, in float32.  ``update(grads, state, params,
+gnorm=None)`` takes the global gradient norm from the caller when a
+sharded step has summed it across ranks (`whole_leaves` names the leaves
+whose rule it must run on the whole leaf).  ``update`` writes the new
+parameters into the given tensors in place (the port keeps one float32
+master set, where `repro` returns a new tree) and returns them with the
+new state; AdamW also updates its float32 moments and scales the given
+gradients in place, so that a step holds no second copy of a leaf's
+state.
 """
 from __future__ import annotations
 
@@ -135,11 +139,11 @@ def adamw(cfg: OptConfig):
                 "v": {k: zeros(p, _quant_log) for k, p in params.items()}}
 
     @torch.no_grad()
-    def update(grads: dict, state: dict, params: dict):
+    def update(grads: dict, state: dict, params: dict, gnorm=None):
         step = state["step"] + 1
         stepf = step.float()
         lr = cosine_lr(cfg, stepf)
-        gnorm = _global_norm(grads)
+        gnorm = _global_norm(grads) if gnorm is None else gnorm
         scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
         bc1 = 1 - _f32(cfg.b1) ** stepf
         bc2 = 1 - _f32(cfg.b2) ** stepf
@@ -196,11 +200,11 @@ def adafactor(cfg: OptConfig):
                 "v": {k: st(p) for k, p in params.items()}}
 
     @torch.no_grad()
-    def update(grads: dict, state: dict, params: dict):
+    def update(grads: dict, state: dict, params: dict, gnorm=None):
         step = state["step"] + 1
         stepf = step.float()
         lr = cosine_lr(cfg, stepf)
-        gnorm = _global_norm(grads)
+        gnorm = _global_norm(grads) if gnorm is None else gnorm
         scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
         decay = 1.0 - stepf ** -0.8
         new_v = {}
@@ -230,6 +234,23 @@ def adafactor(cfg: OptConfig):
             {"lr": lr, "grad_norm": gnorm}
 
     return init, update
+
+
+def whole_leaves(cfg: OptConfig, shapes: dict) -> set:
+    """The keys of ``shapes`` (a master dict or a dict of shapes) whose
+    update rule reads the whole leaf, which a sharded step therefore
+    gathers, updates whole and cuts back to its shard: every Adafactor
+    leaf (the factored second moment's row and column means, and the
+    update-RMS clip of each leaf) and, with quantized moments, every AdamW
+    leaf of at least ``quant_block`` values (its int8 blocks run over the
+    flattened leaf).  Every other leaf's rule is elementwise, with the
+    global gradient norm passed in, and runs on the shards."""
+    size = {k: math.prod(getattr(v, "shape", v)) for k, v in shapes.items()}
+    if cfg.kind == "adafactor":
+        return set(size)
+    if cfg.quantize_moments:
+        return {k for k, n in size.items() if n >= cfg.quant_block}
+    return set()
 
 
 def _device(params: dict) -> torch.device:
