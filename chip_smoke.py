@@ -11,6 +11,7 @@
     python3 chip_smoke.py --phases device,serve-compiled,train-100m
     python3 chip_smoke.py --phases device,serve-sharded
     python3 chip_smoke.py --phases device,train-sharded
+    python3 chip_smoke.py --phases device,train-pipe
 
 Phases (any failure exits non-zero and prints no result):
 
@@ -118,7 +119,7 @@ Phases (any failure exits non-zero and prints no result):
                under `torch.profiler`;
 12. train-sharded — FSDP-style sharded training (`repro_torch.dist.fsdp`,
                ``train(mesh=)``): Yi-9B at full width, 2 layers, (2, 2048),
-               3 steps, AdamW: (a) the single-device step on the card, (b)
+               2 steps, AdamW: (a) the single-device step on the card, (b)
                2 ranks on the card over gloo (collectives staged through
                the host) running ``train(mesh=)`` with a checkpoint at
                step 2, (c) the same at world size 1 over NCCL, each held
@@ -127,9 +128,20 @@ Phases (any failure exits non-zero and prints no result):
                checkpoint restored onto the NCCL mesh
                (``restore(shardings=)``) equal bit for bit to the restore
                onto no mesh;
-13. train-ssm — the same for Mamba2-1.3B at full width and depth, (1, 2048),
+13. train-pipe — the GPipe pipeline (`repro_torch.dist.pipeline`):
+               Yi-9B at full width, 4 layers in 2 stages, 4 microbatches
+               of (1, 2048), 3 passes of forward and backward: (a) the
+               microbatches one after the other on the card, (b) 2 ranks
+               on the card over gloo, one a stage, the hops staged
+               through the host, (c) one stage at world size 1 over NCCL;
+               (b) and (c) held to (a) (hidden states, loss, every
+               gradient), launches and collectives per rank exact; beside
+               them ``python -m repro_torch.launch.train --steps 4``
+               (its last line and checkpoint) and ``python -m
+               repro_torch.launch.serve --help``;
+14. train-ssm — the same for Mamba2-1.3B at full width and depth, (1, 2048),
                3 steps (the SSD kernel forward, the plain recompute back);
-14. train-hybrid — the same for Zamba2-2.7B at full width and depth, (1,
+15. train-hybrid — the same for Zamba2-2.7B at full width and depth, (1,
                2048), 3 steps (checkpointed layers inside checkpointed
                groups), then one step of a full-width, 1-layer copy of
                Mistral-NeMo-12B, MiniCPM3-4B, Granite-MoE (the loss with
@@ -138,14 +150,15 @@ Phases (any failure exits non-zero and prints no result):
                exact; then Whisper-base whole, (2, 448)
                tokens over 1500 frames, 3 steps, one held against its
                float32 CPU copy;
-15. train-100m — `repro_torch.examples.train_100m` as `repro`'s example
+16. train-100m — `repro_torch.examples.train_100m` as `repro`'s example
                sets it (12 layers, d 512, vocab 32768, float32) for 50
-               steps at (8, 128), 2 microbatches, async checkpoints every
-               third of the run: launches of every step exact, the loss falling,
+               steps at (8, 128) of a 256-symbol Markov source, 2
+               microbatches, async checkpoints every third of the run:
+               launches of every step exact, the loss falling,
                the last checkpoint restored bit for bit; step time, tokens/s,
                float32 model-FLOP share, and the data source's host memory
                and build time;
-16. zoo      — `build_zoo` with `repro`'s ladder on the card (its launches
+17. zoo      — `build_zoo` with `repro`'s ladder on the card (its launches
                exact), held-out accuracy rising from zoo-s to zoo-m to
                zoo-l, then the end-to-end example's loop
                (`repro_torch.examples.serve_workflow`, ``--requests 24
@@ -611,6 +624,10 @@ def check_trie_plan(rec):
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     err = 0.0
+    # a cold graph calls once per copy of 64 MB of operands, 36,955 calls
+    # at a served shape: timed once per operand size (preset, lanes), so
+    # "served, round 1" (the served operands, other prefixes) has none
+    cold_sizes, cold_s = set(), 0.0
     for label, name, lanes, prefixes in PLAN_SHAPES:
         c = _plan_case(name, lanes, seed=lanes, prefixes=prefixes)
         N = c["trie"].n_nodes
@@ -653,11 +670,16 @@ def check_trie_plan(rec):
             raise AssertionError(f"{where}: the generic path != plain")
         log(f"  {where} max_acc, counts rows unaligned (generic path): exact")
         scalars = a[len(_plan_tensors(c)):]
-        cold = cold_inputs(*_plan_tensors(c))
         ms = graph_ms(lambda: trie_plan_cuda(*a, **kw))
-        cold_ms = graph_ms(lambda *t: trie_plan_cuda(*t, *scalars, **kw),
-                           inputs=cold)
-        del cold
+        cold_ms = None
+        if (name, lanes) not in cold_sizes:
+            cold_sizes.add((name, lanes))
+            t_cold = time.perf_counter()
+            cold = cold_inputs(*_plan_tensors(c))
+            cold_ms = graph_ms(lambda *t: trie_plan_cuda(*t, *scalars, **kw),
+                               inputs=cold)
+            del cold
+            cold_s += time.perf_counter() - t_cold
         plain_ms = graph_ms(lambda: fleet_plan_blocked(*a, **kw))
         b_ms, b_by = bound(*_plan_work(c, obj), F32_OPS)
         split = tmod.split_plan(lanes, N, sms)
@@ -681,8 +703,11 @@ def check_trie_plan(rec):
             plans=plans)
         log(f"  {where}, {prefixes} prefixes ({split.splits} split(s), "
             f"{split.lanes_per_block} lanes a block): kernel {ms:.4f} ms "
-            f"(cold L2 {cold_ms:.4f}), plain {plain_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by}; a launch in "
-            f"a graph alone takes ~0.0017)")
+            f"(cold L2 "
+            + ("not timed: the operands' size of an earlier shape"
+               if cold_ms is None else f"{cold_ms:.4f}")
+            + f"), plain {plain_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by}; a "
+            f"launch in a graph alone takes ~0.0017)")
         if label == "served":  # the main path's shape
             rec["kernels"]["trie_plan"] = dict(
                 ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
@@ -718,7 +743,7 @@ def check_trie_plan(rec):
                     f"-inf)")
     rec["kernels"]["trie_plan"]["max_abs_err"] = err
     log("trie_plan: exact against the plain versions and the host at every "
-        "shape and lane form, tol 0")
+        f"shape and lane form, tol 0; the cold graphs took {cold_s:.1f} s")
 
 
 def _attn_pairs(Sq, Sk, causal, window):
@@ -3934,6 +3959,27 @@ def _train_launches(cfg) -> dict:
     return out
 
 
+def _pipe_launches(cfg, n_stages: int, n_micro: int, stage: int) -> dict:
+    """Kernel launches of one pipelined loss-and-gradient on stage
+    ``stage`` of ``n_stages`` (`repro_torch.dist.pipeline_runs`): each of
+    the stage's L / n_stages layers runs forward at every one of the
+    n_micro + n_stages - 1 ticks, and backward (under ``remat="full"`` its
+    forward again first) at every tick but the last, the last stage's at
+    every tick; the final norm runs once, on the replicated result.  A
+    layer's forward is what remat adds to `_train_launches`."""
+    ticks = n_micro + n_stages - 1
+    back = ticks - 1 + (stage == n_stages - 1)
+    one = dataclasses.replace(cfg, n_layers=1)
+    train = _train_launches(one)
+    full, plain = (_train_launches(dataclasses.replace(one, remat=r))
+                   for r in ("full", "none"))
+    fwd = {k: full[k] - plain[k] for k in full}
+    per = cfg.n_layers // n_stages
+    norm = {k: int(k == "rms_norm") for k in train}
+    return {k: per * (back * (train[k] - norm[k]) + (ticks - back) * fwd[k])
+            + norm[k] for k in train}
+
+
 def _train_check(model, label, rec):
     """A copy of ``model`` cut to its first TRAIN_CHECK layers (the
     hybrid: one group of attn_every layers; shared weights whole), held by
@@ -4234,8 +4280,10 @@ def phase_train_hybrid(args, rec):
 
 # ----------------------------------------------------------------------
 # train-sharded: FSDP-style sharded training (repro_torch.dist.fsdp)
-# (arch, layers, (batch, sequence), steps): full width, depth cut
-SHARDED_TRAIN = ("yi-9b", 2, (2, 2048), 3)
+# (arch, layers, (batch, sequence), steps): full width, depth cut; 2
+# steps, so each run writes one 10.4 GB checkpoint (was 3 steps and two,
+# a cut made for phase train-pipe)
+SHARDED_TRAIN = ("yi-9b", 2, (2, 2048), 2)
 SHARDED_TRAIN_CKPT = 2         # the gloo run checkpoints at this step
 SHARDED_TRAIN_WORLD = 2        # gloo ranks on cuda:0
 # relative: loss, grad norm, parameter movement (tests/test_dist.py's)
@@ -4313,11 +4361,11 @@ def phase_train_sharded(args, rec):
     """FSDP-style sharded training on the card (`repro_torch.dist.fsdp`,
     ``train(mesh=)``): Yi-9B at full width, SHARDED_TRAIN's 2 layers,
     float32 masters, AdamW, remat, a (2, 2048) batch a step from the
-    Markov source, 3 steps.  (a) the single-device step on cuda:0 in this
+    Markov source, 2 steps.  (a) the single-device step on cuda:0 in this
     process; (b) SHARDED_TRAIN_WORLD ranks on cuda:0 over gloo (NCCL
     refuses two ranks on one card; every collective goes through host
     copies), ``("data",)`` mesh, ``train(mesh=)`` checkpointing at step
-    SHARDED_TRAIN_CKPT and its last; (c) the same at world size 1 over
+    SHARDED_TRAIN_CKPT (its last); (c) the same at world size 1 over
     NCCL in this process (`one_rank_group`), and there (d) a restore of
     (b)'s step-2 checkpoint onto that mesh (``restore(shardings=)``), whose
     every gathered leaf must equal the restore onto no mesh bit for bit.
@@ -4481,6 +4529,373 @@ def _log_sharded(label, got, r, measures, times, wall, smi):
 
 
 # ----------------------------------------------------------------------
+# train-pipe: the GPipe pipeline (repro_torch.dist.pipeline) and the
+# launchers
+# (arch, layers, stages, microbatches, (batch, sequence) a microbatch):
+# full width, depth cut
+PIPE_TRAIN = ("yi-9b", 4, 2, 4, (1, 2048))
+PIPE_PASSES = 3                 # one cold, two timed
+PIPE_WORLD = 2                  # gloo ranks on cuda:0, one a stage
+# where the pipelined runs are not equal to the sequential one bit for
+# bit (the same kernels at the same shapes on the same card): relative,
+# the loss, and each gradient leaf and the hidden states (L2)
+PIPE_TOL = (2e-4, 1e-2)
+PIPE_BUDGET_S = 45.0
+LAUNCH_TRAIN_STEPS = 4          # python -m repro_torch.launch.train
+LAUNCH_LINE = re.compile(r"^final loss (\d+\.\d{4}); checkpoints: "
+                         r"\[(.*)\]$")
+
+
+def _launchers(tmp):
+    """Start the two module entry points as subprocesses: the train
+    launcher on the card (the SMOKE Yi-9B, LAUNCH_TRAIN_STEPS steps,
+    checkpoints into ``tmp``) and the serve launcher's ``--help`` (it runs
+    the example phase zoo drives in process)."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(filter(None, (
+        str(ROOT / "src"), os.environ.get("PYTHONPATH")))))
+    cmds = {"train": [sys.executable, "-m", "repro_torch.launch.train",
+                      "--steps", str(LAUNCH_TRAIN_STEPS), "--device", "cuda",
+                      "--ckpt-dir", os.path.join(tmp, "launch")],
+            "serve": [sys.executable, "-m", "repro_torch.launch.serve",
+                      "--help"]}
+    return {k: (subprocess.Popen(c, cwd=ROOT, env=env, text=True,
+                                 stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE), time.perf_counter())
+            for k, c in cmds.items()}
+
+
+def _check_launchers(procs, smi):
+    """The launchers' exit codes and lines: the train launcher's last line
+    is `repro`'s with the checkpoint `repro`'s arithmetic keeps (every
+    max(steps // 2, 10) steps and the last: LAUNCH_TRAIN_STEPS alone);
+    the serve launcher's help names the example's flags."""
+    out = {}
+    for k, (p, t0) in procs.items():
+        try:
+            stdout, stderr = p.communicate(timeout=300)
+        finally:
+            if p.poll() is None:
+                p.kill()
+        if p.returncode != 0:
+            raise AssertionError(f"train-pipe: launch.{k} exited "
+                                 f"{p.returncode}: {stderr[-2000:]}")
+        out[k] = (stdout.strip().splitlines(), time.perf_counter() - t0)
+    lines, train_s = out["train"]
+    m = LAUNCH_LINE.match(lines[-1]) if lines else None
+    if not m or m.group(2) != str(LAUNCH_TRAIN_STEPS):
+        raise AssertionError(f"train-pipe: launch.train's last line "
+                             f"{lines[-1:]} is not repro's with checkpoints "
+                             f"[{LAUNCH_TRAIN_STEPS}]")
+    help_text = "\n".join(out["serve"][0])
+    if not all(f in help_text for f in ("--device", "--requests",
+                                        "--profile-runs")):
+        raise AssertionError("train-pipe: launch.serve --help does not "
+                             "name the example's flags")
+    log(f"  [{smi}] python -m repro_torch.launch.train --steps "
+        f"{LAUNCH_TRAIN_STEPS} --device cuda: {lines[-1]!r}; python -m "
+        f"repro_torch.launch.serve --help: the example's flags (both done "
+        f"within {max(train_s, out['serve'][1]):.1f} s of their start, "
+        f"beside (a), (b) and (c))")
+
+
+def _same_or_close(label, got, want, tol) -> str:
+    """'equal' when ``got`` equals ``want`` (as values, on ``want``'s
+    device), else their relative L2 difference, which must be within
+    ``tol``."""
+    import torch
+
+    got = got.to(want.device)
+    if got.shape != want.shape:
+        raise AssertionError(f"{label}: shape {tuple(got.shape)} against "
+                             f"{tuple(want.shape)}")
+    if torch.equal(got, want):
+        return "equal"
+    err = float((got.float() - want.float()).norm() /
+                want.float().norm().clamp(min=1e-30))
+    if err > tol:
+        raise AssertionError(f"{label}: relative L2 difference {err:.3g} "
+                             f"> {tol}")
+    return f"{err:.2e}"
+
+
+def _hold_pipe(label, losses, hidden, grads, ref, smi) -> None:
+    """A pipelined run against (a): every pass's loss, the hidden states and
+    every master's gradient equal to (a)'s, or within PIPE_TOL."""
+    tl, tg = PIPE_TOL
+    wl = ref["losses"][0]
+    for x in losses:
+        if x != wl and abs(x - wl) > tl * abs(wl):
+            raise AssertionError(f"{label}: loss {x} against (a)'s {wl}")
+    res = {"hidden": _same_or_close(f"{label} hidden", hidden,
+                                    ref["hidden"], tg)}
+    for k, g in ref["grads"].items():
+        res[k] = _same_or_close(f"{label} gradient {k}", grads[k], g, tg)
+    diff = {k: v for k, v in res.items() if v != "equal"}
+    log(f"  [{smi}] {label}: losses {losses} "
+        f"({'equal to' if set(losses) == {wl} else 'within tol of'} (a)'s); "
+        f"hidden and {len(ref['grads'])} gradient leaves "
+        + ("all equal to (a)'s" if not diff else
+           f"equal but {diff} (relative L2, tol {tg})"))
+
+
+def _pipe_setup() -> dict:
+    """PIPE_TRAIN's case: ``cfg`` (Yi-9B at full width cut to its layers),
+    ``batch`` (its microbatches' tokens from TRAIN_DATA's Markov source),
+    ``key`` (the masters' seed), ``n_micro`` and ``micro_bytes`` (a bf16
+    microbatch's)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, MarkovLMData
+
+    arch, layers, _, n_micro, (mb, S) = PIPE_TRAIN
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+    vocab, kgram = TRAIN_DATA
+    batch = MarkovLMData(DataConfig(vocab=vocab, seq_len=S,
+                                    batch=n_micro * mb, seed=SEED,
+                                    kgram=kgram)).next_batch()
+    return dict(cfg=cfg, batch=batch, key=SEED + 80, n_micro=n_micro,
+                micro_bytes=mb * S * cfg.d_model * 2)
+
+
+def _check_pipe_passes(label, passes, n, s, pipe) -> None:
+    """Every pass of stage ``s`` of ``n``: its launches `_pipe_launches`,
+    its collectives and bytes `pass_collectives` / `pass_bytes`."""
+    from repro_torch.dist.pipeline import pass_bytes, pass_collectives
+
+    n_micro = pipe["n_micro"]
+    launches = _pipe_launches(pipe["cfg"], n, n_micro, s)
+    want = (pass_collectives(n, n_micro),
+            pass_bytes(n, n_micro, pipe["micro_bytes"]))
+    for i, p in enumerate(passes):
+        if p["launches"] != launches:
+            raise AssertionError(f"{label}: pass {i + 1} launched "
+                                 f"{p['launches']}, expected {launches}")
+        if (p["collectives"], p["bytes"]) != want:
+            raise AssertionError(f"{label}: pass {i + 1} issued "
+                                 f"{p['collectives']} collectives, "
+                                 f"{p['bytes']} bytes, expected {want}")
+
+
+def _pipe_sequential(pipe, smi):
+    """(a): the microbatches of ``pipe`` (`_pipe_setup`) one after the
+    other through all its layers on cuda:0 in this process.  Returns (the
+    model, its stage body and layer leaves, the reference {losses,
+    hidden, grads}, the passes' measures)."""
+    from repro_torch.dist.pipeline_runs import (layer_stage, pipe_loss,
+                                                sequential, staged_model,
+                                                stage_leaves, timed_passes)
+
+    cfg, batch, n_micro = pipe["cfg"], pipe["batch"], pipe["n_micro"]
+    model = staged_model(cfg, 1, 0, pipe["key"], "cuda")
+    body, leaves = layer_stage(model), stage_leaves(model)
+    losses, hidden, per = timed_passes(
+        "cuda", PIPE_PASSES, list(model.masters.values()), lambda: pipe_loss(
+            model, batch, n_micro, lambda x: sequential(leaves, x, body)))
+    expect = _pipe_launches(cfg, 1, n_micro, 0)
+    for i, p in enumerate(per):
+        if p["launches"] != expect:
+            raise AssertionError(f"train-pipe (a): pass {i + 1} launched "
+                                 f"{p['launches']}, expected {expect}")
+    if len(set(losses)) != 1:
+        raise AssertionError(f"train-pipe (a): the passes differ {losses}")
+    ref = {"losses": losses, "hidden": hidden.detach().clone(),
+           "grads": {k: p.grad.clone() for k, p in model.masters.items()}}
+    log(f"  [{smi}] (a) sequential, cuda:0: pass ms "
+        f"{[round(p['s'] * 1e3, 1) for p in per]}, loss {losses[0]}, "
+        f"launches a pass {expect} (exact)")
+    return model, body, leaves, ref, per
+
+
+def _pipe_group(label, world, backend, pipe, ref, tmp, smi) -> dict:
+    """``world`` ranks, one a stage, over ``backend`` run the passes of
+    ``pipe`` (`run_pipe_cases`) and write their gradients into ``tmp``;
+    every rank's launches, collectives and bytes a pass exact, the ranks
+    agreeing, and the hidden states, losses and every gradient held to
+    (a)'s ``ref`` (`_hold_pipe`).  Returns the group's record, measures,
+    times and wall seconds."""
+    import torch
+
+    from repro_torch.dist import spawn
+    from repro_torch.dist.pipeline_runs import load_dump, run_pipe_cases
+
+    n_micro, micro_bytes = pipe["n_micro"], pipe["micro_bytes"]
+    dump = os.path.join(tmp, f"dump_{backend}_{world}")
+    os.makedirs(dump)
+    case = dict(kind="model", mesh=((world,), ("pipe",)), cfg=pipe["cfg"],
+                key=pipe["key"], batch=pipe["batch"], n_micro=n_micro,
+                passes=PIPE_PASSES, dump=dump)
+    t0 = time.perf_counter()
+    out = spawn(run_pipe_cases, world, device="cuda", backend=backend,
+                args=([case], time.time()), timeout_s=120.0,
+                deadline_s=300.0)
+    wall = time.perf_counter() - t0
+    if len(set(out["digests"])) != 1:
+        raise AssertionError(f"train-pipe {label}: the ranks disagree: "
+                             f"{out['digests']}")
+    record, ranks = out["records"][0], [m[0] for m in out["measures"]]
+    for s, m in enumerate(ranks):
+        _check_pipe_passes(f"train-pipe {label} rank {s}", m["passes"],
+                           world, s, pipe)
+    t1 = time.perf_counter()
+    got = {k: torch.from_numpy(v) for k, v in load_dump(dump, world).items()}
+    hidden = got.pop("hidden").to("cuda", torch.bfloat16)
+    _hold_pipe(label, record["losses"], hidden, got, ref, smi)
+    compare_s = time.perf_counter() - t1
+    del got, hidden
+    hops = 2 * (n_micro + world - 2)
+    last = ranks[0]["passes"][-1]
+    start = [None if t["start_s"] is None else round(t["start_s"], 1)
+             for t in out["times"]]
+    log(f"  [{smi}] {label}: pass ms a rank "
+        f"{[[round(p['s'] * 1e3, 1) for p in m['passes']] for m in ranks]}"
+        f"; a pass: {hops} hops of {micro_bytes / 1e6:.1f} MB "
+        f"({last['bytes']['permuted'] / 1e6:.1f} MB sent a rank), one hop "
+        f"alone {[round(m['hop_ms'], 2) for m in ranks]} ms a rank, so "
+        f"~{hops * ranks[0]['hop_ms']:.0f} ms of hops; "
+        f"{last['collectives']} collectives, "
+        f"{last['bytes']['reduced'] / 1e6:.1f} MB summed; launches a pass "
+        f"{[m['passes'][-1]['launches'] for m in ranks]} (exact); peak "
+        f"{[round(m.get('peak_gb', 0.0), 2) for m in ranks]} GB a rank; "
+        f"ranks started {start} s after the call, loaded the kernels and "
+        f"built their stages in {[round(m['build_s'], 1) for m in ranks]} "
+        f"s, wrote their gradients in "
+        f"{[round(m['dump_s'], 1) for m in ranks]} s; compared in "
+        f"{compare_s:.1f} s; group {wall:.1f} s")
+    return dict(record=record, measures=ranks, times=out["times"],
+                wall_s=wall)
+
+
+def phase_train_pipe(args, rec):
+    """The GPipe pipeline on the card (`repro_torch.dist.pipeline`): Yi-9B
+    at full width, PIPE_TRAIN's 4 layers in 2 stages of 2, 4 microbatches
+    of (1, 2048) tokens from the Markov source (8,192 tokens), float32
+    masters, bf16 compute, remat; PIPE_PASSES passes of forward and
+    backward (no optimizer step), the first cold.  (a) the microbatches
+    one after the other through all 4 layers on cuda:0 in this process;
+    (b) PIPE_WORLD ranks on cuda:0 over gloo (hops staged through the
+    host), mesh (2,) over ("pipe",), each rank holding only its stage's
+    layers; (c) one stage at world size 1 over NCCL in this process (no
+    hop).  (b) and (c) are held to (a): the hidden states, the loss and
+    every master's gradient (the stages' layers, the embedding through
+    the replicated input, the head) equal bit for bit or within PIPE_TOL,
+    every rank's losses and hidden states equal, launches per rank and
+    pass exact (`_pipe_launches`), collectives and bytes per pass exact
+    (`pass_collectives`, `pass_bytes`).  Beside them the two launchers
+    run as subprocesses (`_launchers`)."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.dist import one_rank_group, train_mesh
+    from repro_torch.dist.pipeline import pipeline_forward
+    from repro_torch.dist.pipeline_runs import pipe_loss, timed_passes
+    from repro_torch.kernels import _build
+    from repro_torch.models import param_shapes
+
+    smi = rec["smi"]
+    t_phase = time.perf_counter()
+    _build.extension()  # the ranks and the launcher load this build
+    tmp = tempfile.mkdtemp(prefix="repro_torch_train_pipe_")
+    procs = _launchers(tmp)  # their start-up overlaps (a) and (c)
+    try:
+        pipe = _pipe_setup()
+        cfg, batch = pipe["cfg"], pipe["batch"]
+        arch, layers, n, n_micro, (mb, S) = PIPE_TRAIN
+        layer_gb = sum(int(np.prod(s[1:])) for k, s in
+                       param_shapes(cfg).items()
+                       if k.startswith("layers@")) * 4 / 1e9
+        log(f"train-pipe: {arch} at full width (d {cfg.d_model}, vocab "
+            f"{cfg.vocab}), {layers} layers in {n} stages ({layer_gb:.2f} "
+            f"GB of float32 masters a layer), {n_micro} microbatches of "
+            f"({mb},{S}) from MarkovLMData(vocab={TRAIN_DATA[0]}, kgram="
+            f"{TRAIN_DATA[1]}), remat {cfg.remat}, {PIPE_PASSES} passes of "
+            f"forward and backward (the first cold); bubble "
+            f"{(n - 1) / (n_micro + n - 1):.2f} of the ticks")
+        log("reduced: depth only (4 of 48 layers); one card, so the gloo "
+            "ranks share it and NCCL runs at world size 1")
+
+        # (a), then (c) on the same masters
+        model, body, leaves, ref, per_a = _pipe_sequential(pipe, smi)
+        masters = list(model.masters.values())
+        torch.cuda.set_device(0)
+        t0 = time.perf_counter()
+        with one_rank_group("nccl", timeout_s=120.0):
+            mesh = train_mesh((1,), ("pipe",), device="cuda")
+            block = {k: p[None] for k, p in leaves.items()}
+            losses_c, hidden_c, per_c = timed_passes(
+                "cuda", PIPE_PASSES, masters, lambda: pipe_loss(
+                    model, batch, n_micro, lambda x: pipeline_forward(
+                        block, x, body, mesh=mesh)))
+        wall_c = time.perf_counter() - t0
+        _check_pipe_passes("train-pipe (c)", per_c, 1, 0, pipe)
+        _hold_pipe("(c) nccl, world size 1", losses_c, hidden_c,
+                   {k: p.grad for k, p in model.masters.items()}, ref, smi)
+        log(f"  [{smi}] (c): pass ms "
+            f"{[round(p['s'] * 1e3, 1) for p in per_c]}; "
+            f"{per_c[-1]['collectives']} collectives a pass "
+            f"({per_c[-1]['bytes']['reduced'] / 1e6:.1f} MB summed); group "
+            f"{wall_c:.1f} s")
+        del model, body, leaves, masters, block, hidden_c
+        torch.cuda.empty_cache()
+
+        gl = _pipe_group(f"(b) gloo, {PIPE_WORLD} ranks on cuda:0",
+                         PIPE_WORLD, "gloo", pipe, ref, tmp, smi)
+        _check_launchers(procs, smi)
+    finally:
+        for p, _ in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    total = time.perf_counter() - t_phase
+    log(f"[{smi}] train-pipe: {total:.1f} s (budget {PIPE_BUDGET_S:.0f} s): "
+        f"gloo group {gl['wall_s']:.1f} s, NCCL group {wall_c:.1f} s"
+        + ("" if total <= PIPE_BUDGET_S else "; OVER ITS BUDGET"))
+    launches = {k: 0 for k in KERNELS}
+    for p in per_a + per_c + [p for m in gl["measures"]
+                              for p in m["passes"]]:
+        launches = {k: launches[k] + p["launches"][k] for k in launches}
+    rec.setdefault("paths", {})["train-pipe"] = dict(
+        launches=launches, sequential=dict(losses=ref["losses"],
+                                           passes=per_a),
+        nccl=dict(losses=losses_c, passes=per_c, wall_s=wall_c), gloo=gl,
+        wall_s=total)
+
+
+def phase_pipe_cards(args, rec):
+    """On request, on a machine of 2 or 4 cards: PIPE_TRAIN's pipeline
+    with one stage a card over NCCL (the hops device to device,
+    ``batch_isend_irecv``), its 4 layers split evenly, held to (a) on
+    cuda:0 as train-pipe holds (b).  No launch of it enters the kernels
+    line."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.kernels import _build
+
+    world = torch.cuda.device_count()
+    if world not in (2, 4):
+        raise RuntimeError(f"pipe-cards needs 2 or 4 cards, found {world}")
+    smi = rec["smi"]
+    _build.extension()
+    tmp = tempfile.mkdtemp(prefix="repro_torch_pipe_cards_")
+    try:
+        log(f"pipe-cards: {PIPE_TRAIN[0]}, {PIPE_TRAIN[1]} layers in "
+            f"{world} stages, one a card over NCCL; bubble "
+            f"{(world - 1) / (PIPE_TRAIN[3] + world - 1):.2f} of the ticks")
+        pipe = _pipe_setup()
+        model, _, _, ref, _ = _pipe_sequential(pipe, smi)
+        del model
+        torch.cuda.empty_cache()
+        _pipe_group(f"nccl, {world} ranks, one a card", world, "nccl", pipe,
+                    ref, tmp, smi)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+# ----------------------------------------------------------------------
 # train-100m: repro's example driver's run on the card
 TRAIN_100M = (50, 8, 128)  # steps, batch, sequence
 
@@ -4490,9 +4905,11 @@ def phase_train_100m(args, rec):
     configures it (12 layers, d 512, vocab 32768, float32, remat none;
     AdamW on the cosine schedule, 2 accumulated microbatches, async
     checkpoints every third of the run into a temporary directory):
-    TRAIN_100M's 50 steps at (8, 128) from `MarkovLMData(vocab=32768,
-    kgram=1)`, its host memory and build time taken first.  Launches of every step exact (twice
-    `_train_launches`), the mean loss of the last 10 steps below the
+    TRAIN_100M's 50 steps at (8, 128), the tokens from TRAIN_DATA's
+    256-symbol Markov source (a cut: `repro`'s example draws them from
+    `MarkovLMData(vocab=32768, kgram=1)`, whose 8.6 GB table took 35.8 s
+    to build on the card's host), its host memory and build time taken
+    first.  Launches of every step exact (twice `_train_launches`), the mean loss of the last 10 steps below the
     first 10's, and a restore of the last checkpoint equal to the final
     parameters bit for bit; step time (steps 2-n), tokens/s, model-FLOP
     share against the float32 peak, peak memory."""
@@ -4515,18 +4932,21 @@ def phase_train_100m(args, rec):
 
     # the host memory the source allocates at its peak (numpy's buffers
     # are traced), and what it keeps
+    vocab, kgram = TRAIN_DATA
     tracemalloc.start()
     t0 = time.perf_counter()
-    data = MarkovLMData(DataConfig(vocab=cfg.vocab, seq_len=S, batch=B,
-                                   kgram=1))
+    data = MarkovLMData(DataConfig(vocab=vocab, seq_len=S, batch=B,
+                                   kgram=kgram))
     data_s = time.perf_counter() - t0
     held, peak_host = tracemalloc.get_traced_memory()
     tracemalloc.stop()
     data_gb = peak_host / 1e9
-    log(f"train-100m: MarkovLMData(vocab={cfg.vocab}, kgram=1) built in "
+    log(f"train-100m: MarkovLMData(vocab={vocab}, kgram={kgram}) built in "
         f"{data_s:.1f} s, host memory {data_gb:.2f} GB at its peak, "
-        f"{held / 1e9:.2f} GB kept (its {cfg.vocab}^2 float64 table); "
-        f"no cut")
+        f"{held / 1e9:.2f} GB kept; reduced: the tokens come from "
+        f"{vocab} symbols into the full {cfg.vocab}-word embedding, not "
+        f"from repro's MarkovLMData(vocab={cfg.vocab}, kgram=1) (its "
+        f"8.6 GB table: 35.8 s on the card's host)")
     batch_s = []
     real_next = data.next_batch
 
@@ -4715,7 +5135,7 @@ PHASES = {"device": phase_device, "kernels": phase_kernels,
           # after the serve phases: a short trace taken after a train step's
           # long one came back empty on the card (PERF.md section 7)
           "train": phase_train, "train-sharded": phase_train_sharded,
-          "train-ssm": phase_train_ssm,
+          "train-pipe": phase_train_pipe, "train-ssm": phase_train_ssm,
           "train-hybrid": phase_train_hybrid,
           "train-100m": phase_train_100m, "zoo": phase_zoo}
 SERVE_PHASES = ("serve", "serve-events", "serve-compiled", "serve-sharded",
@@ -4731,7 +5151,8 @@ def _after_serving(args, rec, name, cohort):
         return
     _replan_summary(rec)
     _profile_round(cohort, rec)
-ON_REQUEST = {"parts": phase_parts}  # run only when named
+# run only when named
+ON_REQUEST = {"parts": phase_parts, "pipe-cards": phase_pipe_cards}
 
 
 # ----------------------------------------------------------------------

@@ -1,14 +1,15 @@
 """Architecture config registry: ``get_config("<arch-id>", smoke=...)``.
 
 The port registers every architecture of `repro.configs`, under the same
-ids and in the same order.
+ids and in the same order, and re-exports the shape cells (`SHAPES`,
+`ShapeCell`) with `shape_cells_for`, as `repro.configs` does.
 """
 from __future__ import annotations
 
 import dataclasses
 import importlib
 
-from repro_torch.models.config import ArchConfig
+from repro_torch.models.config import SHAPES, ArchConfig, ShapeCell  # noqa: F401
 
 _MODULES = {
     "zamba2-2.7b": "zamba2_2p7b",
@@ -37,3 +38,14 @@ def get_config(arch_id: str, smoke: bool = False, **overrides) -> ArchConfig:
     if overrides:
         cfg = dataclasses.replace(cfg, **overrides)
     return cfg
+
+
+def shape_cells_for(arch_id: str) -> list[str]:
+    """The shape cells (`SHAPES` keys) ``arch_id`` runs; the rest are
+    documented skips.  ``long_500k`` needs sub-quadratic attention, so
+    only the SSM and hybrid families run it; every architecture has a
+    decoder, so the decode cell applies to all."""
+    cells = ["train_4k", "prefill_32k", "decode_32k"]
+    if get_config(arch_id).sub_quadratic:
+        cells.append("long_500k")
+    return cells

@@ -13,17 +13,24 @@
 - `group`    — `spawn`: start a group of ranks on this host and return
                rank 0's result; `one_rank_group`: this process alone as
                a group of one rank
+- `pipeline` — `repro.dist.pipeline`: `split_stages`, `stage_block` and
+               `pipeline_forward`, the GPipe schedule over a ``("pipe",)``
+               mesh with gradients back through the hops
+               (`sharding.permute`)
 - `runs`     — what a rank of a spawned group runs: `run_cases` (the
-               sharded control plane) and `run_train_cases` (sharded
-               training and the elastic restore), and the records they
-               compare
+               sharded control plane), and the records they compare;
+               `train_runs.run_train_cases` (sharded training and the
+               elastic restore) and `pipeline_runs.run_pipe_cases` (the
+               pipeline on a toy layer or a model's stages)
 
-`repro.dist`'s `act_sharding` and the GPipe `pipeline` come in later
-slices.
+`repro.dist`'s `act_sharding` comes in a later slice.
 """
 from repro_torch.dist.group import one_rank_group, spawn
+from repro_torch.dist.pipeline import (pipeline_forward, split_stages,
+                                       stage_block)
 from repro_torch.dist.sharding import (
     LANE_AXIS,
+    PIPE_AXES,
     LaneMesh,
     Sharding,
     TrainMesh,
@@ -38,15 +45,17 @@ from repro_torch.dist.sharding import (
     lane_counts,
     lane_mesh,
     merge_plans,
+    permute,
     sharding_tree,
     spec_tree,
     train_mesh,
 )
 
 __all__ = [
-    "LANE_AXIS", "LaneMesh", "Sharding", "TrainMesh", "all_reduce_sum",
-    "batch_specs", "cache_specs", "check_specs", "collective_bytes",
-    "collectives", "gather_objects", "lane_block", "lane_counts",
-    "lane_mesh", "merge_plans", "one_rank_group", "sharding_tree",
-    "spawn", "spec_tree", "train_mesh",
+    "LANE_AXIS", "LaneMesh", "PIPE_AXES", "Sharding", "TrainMesh",
+    "all_reduce_sum", "batch_specs", "cache_specs", "check_specs",
+    "collective_bytes", "collectives", "gather_objects", "lane_block",
+    "lane_counts", "lane_mesh", "merge_plans", "one_rank_group", "permute",
+    "pipeline_forward", "sharding_tree", "spawn", "spec_tree",
+    "split_stages", "stage_block", "train_mesh",
 ]

@@ -42,8 +42,9 @@ the mesh is a process group, one rank per device:
   sum is the owner's value in any order.
 
 **The collectives** (`all_reduce_sum`, `gather_dim`, `reduce_scatter_dim`,
-`gather_objects`, and `merge_plans` through `all_reduce_sum`) are each
-counted by `collectives`, their operand bytes by `collective_bytes`.
+`gather_objects`, the pipeline's `permute`, and `merge_plans` through
+`all_reduce_sum`) are each counted by `collectives`, their operand bytes
+by `collective_bytes`.
 Under NCCL the operands live on the device.  Under gloo they go through
 explicit host copies: gloo's CUDA support covers broadcast and
 all-reduce only, and NCCL refuses two ranks on one card, so ranks that
@@ -65,6 +66,9 @@ from repro_torch.device import resolve_device
 
 LANE_AXIS = "lanes"
 TRAIN_AXES = (("data",), ("data", "model"), ("pod", "data", "model"))
+# the pipeline's one-axis mesh (`repro_torch.dist.pipeline`), as `repro`'s
+# pipeline test builds ``jax.make_mesh((n,), ("pipe",))``
+PIPE_AXES = ("pipe",)
 # gloo collectives split into this many parts over as many process groups
 # at once: 1.5-2.1x the bytes a second of one collective between two
 # ranks on the card's host (tools/host_staging_probe.py)
@@ -72,22 +76,23 @@ GLOO_PARTS = 4
 
 _COLLECTIVES = 0  # collectives issued through this module in this process
 # operand bytes: full tensors out of `gather_dim`, into `reduce_scatter_dim`
-# and `all_reduce_sum`
-_BYTES = {"gathered": 0, "reduced": 0}
+# and `all_reduce_sum`, and what a rank sends in `permute`
+_BYTES = {"gathered": 0, "permuted": 0, "reduced": 0}
 
 
 def collectives() -> int:
     """Collectives the port has issued in this process (`all_reduce_sum`,
-    `merge_plans`, `gather_dim`, `reduce_scatter_dim`, `gather_objects`),
-    as `repro_torch.device.host_reads` counts host reads: a sharded replan
-    round makes exactly one."""
+    `merge_plans`, `gather_dim`, `reduce_scatter_dim`, `gather_objects`,
+    `permute`), as `repro_torch.device.host_reads` counts host reads: a
+    sharded replan round makes exactly one."""
     return _COLLECTIVES
 
 
 def collective_bytes() -> dict:
     """``{"gathered": the bytes of every tensor `gather_dim` assembled,
-    "reduced": the bytes of every operand `reduce_scatter_dim` and
-    `all_reduce_sum` summed}`` in this process."""
+    "permuted": the bytes of every tensor `permute` sent, "reduced": the
+    bytes of every operand `reduce_scatter_dim` and `all_reduce_sum`
+    summed}`` in this process."""
     return dict(_BYTES)
 
 
@@ -229,9 +234,10 @@ def check_specs(specs, mesh, prefix: str = "") -> None:
 @dataclasses.dataclass(frozen=True)
 class TrainMesh:
     """A mesh of ranks for sharded training: ``axis_names`` (one of
-    `TRAIN_AXES`), ``shape`` (axis -> extent), this rank and its
-    coordinates (ranks laid out row-major, the last axis fastest), the
-    device it computes on, the backend, and the process groups: ``groups``
+    `TRAIN_AXES`, or `PIPE_AXES` for the pipeline), ``shape`` (axis ->
+    extent), this rank and its coordinates (ranks laid out row-major, the
+    last axis fastest), the device it computes on, the backend, and the
+    process groups: ``groups``
     maps a tuple of axes (each axis alone, and the data axes together) to
     the groups of the ranks that differ only on them, ordered as the
     axes' row-major index (GLOO_PARTS groups of the same ranks under
@@ -275,17 +281,18 @@ class TrainMesh:
 
 def train_mesh(shape, axes, device: str | torch.device = "cuda") -> TrainMesh:
     """The training mesh of extents ``shape`` over ``axes`` (``("data",)``,
-    ``("data", "model")`` or ``("pod", "data", "model")``) on the default
-    process group, which must hold exactly ``prod(shape)`` ranks; every
-    rank calls it (the axis groups are made here, in one order).  On
-    ``"cuda"`` rank r computes on ``cuda:{r % torch.cuda.device_count()}``.
+    ``("data", "model")``, ``("pod", "data", "model")``, or the
+    pipeline's ``("pipe",)``) on the default process group, which must
+    hold exactly ``prod(shape)`` ranks; every rank calls it (the axis
+    groups are made here, in one order).  On ``"cuda"`` rank r computes
+    on ``cuda:{r % torch.cuda.device_count()}``.
     Raises ``ValueError`` on other axes, a bad extent, or a missing or
     wrong-size group, naming the recipe that starts one
     (`repro_torch.dist.spawn`, or ``torchrun --nproc-per-node n``)."""
     axes, shape = tuple(axes), tuple(int(s) for s in shape)
-    if axes not in TRAIN_AXES:
+    if axes not in TRAIN_AXES + (PIPE_AXES,):
         raise ValueError(f"training mesh axes {axes}: expected one of "
-                         f"{TRAIN_AXES}")
+                         f"{TRAIN_AXES + (PIPE_AXES,)}")
     if len(shape) != len(axes) or min(shape) < 1:
         raise ValueError(f"training mesh shape {shape} does not give an "
                          f"extent >= 1 to each of {axes}")
@@ -465,15 +472,17 @@ def all_reduce_sum(t: torch.Tensor, mesh, axes: tuple | None = None
     return buf
 
 
-# gloo's host copies: (shape, dtype) -> a host buffer every collective
+# gloo's host copies: (shape, dtype, tag) -> a host buffer every collective
 # reuses (pinned when the ranks compute on CUDA), so a training step
 # faults in no new host pages; a collective's input (parts, m) and output
-# (parts, ranks, m) never share a shape
+# (parts, ranks, m) never share a shape, and `permute`'s send and receive
+# buffers, which do, differ in their tag
 _STAGING: dict = {}
 
 
-def _host_buffer(shape, dtype, mesh: TrainMesh) -> torch.Tensor:
-    key = (tuple(shape), dtype)
+def _host_buffer(shape, dtype, mesh: TrainMesh, tag: str = ""
+                 ) -> torch.Tensor:
+    key = (tuple(shape), dtype, tag)
     if key not in _STAGING:
         _STAGING[key] = torch.empty(
             shape, dtype=dtype, pin_memory=mesh.device.type == "cuda")
@@ -582,6 +591,45 @@ def reduce_scatter_dim(full: torch.Tensor, dim: int, axes: tuple,
                 async_op=True) for j, g in enumerate(gs)])
             out = parts.to(mesh.device, copy=True).reshape(shape)
     return out.movedim(0, dim).contiguous()
+
+
+def permute(t: torch.Tensor, shift: int, axis: str, mesh: TrainMesh
+            ) -> torch.Tensor:
+    """``lax.ppermute`` by ``shift`` along ``axis``: this rank's ``t`` goes
+    to the rank ``shift`` places on along the axis (cyclic) and what the
+    rank ``shift`` places back sent comes back, on ``mesh.device``: one
+    counted collective, the send and the receive posted at once (blocking
+    sends round a ring would deadlock).  Under NCCL the tensors stay on
+    the device; under gloo they go through the staging buffers, split over
+    the axis' process groups at once.  On an axis of extent 1 the
+    permutation is the identity: ``t`` comes back and nothing is issued."""
+    n = mesh.shape[axis]
+    if n == 1:
+        return t
+    at = dict(mesh.coords)
+    at[axis] = (mesh.coords[axis] + shift) % n
+    dst = _ravel(at, mesh.axis_names, mesh.shape)
+    at[axis] = (mesh.coords[axis] - shift) % n
+    src = _ravel(at, mesh.axis_names, mesh.shape)
+    x = t.contiguous()
+    _count("permuted", x)
+    if mesh.backend == "nccl":
+        out = torch.empty_like(x)
+        g = mesh.groups[(axis,)][0]
+        _wait(dist.batch_isend_irecv([dist.P2POp(dist.isend, x, dst, g),
+                                      dist.P2POp(dist.irecv, out, src, g)]))
+        return out
+    gs = _parts(mesh, (axis,), x.numel())
+    k = len(gs)
+    send = _host_buffer((k, x.numel() // k), x.dtype, mesh, "send")
+    recv = _host_buffer(send.shape, x.dtype, mesh, "recv")
+    send.copy_(x.view(send.shape))
+    works = []
+    for j, g in enumerate(gs):
+        works += [dist.isend(send[j], dst, group=g),
+                  dist.irecv(recv[j], src, group=g)]
+    _wait(works)
+    return recv.to(mesh.device, copy=True).view(x.shape)
 
 
 def merge_plans(plans: torch.Tensor, owned: torch.Tensor,

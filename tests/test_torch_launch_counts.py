@@ -171,3 +171,48 @@ def test_step_flops_of_the_encoder_decoder(chip_smoke):
                   (n_mat - enc_mat - cross_kv) * B * S) + \
         12.0 * 16 * 4 * B * (2 * T * T + 2 * (36 + S * T))
     assert chip_smoke._step_flops(cfg, n_mat, B, S) == want
+
+
+def _fake_pipe_mesh(n, s):
+    import types
+    return types.SimpleNamespace(axis_names=("pipe",), shape={"pipe": n},
+                                 coords={"pipe": s}, device=torch.device(
+                                     "cpu"))
+
+
+@pytest.mark.parametrize("remat", ["none", "full"])
+@pytest.mark.parametrize("n_stages", [1, 2, 4])
+@pytest.mark.parametrize("arch", ["yi-9b", "mamba2-1.3b"])
+def test_pipe_launches_match_the_calls(chip_smoke, counts, monkeypatch, arch,
+                                       n_stages, remat):
+    """Every stage's calls in one pipelined loss-and-gradient
+    (`dist.pipeline_runs`: the embedding, `pipeline_forward`, the final
+    norm and the loss) against `_pipe_launches`.  The collectives are
+    replaced by copies (the launches do not depend on what a hop
+    carries), so each rank of a group runs here alone."""
+    from repro_torch.dist import pipeline, pipeline_runs
+
+    monkeypatch.setattr(pipeline, "permute",
+                        lambda t, shift, axis, mesh: t.detach().clone())
+    monkeypatch.setattr(pipeline, "all_reduce_sum",
+                        lambda t, mesh, axes=None: t.detach().clone())
+    cfg = dataclasses.replace(get_config(arch, smoke=True), dtype="float32",
+                              n_layers=4, remat=remat)
+    n_micro = 3
+    rng = np.random.default_rng(0)
+    batch = {"tokens": rng.integers(0, cfg.vocab, (6, 8)),
+             "labels": rng.integers(0, cfg.vocab, (6, 8))}
+    for s in range(n_stages):
+        mesh = _fake_pipe_mesh(n_stages, s)
+        model = pipeline_runs.staged_model(cfg, n_stages, s, 0, "cpu")
+        body = pipeline_runs.layer_stage(model)
+        block = {k: p[None] for k, p in
+                 pipeline_runs.stage_leaves(model).items()}
+        for k in counts:
+            counts[k] = 0
+        loss, _ = pipeline_runs.pipe_loss(
+            model, batch, n_micro,
+            lambda x: pipeline.pipeline_forward(block, x, body, mesh=mesh))
+        loss.backward()
+        assert _nonzero(counts) == _nonzero(
+            chip_smoke._pipe_launches(cfg, n_stages, n_micro, s)), s
