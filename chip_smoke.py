@@ -12,6 +12,7 @@
     python3 chip_smoke.py --phases device,serve-sharded
     python3 chip_smoke.py --phases device,train-sharded
     python3 chip_smoke.py --phases device,train-pipe
+    python3 chip_smoke.py --phases device,serve,train-sharded,dryrun
 
 Phases (any failure exits non-zero and prints no result):
 
@@ -21,8 +22,8 @@ Phases (any failure exits non-zero and prints no result):
                card at the shapes of the serving and training paths, and
                time kernel, plain version and the nearest single PyTorch
                call (CUDA graphs of back-to-back calls, timed with CUDA
-               events; inputs stay warm in L2, and the attention, SSD and
-               replan kernels are also timed cold, rotating over 64 MB of
+               events; inputs stay warm in L2, and the attention and SSD
+               kernels are also timed cold, rotating over 64 MB of
                input copies; decode attention, the SSD scan and the replan
                time every launch plan their wrappers weigh).  The replan
                runs at six shapes (`PLAN_SHAPES`, from the served cohort to
@@ -128,7 +129,22 @@ Phases (any failure exits non-zero and prints no result):
                checkpoint restored onto the NCCL mesh
                (``restore(shardings=)``) equal bit for bit to the restore
                onto no mesh;
-13. train-pipe — the GPipe pipeline (`repro_torch.dist.pipeline`):
+13. dryrun   — the dry run (`repro_torch.launch.dryrun`: fake process
+               groups, fake tensors, nothing allocated) against the card,
+               every trace in a fresh process, all started before the
+               first phase, during the build (only world 1's sees the
+               card; the others trace its route on the meta device, as
+               on a machine without one): train-sharded's step
+               traced at world 1 and 2 (collectives, bytes gathered and
+               reduced, launches a kernel a rank a step exact against
+               train-sharded's runs and one real step at world size 1 over
+               NCCL, whose peak the traced arguments + temp meet within
+               5%); serve's Yi-9B engines traced over a prefill and one
+               decode step (launches exact); three production cells
+               through the command line (Yi-9B train_4k on 256 ranks,
+               Qwen2-72B decode_32k on 512, Mamba2-1.3B long_500k on
+               256), each ok, GB a rank against the card's memory;
+14. train-pipe — the GPipe pipeline (`repro_torch.dist.pipeline`):
                Yi-9B at full width, 4 layers in 2 stages, 4 microbatches
                of (1, 2048), 3 passes of forward and backward: (a) the
                microbatches one after the other on the card, (b) 2 ranks
@@ -139,9 +155,9 @@ Phases (any failure exits non-zero and prints no result):
                them ``python -m repro_torch.launch.train --steps 4``
                (its last line and checkpoint) and ``python -m
                repro_torch.launch.serve --help``;
-14. train-ssm — the same for Mamba2-1.3B at full width and depth, (1, 2048),
+15. train-ssm — the same for Mamba2-1.3B at full width and depth, (1, 2048),
                3 steps (the SSD kernel forward, the plain recompute back);
-15. train-hybrid — the same for Zamba2-2.7B at full width and depth, (1,
+16. train-hybrid — the same for Zamba2-2.7B at full width and depth, (1,
                2048), 3 steps (checkpointed layers inside checkpointed
                groups), then one step of a full-width, 1-layer copy of
                Mistral-NeMo-12B, MiniCPM3-4B, Granite-MoE (the loss with
@@ -150,7 +166,7 @@ Phases (any failure exits non-zero and prints no result):
                exact; then Whisper-base whole, (2, 448)
                tokens over 1500 frames, 3 steps, one held against its
                float32 CPU copy;
-16. train-100m — `repro_torch.examples.train_100m` as `repro`'s example
+17. train-100m — `repro_torch.examples.train_100m` as `repro`'s example
                sets it (12 layers, d 512, vocab 32768, float32) for 50
                steps at (8, 128) of a 256-symbol Markov source, 2
                microbatches, async checkpoints every third of the run:
@@ -158,7 +174,7 @@ Phases (any failure exits non-zero and prints no result):
                the last checkpoint restored bit for bit; step time, tokens/s,
                float32 model-FLOP share, and the data source's host memory
                and build time;
-17. zoo      — `build_zoo` with `repro`'s ladder on the card (its launches
+18. zoo      — `build_zoo` with `repro`'s ladder on the card (its launches
                exact), held-out accuracy rising from zoo-s to zoo-m to
                zoo-l, then the end-to-end example's loop
                (`repro_torch.examples.serve_workflow`, ``--requests 24
@@ -181,9 +197,11 @@ import json
 import os
 import pathlib
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 
@@ -556,25 +574,6 @@ def _plan_args(c, obj, bd_t):
             dict(kind=obj.kind, blocked_depth=bd_t))
 
 
-def _plan_work(c, obj):
-    """(bytes, operations) the replan of these lanes needs: the node
-    columns of the union of the lanes' intervals (6 float columns and the
-    path-counts row), the lane operands and outputs, and per (lane, node
-    in its interval) 2M operations of delay plus about 12 of masks and
-    compares."""
-    trie, M = c["trie"], c["trie"].n_models
-    lo = c["roots"].astype(np.int64)
-    hi = lo + trie.subtree_size[lo]
-    seen = np.zeros(trie.n_nodes, bool)
-    for a, b in zip(lo, hi):
-        seen[a:b] = True
-    B, E = c["delays"].shape
-    nbytes = seen.sum() * (6 * 4 + M * 4) + B * (4 + 4 + 4 * E + 4 + 4 * 2) \
-        + M * 4
-    ops = float((hi - lo).sum()) * (2 * M + 12)
-    return float(nbytes), ops
-
-
 def _trie_plans(tmod, B, N, sms):
     """The plan `split_plan` picks, then the plans its rule passes over:
     no slices, half and twice its slices, each at 1, 4 and 8 lanes a
@@ -613,21 +612,18 @@ def _plan_launch(c, obj, plan):
 def check_trie_plan(rec):
     """The replan kernel at every shape of `PLAN_SHAPES`: exact against the
     plain blocked and dense versions and the host `select_path`, for both
-    objectives, with and without a blocked column; timed warm and cold in
-    L2 (the cold graph calls once per copy of over 64 MB of the trie's
-    columns and the lanes' operands), beside the plain blocked version."""
+    objectives, with and without a blocked column; timed warm in L2 (a
+    cold graph, once a copy of 64 MB of operands, took 13 s of the script
+    for a kernel of a few microseconds, and is no longer timed), beside
+    the plain blocked version."""
     import torch
 
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import cost, ref
     from repro_torch.kernels import trie_plan as tmod
     from repro_torch.kernels.trie_plan import fleet_plan_blocked, trie_plan_cuda
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     err = 0.0
-    # a cold graph calls once per copy of 64 MB of operands, 36,955 calls
-    # at a served shape: timed once per operand size (preset, lanes), so
-    # "served, round 1" (the served operands, other prefixes) has none
-    cold_sizes, cold_s = set(), 0.0
     for label, name, lanes, prefixes in PLAN_SHAPES:
         c = _plan_case(name, lanes, seed=lanes, prefixes=prefixes)
         N = c["trie"].n_nodes
@@ -669,19 +665,11 @@ def check_trie_plan(rec):
                 trie_plan_cuda(*b, **kw), fleet_plan_blocked(*b, **kw))):
             raise AssertionError(f"{where}: the generic path != plain")
         log(f"  {where} max_acc, counts rows unaligned (generic path): exact")
-        scalars = a[len(_plan_tensors(c)):]
         ms = graph_ms(lambda: trie_plan_cuda(*a, **kw))
-        cold_ms = None
-        if (name, lanes) not in cold_sizes:
-            cold_sizes.add((name, lanes))
-            t_cold = time.perf_counter()
-            cold = cold_inputs(*_plan_tensors(c))
-            cold_ms = graph_ms(lambda *t: trie_plan_cuda(*t, *scalars, **kw),
-                               inputs=cold)
-            del cold
-            cold_s += time.perf_counter() - t_cold
         plain_ms = graph_ms(lambda: fleet_plan_blocked(*a, **kw))
-        b_ms, b_by = bound(*_plan_work(c, obj), F32_OPS)
+        b_ms, b_by = bound(*cost.plan_work(
+            c["trie"].subtree_size, c["roots"], c["trie"].n_models,
+            c["delays"].shape[1]), F32_OPS)
         split = tmod.split_plan(lanes, N, sms)
         # every plan the rule weighs, each exact and timed warm
         want = fleet_plan_blocked(*a, **kw)
@@ -697,17 +685,14 @@ def check_trie_plan(rec):
                 f"block: {p_ms:.4f} ms, exact"
                 f"{' (chosen)' if p == split else ''}")
         rec.setdefault("timing_cases", {})[f"trie_plan {label}"] = dict(
-            ms=ms, cold_ms=cold_ms, plain_ms=plain_ms,
+            ms=ms, plain_ms=plain_ms,
             bound_ms=b_ms, bound_by=b_by, library_ms=None, preset=name,
             nodes=N, lanes=lanes, prefixes=prefixes, plan=split._asdict(),
             plans=plans)
         log(f"  {where}, {prefixes} prefixes ({split.splits} split(s), "
             f"{split.lanes_per_block} lanes a block): kernel {ms:.4f} ms "
-            f"(cold L2 "
-            + ("not timed: the operands' size of an earlier shape"
-               if cold_ms is None else f"{cold_ms:.4f}")
-            + f"), plain {plain_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by}; a "
-            f"launch in a graph alone takes ~0.0017)")
+            f"(warm L2), plain {plain_ms:.4f} ms, bound {b_ms:.6f} ms "
+            f"({b_by}; a launch in a graph alone takes ~0.0017)")
         if label == "served":  # the main path's shape
             rec["kernels"]["trie_plan"] = dict(
                 ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
@@ -743,18 +728,7 @@ def check_trie_plan(rec):
                     f"-inf)")
     rec["kernels"]["trie_plan"]["max_abs_err"] = err
     log("trie_plan: exact against the plain versions and the host at every "
-        f"shape and lane form, tol 0; the cold graphs took {cold_s:.1f} s")
-
-
-def _attn_pairs(Sq, Sk, causal, window):
-    q = np.arange(Sq)[:, None]
-    k = np.arange(Sk)[None, :]
-    m = np.ones((Sq, Sk), bool)
-    if causal:
-        m = k <= q
-        if window > 0:
-            m &= k > q - window
-    return int(m.sum())
+        "shape and lane form, tol 0")
 
 
 def _time_flash(rec, label, q, k, v, lse: bool = False,
@@ -765,11 +739,11 @@ def _time_flash(rec, label, q, k, v, lse: bool = False,
     and return it."""
     import torch.nn.functional as F
 
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import cost, ref
     from repro_torch.kernels.flash_attention import flash_attention
 
     B, H, Sq, D = q.shape
-    Sk = k.shape[2]
+    KV, Sk = k.shape[1], k.shape[2]
     ms = graph_ms(lambda: flash_attention(q, k, v, causal=causal,
                                           return_lse=lse))
     plain_ms = graph_ms(lambda: ref.attention(q, k, v, causal=causal),
@@ -784,8 +758,8 @@ def _time_flash(rec, label, q, k, v, lse: bool = False,
         lambda a, b, c: F.scaled_dot_product_attention(
             a, b, c, is_causal=causal, enable_gqa=True), inputs=cold)
     del cold
-    nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
-    ops = 4.0 * D * H * B * _attn_pairs(Sq, Sk, causal, 0)
+    nbytes, ops = cost.flash_work(B, H, KV, Sq, Sk, D, q.element_size(),
+                                  causal)
     bf16 = q.element_size() == 2
     b_ms, b_by = bound(nbytes, ops, BF16_OPS if bf16 else F32_OPS)
     case = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
@@ -971,8 +945,8 @@ def check_flash_bwd(rec):
     dkdv) alone and every launch plan the rule weighs."""
     import torch
 
+    from repro_torch.kernels import cost, ref
     from repro_torch.kernels import flash_attention as fmod
-    from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_bwd)
 
@@ -1042,9 +1016,8 @@ def check_flash_bwd(rec):
         cold_ms = graph_ms(lambda *a: flash_attention_bwd(*a, causal=causal),
                            inputs=cold)
         del cold
-        isz = q.element_size()
-        nbytes = isz * (4 * q.numel() + 4 * k.numel()) + 4 * lse.numel()
-        ops = 10.0 * _attn_pairs(Sq, Sk, causal, 0) * D * H * B
+        nbytes, ops = cost.flash_bwd_work(B, H, k.shape[1], Sq, Sk, D,
+                                          q.element_size(), causal)
         b_ms, b_by = bound(nbytes, ops,
                            BF16_OPS if dt == torch.bfloat16 else F32_OPS)
         case = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
@@ -1127,8 +1100,8 @@ def check_decode(rec):
     import torch
     import torch.nn.functional as F
 
+    from repro_torch.kernels import cost, ref
     from repro_torch.kernels import decode_attention as dmod
-    from repro_torch.kernels import ref
     from repro_torch.kernels.decode_attention import decode_attention
 
     g = torch.Generator(device="cuda").manual_seed(SEED + 1)
@@ -1241,8 +1214,7 @@ def check_decode(rec):
         err = max(err, check_close("decode_attention", kernel(*cold[-1]),
                                    want, tol))
         del cold
-        nbytes = isz * (2 * q1.numel() + 2 * B * KV * Lc * D) + 4 * B
-        ops = 4.0 * B * H * D * Lc
+        nbytes, ops = cost.decode_work(B, H, KV, D, Lc, isz)
         b_ms, b_by = bound(nbytes, ops, BF16_OPS if dt == bf16 else F32_OPS)
         case = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                     library_ms=lib_ms, cold_ms=cold_ms,
@@ -1264,7 +1236,7 @@ def check_rms_norm(rec):
     import torch
     import torch.nn.functional as F
 
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import cost, ref
     from repro_torch.kernels.rmsnorm import rms_norm
 
     g = torch.Generator(device="cuda").manual_seed(SEED + 2)
@@ -1303,8 +1275,8 @@ def check_rms_norm(rec):
         ms = graph_ms(lambda: rms_norm(x, s))
         plain_ms = graph_ms(lambda: ref.rms_norm(x, s))
         lib_ms = graph_ms(lambda: F.rms_norm(x, (D,), sb, 1e-6))
-        b_ms, b_by = bound(2 * x.element_size() * x.numel() + 4 * D,
-                           4.0 * x.numel(), F32_OPS)
+        b_ms, b_by = bound(*cost.rms_norm_work(rows, D, x.element_size()),
+                           F32_OPS)
         case = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                     bound_by=b_by, library_ms=lib_ms, tol=tol)
         key = f"rms_norm ({rows},{D})" + (" float32" if f32_timed else "")
@@ -1337,23 +1309,6 @@ def _ssd_inputs(g, S, Hn, P, N, dt_, state):
     return x, dt, A, Bm, Cm, h0
 
 
-def _ssd_work(S, Hn, P, N, Q, final=True):
-    """(bytes, operations) of one scan: x, dt, A, B, C read and y (and,
-    with ``final``, the final state) written once; per chunk of n steps,
-    C.B once for all heads (ngroups = 1) over the n(n+1)/2 causal pairs,
-    and per head the decay weights (~4 operations a pair), M.x (2P a
-    pair) and the two state terms (C.h and the update, 2PN a step
-    each)."""
-    nbytes = 2 * (2 * S * Hn * P + 2 * S * N) + 4 * (
-        S * Hn + Hn + (Hn * P * N if final else 0))
-    ops = 0.0
-    for c0 in range(0, S, Q):
-        n = min(Q, S - c0)
-        pairs = n * (n + 1) / 2
-        ops += pairs * 2 * N + Hn * (pairs * (2 * P + 4) + 4 * n * P * N)
-    return float(nbytes), ops
-
-
 def _ssd_odd_shapes(g, ssd_scan, ref) -> float:
     """Shapes no model serves: N and P not multiples of 8 (the bf16
     kernel stages element by element and pads N and P to 64) and four
@@ -1384,7 +1339,7 @@ def _time_ssd_train(rec, g, arch, c, Hn, P, N) -> float:
     it and its bound; returns the max abs error."""
     import torch
 
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import cost, ref
     from repro_torch.kernels.ssd_scan import ssd_scan
 
     path = "train-ssm" if arch == SSM_ENGINES["engine-a"] else "train-hybrid"
@@ -1404,7 +1359,7 @@ def _time_ssd_train(rec, g, arch, c, Hn, P, N) -> float:
     err = max(err, check_close("ssd_scan y", kernel(*cold[-1]), want,
                                BF16_TOL))
     del cold
-    work = _ssd_work(S, Hn, P, N, c.chunk, final=False)
+    work = cost.ssd_work(S, Hn, P, N, c.chunk, final=False)
     b_ms, b_by = bound(*work, BF16_OPS)
     f32_ms, f32_by = bound(*work, F32_OPS)
     rec.setdefault("timing_cases", {})[
@@ -1424,7 +1379,7 @@ def check_ssd_scan(rec):
     import torch
 
     from repro_torch.configs import get_config
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import cost, ref
     from repro_torch.kernels import ssd_scan as smod
     from repro_torch.kernels.ssd_scan import ssd_scan
 
@@ -1506,7 +1461,7 @@ def check_ssd_scan(rec):
                   check_close("ssd_scan state", got[1], want[1],
                               SSD_STATE_TOL))
         del cold
-        work = _ssd_work(PROMPT, Hn, P, N, c.chunk)
+        work = cost.ssd_work(PROMPT, Hn, P, N, c.chunk)
         b_ms, b_by = bound(*work, BF16_OPS)      # bf16 on the tensor cores
         f32_ms, f32_by = bound(*work, F32_OPS)   # the float32 kernel's
         case = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
@@ -2496,6 +2451,7 @@ def _check_plan_widths(rec):
     and bound."""
     import torch
 
+    from repro_torch.kernels import cost
     from repro_torch.kernels.trie_plan import fleet_plan_blocked, trie_plan_cuda
 
     for name, lanes in WIDTH_CASES:
@@ -2535,8 +2491,9 @@ def _check_plan_widths(rec):
             s = sub(idx)
             ms = graph_ms(lambda: trie_plan_cuda(*s, **kw))
             plain_ms = graph_ms(lambda: fleet_plan_blocked(*s, **kw))
-            cs = dict(c, roots=c["roots"][idx], delays=c["delays"][idx])
-            b_ms, b_by = bound(*_plan_work(cs, obj), F32_OPS)
+            b_ms, b_by = bound(*cost.plan_work(
+                c["trie"].subtree_size, c["roots"][idx], c["trie"].n_models,
+                c["delays"].shape[1]), F32_OPS)
             rec.setdefault("timing_cases", {})[
                 f"trie_plan compiled {label} (mathqa_4)"] = dict(
                 ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
@@ -4128,6 +4085,8 @@ def _step_flops(cfg, n_mat: int, B: int, S: int) -> float:
     keys and values run over the B T frames, its other matrices over the
     B S tokens; its encoder attends T^2 pairs, each cross attention S T
     and each decoder self attention the causal pairs of S."""
+    from repro_torch.kernels import cost
+
     if cfg.encdec is not None:
         T, Le, L = cfg.encdec.encoder_len, cfg.encdec.n_encoder_layers, \
             cfg.n_layers
@@ -4136,13 +4095,13 @@ def _step_flops(cfg, n_mat: int, B: int, S: int) -> float:
         cross_kv = L * 2 * d * KV * hd
         mats = 6.0 * ((enc_mat + cross_kv) * B * T +
                       (n_mat - enc_mat - cross_kv) * B * S)
-        pairs = Le * T * T + L * (_attn_pairs(S, S, True, 0) + S * T)
+        pairs = Le * T * T + L * (cost.attn_pairs(S, S, True, 0) + S * T)
         return mats + 12.0 * pairs * hd * H * B
     if cfg.moe is not None:
         mo = cfg.moe
         n_mat -= cfg.n_layers * (mo.n_experts - mo.top_k) * 3 * \
             cfg.d_model * cfg.d_ff
-    return 6.0 * n_mat * B * S + 12.0 * _attn_pairs(S, S, True, 0) * \
+    return 6.0 * n_mat * B * S + 12.0 * cost.attn_pairs(S, S, True, 0) * \
         cfg.head_dim * cfg.n_heads * _n_attn(cfg) * B
 
 
@@ -4295,7 +4254,8 @@ def _sharded_single(cfg, tcfg, dcfg, key, steps, expect):
     """Part (a): the single-device step on cuda:0 in this process, on the
     masters drawn from ``key`` and the Markov source's first ``steps``
     batches; launches per step exact.  Returns ((loss, grad norm) a
-    step, the parameter movement, step seconds)."""
+    step, the parameter movement, step seconds, the peak GB of the steps
+    above what the process held before the model)."""
     import torch
 
     from repro_torch.data import MarkovLMData
@@ -4303,6 +4263,8 @@ def _sharded_single(cfg, tcfg, dcfg, key, steps, expect):
     from repro_torch.models import build_model
     from repro_torch.train import make_train_step
 
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
     model = build_model(cfg, device="cuda", train=True).init(
         torch.Generator(device="cuda").manual_seed(key))
     init, step = make_train_step(model, tcfg)
@@ -4311,6 +4273,7 @@ def _sharded_single(cfg, tcfg, dcfg, key, steps, expect):
     before = {k: p.detach().clone() for k, p in params.items()}
     data = MarkovLMData(dcfg)
     out, times = [], []
+    torch.cuda.reset_peak_memory_stats()
     for i in range(steps):
         batch = data.next_batch()
         launches = dict(_build.LAUNCHES)
@@ -4324,11 +4287,12 @@ def _sharded_single(cfg, tcfg, dcfg, key, steps, expect):
             raise AssertionError(f"train-sharded (a): step {i + 1} launched "
                                  f"{got}, expected {expect}")
         out.append((float(m["loss"]), float(m["grad_norm"])))
+    peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
     moved = sum(float(torch.sum((p.detach().double() - before[k].double())
                                 ** 2)) for k, p in params.items())
     del model, params, state, before, m
     torch.cuda.empty_cache()
-    return out, moved, times
+    return out, moved, times, peak_gb
 
 
 def _check_sharded_run(label, rec_out, measures, single, moved, steps,
@@ -4410,10 +4374,11 @@ def phase_train_sharded(args, rec):
     log("reduced: depth only (2 of 48 layers); one card, so the gloo ranks "
         "share it and NCCL runs at world size 1")
 
-    single, moved, t_single = _sharded_single(cfg, tcfg, dcfg, key, steps,
-                                              expect)
+    single, moved, t_single, peak_a = _sharded_single(cfg, tcfg, dcfg, key,
+                                                      steps, expect)
     log(f"  [{smi}] (a) single device: step ms "
-        f"{[round(t * 1e3, 1) for t in t_single]}, losses "
+        f"{[round(t * 1e3, 1) for t in t_single]}, peak {peak_a:.2f} GB "
+        f"above the process's own, losses "
         f"{[round(x, 6) for x, _ in single]}, grad norms "
         f"{[round(g, 6) for _, g in single]}, movement {moved:.6g}")
 
@@ -4501,6 +4466,7 @@ def phase_train_sharded(args, rec):
         launches = {k: launches[k] + m["launches"][k] for k in launches}
     rec.setdefault("paths", {})["train-sharded"] = dict(
         launches=launches, per_step=expect, single=single, single_s=t_single,
+        single_peak_gb=peak_a, steps=steps,
         gloo=dict(record=rb, measures=mb, times=gl["times"], wall_s=wall_b),
         nccl=dict(record=rc, measures=mc, wall_s=wall_c), wall_s=total)
 
@@ -4526,6 +4492,274 @@ def _log_sharded(label, got, r, measures, times, wall, smi):
         f"ranks started {start} s after the call; the loop "
         f"{[round(m['s'], 1) for m in measures]} s (checkpoints included); "
         f"group {wall:.1f} s")
+
+
+# ----------------------------------------------------------------------
+# dryrun: the dry run (repro_torch.launch.dryrun) held against the card
+# three production cells through the command line: (arch, shape, mesh)
+DRYRUN_CELLS = (("yi-9b", "train_4k", "single"),
+                ("qwen2-72b", "decode_32k", "multi"),
+                ("mamba2-1.3b", "long_500k", "single"))
+# the traced peak of one sharded step (arguments + temp) over the card's
+# torch.cuda.max_memory_allocated for that step, at most this far from 1
+DRYRUN_PEAK_TOL = 0.05
+DRYRUN_BUDGET_S = 60.0
+DRYRUN_TIMEOUT_S = 600.0   # the traces' processes are killed past it
+
+
+def _dryrun_start(traces: dict) -> None:
+    """Start every trace of phase dryrun at once into ``traces``:
+    ``procs`` ({name: process}), ``tmp`` (the command line's report
+    directory) and ``t0``.  Each trace runs in a fresh process (a fake
+    group is process-wide, and a trace's live bytes depend on what its
+    process traced before; `dryrun.start`): SHARDED_TRAIN's sharded step
+    at world 1 and 2 over ``("data",)``, serve's two Yi-9B engines (a
+    PROMPT-token prefill and one decode step each), and DRYRUN_CELLS
+    through the command line.  Only world 1's process sees the card (its
+    fakes on cuda:0); the others trace the card's route on the meta
+    device, as on a machine without one, and open no CUDA context.  The
+    traces need nothing of this process, so `_run` starts them before the
+    first phase, while the kernels build (phase device takes no reading),
+    and `_dryrun_stop` ends them."""
+    from repro_torch.launch import dryrun
+
+    traces.update(tmp=tempfile.mkdtemp(prefix="repro_torch_dryrun_"),
+                  procs={}, t0=time.perf_counter())
+    procs = traces["procs"]
+    arch, layers, (B, S), _ = SHARDED_TRAIN
+    for w in (1, SHARDED_TRAIN_WORLD):
+        procs[f"world {w}"] = dryrun.start(dryrun.case_argv(
+            "sharded_step", arch=arch, layers=layers, batch=[B, S], world=w,
+            rank=w - 1), card=w == 1)
+    for e, n in sorted(ENGINE_LAYERS.items()):
+        procs[e] = dryrun.start(dryrun.case_argv(
+            "serve_case", arch="yi-9b", layers=n, prompt=PROMPT), card=False)
+    for c in DRYRUN_CELLS:
+        a, shape, mesh = c
+        procs[" ".join(c)] = dryrun.start(
+            ["--arch", a, "--shape", shape, "--mesh", mesh, "--force",
+             "--report-dir", traces["tmp"]], card=False)
+
+
+def _dryrun_stop(traces: dict) -> None:
+    """Kill what is left of `_dryrun_start`'s processes, reap them all
+    and remove their report directory."""
+    for p in traces.get("procs", {}).values():
+        if p.poll() is None:
+            p.kill()
+        p.wait()
+    if "tmp" in traces:
+        shutil.rmtree(traces["tmp"], ignore_errors=True)
+
+
+def _dryrun_real_step(cfg, tcfg, B, S):
+    """One sharded step of ``cfg`` at world size 1 over NCCL in this
+    process, from zero masters and a zero (B, S) batch, as the trace runs
+    it: (device bytes held before the step, the step's peak above them,
+    launches, the step's metrics)."""
+    import torch
+
+    from repro_torch.dist import fsdp, one_rank_group, train_mesh
+    from repro_torch.kernels import _build
+    from repro_torch.models import build_model
+    from repro_torch.train import make_train_step
+
+    batch = {"tokens": np.zeros((B, S), np.int32),
+             "labels": np.zeros((B, S), np.int32)}
+    torch.cuda.set_device(0)
+    t0 = time.perf_counter()
+    with one_rank_group("nccl", timeout_s=120.0):
+        mesh = train_mesh((1,), ("data",), device="cuda")
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        model = build_model(cfg, device="cuda", train=True)
+        pspecs, sspecs = fsdp.train_specs(cfg, tcfg.opt, mesh)
+        init_state, step = make_train_step(model, tcfg, mesh=mesh)
+        state = fsdp.shard_tree(init_state(model.params()), sspecs, mesh)
+        shards = fsdp.shard_masters(model, pspecs, mesh)
+        torch.cuda.synchronize()
+        start = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        before = dict(_build.LAUNCHES)
+        t1 = time.perf_counter()
+        shards, state, m = step(shards, state, batch)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        peak = torch.cuda.max_memory_allocated()
+        launches = {k: _build.LAUNCHES[k] - before[k] for k in before}
+        metrics = {k: float(v) for k, v in m.items()}
+        del model, shards, state, m
+    torch.cuda.empty_cache()
+    log(f"  (a') the real step: group, model and shards {t1 - t0:.1f} s, "
+        f"the step {t2 - t1:.1f} s, the group's end "
+        f"{time.perf_counter() - t2:.1f} s")
+    return start - base, peak - start, launches, metrics
+
+
+def _same(label, got, want):
+    if got != want:
+        raise AssertionError(f"dryrun {label}: traced {got}, on the card "
+                             f"{want}")
+
+
+def phase_dryrun(args, rec):
+    """The dry run (`repro_torch.launch.dryrun`) against the card.  Every
+    trace runs in a fresh process (`_dryrun_start`, all started at once
+    before the first phase) while this process runs (a'): (a)
+    SHARDED_TRAIN's
+    sharded step traced at world 1 and 2: collectives a step, bytes
+    gathered and reduced, launches a kernel a rank a step, each exact
+    against train-sharded's runs on the card (when that phase ran) and
+    against (a'), one real step at world size 1 over NCCL here, whose
+    peak the traced arguments + temp must meet within DRYRUN_PEAK_TOL;
+    the traced peaks read against train-sharded's (a), (b) and (c); (b)
+    serve's Yi-9B engines traced over a PROMPT-token prefill and one
+    decode step, launches exact (`_expected_launches`), their peaks read
+    against serve's; (c) DRYRUN_CELLS through the command line, each
+    recorded ok, its GB a rank read against the card's memory."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.train import OptConfig, TrainConfig
+    from repro_torch.train.step import sharded_step_collectives
+
+    smi = rec["smi"]
+    t_phase = time.perf_counter()
+    started = rec["dryrun_traces"]
+    procs, tmp, read = started["procs"], started["tmp"], {}
+    running = [n for n, p in procs.items() if p.poll() is None]
+
+    def result(name):  # the last line a trace's process printed
+        left = DRYRUN_TIMEOUT_S - (time.perf_counter() - started["t0"])
+        out = dryrun.finish(procs[name], max(left, 1.0))
+        read[name] = round(time.perf_counter() - t_phase, 1)
+        return out.strip().splitlines()[-1]
+
+    arch, layers, (B, S), _ = SHARDED_TRAIN
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+    tcfg = TrainConfig(opt=OptConfig())
+    per_step = _train_launches(cfg)
+    args_b, temp_b, launches, metrics = _dryrun_real_step(cfg, tcfg, B, S)
+    t_real = time.perf_counter() - t_phase
+    _same("(a') launches", launches, per_step)
+    rec.setdefault("paths", {})["dryrun"] = dict(launches=launches)
+    card = rec.get("paths", {}).get("train-sharded")
+    traces = {}
+    for w in (1, SHARDED_TRAIN_WORLD):
+        t = traces[w] = json.loads(result(f"world {w}"))
+        want = sharded_step_collectives(cfg, tcfg, _data_mesh(w))
+        got = dict(collectives=t["metrics"]["collectives"],
+                   gathered_bytes=t["metrics"]["gathered_bytes"],
+                   reduced_bytes=t["metrics"]["reduced_bytes"])
+        _same(f"(a) world {w} collectives", got["collectives"], want)
+        _same(f"(a) world {w} launches", {
+            k: t["kernels"]["launches"].get(k, 0) for k in per_step},
+            per_step)
+        if w == 1:
+            _same("(a') collectives and bytes", got, {
+                k: int(metrics[k]) for k in got})
+        if card is not None:
+            run = card["gloo"] if w > 1 else card["nccl"]
+            for r, m in enumerate(run["measures"]):
+                for i, st in enumerate(m["steps"]):
+                    _same(f"(a) world {w} rank {r} step {i + 1}", got,
+                          {k: st[k] for k in got})
+                _same(f"(a) world {w} rank {r} launches a step",
+                      {k: t["kernels"]["launches"].get(k, 0) * card[
+                          "steps"] for k in per_step},
+                      {k: m["launches"][k] for k in per_step})
+        mem = t["memory"]
+        traced = mem["peak_bytes"] / 1e9
+        line = (f"  [{smi}] (a) traced world {w}: {got['collectives']} "
+                f"collectives, {got['gathered_bytes'] / 1e9:.3f} GB "
+                f"gathered, {got['reduced_bytes'] / 1e9:.3f} GB reduced, "
+                f"launches {t['kernels']['launches']} a rank a step; "
+                f"peak {traced:.3f} GB (arguments "
+                f"{(mem['peak_bytes'] - mem['temp_bytes']) / 1e9:.3f} + "
+                f"temp {mem['temp_bytes'] / 1e9:.3f})")
+        if w == 1:
+            ratio = mem["peak_bytes"] / (args_b + temp_b)
+            line += (f"; (a') the card's step at world size 1 over "
+                     f"NCCL: {args_b / 1e9:.3f} + "
+                     f"{temp_b / 1e9:.3f} GB, traced / card {ratio:.4f}")
+            if abs(ratio - 1.0) > DRYRUN_PEAK_TOL:
+                raise AssertionError(f"dryrun (a'): traced peak / the "
+                                     f"card's {ratio:.4f}, outside 1 +- "
+                                     f"{DRYRUN_PEAK_TOL}")
+        if card is not None:
+            reads = ([("(a) single", card["single_peak_gb"])]
+                     if w == 1 else []) + [
+                (f"({'c' if w == 1 else 'b'}) rank {r}", m["peak_gb"])
+                for r, m in enumerate(run["measures"])]
+            line += "; traced / train-sharded's peak: " + ", ".join(
+                f"{n} {traced / gb:.3f} ({gb:.2f} GB)" for n, gb in reads)
+        log(line)
+    if card is None:
+        log("  (a) train-sharded did not run: held against (a') alone")
+
+    serve = rec.get("paths", {}).get("yi-9b")
+    held = 0.0
+    for e, n in sorted(ENGINE_LAYERS.items()):
+        t = traces[e] = json.loads(result(e))
+        ecfg = dataclasses.replace(get_config("yi-9b"), n_layers=n)
+        pre = {k: v for k, v in _expected_launches(ecfg, 1, 0).items()
+               if v}
+        one = _expected_launches(ecfg, 1, 1)
+        dec = {k: one[k] - pre.get(k, 0) for k in one
+               if one[k] - pre.get(k, 0)}
+        _same(f"(b) {e} prefill launches", t["prefill"]["kernels"][
+            "launches"], pre)
+        _same(f"(b) {e} decode launches", t["decode"]["kernels"][
+            "launches"], dec)
+        p, d = t["prefill"]["memory"], t["decode"]["memory"]
+        held += max(p["peak_bytes"], d["peak_bytes"])
+        log(f"  [{smi}] (b) traced {e} (Yi-9B, {n} layers): prefill "
+            f"{PROMPT} tokens {pre}, peak {p['peak_bytes'] / 1e9:.3f} "
+            f"GB; one decode step {dec}, peak "
+            f"{d['peak_bytes'] / 1e9:.3f} GB: launches as "
+            f"_expected_launches")
+    if serve is not None:
+        gb = serve["max_memory_allocated_gb"]
+        log(f"  [{smi}] (b) the engines' traced peaks together "
+            f"{held / 1e9:.3f} GB against serve's "
+            f"max_memory_allocated {gb:.2f} GB: {held / 1e9 / gb:.3f}")
+
+    total_gb = torch.cuda.get_device_properties(0).total_memory / 1e9
+    for c in DRYRUN_CELLS:
+        result(" ".join(c))
+        with open(os.path.join(tmp, "__".join(c) + ".json")) as f:
+            r = json.load(f)
+        if not r.get("ok"):
+            raise AssertionError(f"dryrun {c}: {r.get('error')}")
+        mem = r["memory"]
+        gb = (mem["argument_bytes"] + mem["temp_bytes"]) / 1e9
+        log(f"  [{smi}] (c) {' '.join(c)}: ok, traced in "
+            f"{r['trace_s']:.2f} s, "
+            f"{gb:.2f} GB a rank (arguments "
+            f"{mem['argument_bytes'] / 1e9:.2f} + temp "
+            f"{mem['temp_bytes'] / 1e9:.2f}) against the card's "
+            f"{total_gb:.2f} GB "
+            f"({'fits' if gb <= total_gb else 'does not fit'}), "
+            f"{r['cost']['flops']:.4g} FLOPs, "
+            f"{r['cost']['collective_bytes'] / 1e9:.3f} GB of "
+            f"collectives, launches {r['kernels']['launches']}")
+    total = time.perf_counter() - t_phase
+    log(f"[{smi}] dryrun: {total:.1f} s (budget {DRYRUN_BUDGET_S:.0f} s)"
+        + ("" if total <= DRYRUN_BUDGET_S else "; OVER ITS BUDGET")
+        + f": the traces started {t_phase - started['t0']:.1f} s before the "
+        f"phase, still running at its start {running}; (a') done at "
+        f"{t_real:.1f} s; each process read at (s) {read}, the step's and the "
+        f"engines' traces took (s) {[t['trace_s'] for t in traces.values()]}")
+
+
+def _data_mesh(world: int):
+    """A shape-only ``("data",)`` mesh of ``world`` ranks for
+    `sharded_step_collectives`."""
+    import types
+
+    return types.SimpleNamespace(axis_names=("data",),
+                                 shape={"data": world})
 
 
 # ----------------------------------------------------------------------
@@ -5135,7 +5369,8 @@ PHASES = {"device": phase_device, "kernels": phase_kernels,
           # after the serve phases: a short trace taken after a train step's
           # long one came back empty on the card (PERF.md section 7)
           "train": phase_train, "train-sharded": phase_train_sharded,
-          "train-pipe": phase_train_pipe, "train-ssm": phase_train_ssm,
+          "dryrun": phase_dryrun, "train-pipe": phase_train_pipe,
+          "train-ssm": phase_train_ssm,
           "train-hybrid": phase_train_hybrid,
           "train-100m": phase_train_100m, "zoo": phase_zoo}
 SERVE_PHASES = ("serve", "serve-events", "serve-compiled", "serve-sharded",
@@ -5166,6 +5401,20 @@ def main(argv=None) -> int:
     ap.add_argument("--verbose-build", action="store_true",
                     help="show the compiler's output (ptxas -v included)")
     args = ap.parse_args(argv)
+    # the card's host writes no bytecode (PYTHONDONTWRITEBYTECODE), so
+    # each process compiled torch's sources anew, ~8 s a process there:
+    # this run's processes share one bytecode cache, removed at the end
+    pyc = tempfile.mkdtemp(prefix="chip_smoke_pyc_")
+    os.environ["PYTHONPYCACHEPREFIX"] = pyc
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+    sys.pycache_prefix, sys.dont_write_bytecode = pyc, False
+    try:
+        return _run(args)
+    finally:
+        shutil.rmtree(pyc, ignore_errors=True)
+
+
+def _run(args) -> int:
     phases = args.phases.split(",")
 
     import torch
@@ -5176,23 +5425,28 @@ def main(argv=None) -> int:
         return 2
     import repro_torch  # noqa: F401  (fails outside a checkout of the repo)
 
-    rec = {"kernels": {}}
+    rec = {"kernels": {}, "dryrun_traces": {}}
     failed = []
-    for name, fn in {**PHASES, **ON_REQUEST}.items():
-        if name not in phases:
-            continue
-        if failed:
-            log(f"phase {name}: skipped after a failure")
-            continue
-        log(f"== phase {name}")
-        t0 = time.perf_counter()
-        try:
-            fn(args, rec)
-        except Exception:  # a phase boundary: report and fail the run
-            traceback.print_exc()
-            failed.append(name)
-        log(f"== phase {name}: {'FAILED' if name in failed else 'ok'} "
-            f"({time.perf_counter() - t0:.1f} s)")
+    try:
+        if "dryrun" in phases:
+            _dryrun_start(rec["dryrun_traces"])
+        for name, fn in {**PHASES, **ON_REQUEST}.items():
+            if name not in phases:
+                continue
+            if failed:
+                log(f"phase {name}: skipped after a failure")
+                continue
+            log(f"== phase {name}")
+            t0 = time.perf_counter()
+            try:
+                fn(args, rec)
+            except Exception:  # a phase boundary: report and fail the run
+                traceback.print_exc()
+                failed.append(name)
+            log(f"== phase {name}: {'FAILED' if name in failed else 'ok'} "
+                f"({time.perf_counter() - t0:.1f} s)")
+    finally:
+        _dryrun_stop(rec["dryrun_traces"])
     if failed:
         print(f"chip_smoke: failed phases {failed}", file=sys.stderr)
         return 1

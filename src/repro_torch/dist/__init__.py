@@ -22,9 +22,12 @@
                `train_runs.run_train_cases` (sharded training and the
                elastic restore) and `pipeline_runs.run_pipe_cases` (the
                pipeline on a toy layer or a model's stages)
-
-`repro.dist`'s `act_sharding` comes in a later slice.
+- `act_sharding` — `repro.dist.act_sharding`: `constrain` and
+               `use_mesh_axes`, the models' logical activation sites
+               (``"dp"``, ``"tp"``), recorded by a dry run
+               (`repro_torch.launch.dryrun`) and otherwise ``x`` itself
 """
+from repro_torch.dist.act_sharding import constrain, use_mesh_axes
 from repro_torch.dist.group import one_rank_group, spawn
 from repro_torch.dist.pipeline import (pipeline_forward, split_stages,
                                        stage_block)
@@ -54,8 +57,9 @@ from repro_torch.dist.sharding import (
 __all__ = [
     "LANE_AXIS", "LaneMesh", "PIPE_AXES", "Sharding", "TrainMesh",
     "all_reduce_sum", "batch_specs", "cache_specs", "check_specs",
-    "collective_bytes", "collectives", "gather_objects", "lane_block",
+    "collective_bytes", "collectives", "constrain", "gather_objects",
+    "lane_block",
     "lane_counts", "lane_mesh", "merge_plans", "one_rank_group", "permute",
     "pipeline_forward", "sharding_tree", "spawn", "spec_tree",
-    "split_stages", "stage_block", "train_mesh",
+    "split_stages", "stage_block", "train_mesh", "use_mesh_axes",
 ]

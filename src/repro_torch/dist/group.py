@@ -44,6 +44,9 @@ def _rank_main(rank, fn, world, device, backend, args, tmp, timeout_s):
         rank=rank, world_size=world,
         timeout=datetime.timedelta(seconds=timeout_s))
     try:
+        # every rank has joined before any runs: a rank that fails at once
+        # cannot close its sockets while a peer still connects to it
+        dist.barrier()
         out = fn(lane_mesh(world, device=device), *args)
         if rank == 0:
             part = os.path.join(tmp, "result.part")

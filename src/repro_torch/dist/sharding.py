@@ -45,7 +45,10 @@ the mesh is a process group, one rank per device:
 `gather_objects`, the pipeline's `permute`, and `merge_plans` through
 `all_reduce_sum`) are each counted by `collectives`, their operand bytes
 by `collective_bytes`.
-Under NCCL the operands live on the device.  Under gloo they go through
+While a dry run traces (`repro_torch.record`), each collective is also
+recorded by kind with its bytes.
+Under NCCL the operands live on the device, and so they do on a dry
+run's ``"fake"`` group (`device_path`).  Under gloo they go through
 explicit host copies: gloo's CUDA support covers broadcast and
 all-reduce only, and NCCL refuses two ranks on one card, so ranks that
 share a card stage every collective through the host, in staging
@@ -62,6 +65,7 @@ import warnings
 import torch
 import torch.distributed as dist
 
+from repro_torch import record
 from repro_torch.device import resolve_device
 
 LANE_AXIS = "lanes"
@@ -96,11 +100,33 @@ def collective_bytes() -> dict:
     return dict(_BYTES)
 
 
-def _count(kind: str | None, t: torch.Tensor | None) -> None:
+def _count(kind: str | None, t: torch.Tensor | None,
+           op: str = "all-gather-object") -> None:
     global _COLLECTIVES
     _COLLECTIVES += 1
+    nbytes = 0 if kind is None else t.numel() * t.element_size()
     if kind is not None:
-        _BYTES[kind] += t.numel() * t.element_size()
+        _BYTES[kind] += nbytes
+    rec = record.active()
+    if rec is not None:
+        rec.collective(op, nbytes, "" if t is None else record.shape_str(t))
+
+
+def device_path(backend: str) -> bool:
+    """Whether a group's collectives run on the device's tensors: NCCL's,
+    and a dry run's ``"fake"`` group, which traces NCCL's path (`repro_
+    torch.launch.dryrun`); gloo's go through host staging buffers."""
+    return backend in ("nccl", "fake")
+
+
+def _rank_device(dev: torch.device, rank: int, backend: str) -> torch.device:
+    """Rank ``rank``'s device: ``cuda:{rank % device_count}`` on CUDA; on a
+    fake group (the ranks a dry run stands for, each traced on one device)
+    every rank's is the one `resolve_device` gave, ``cuda:0`` or, without
+    a card, ``meta``."""
+    if dev.type != "cuda" or backend == "fake":
+        return dev
+    return torch.device("cuda", rank % torch.cuda.device_count())
 
 
 # ----------------------------------------------------------------------
@@ -307,17 +333,14 @@ def train_mesh(shape, axes, device: str | torch.device = "cuda") -> TrainMesh:
             + f": start {n} ranks with repro_torch.dist.spawn(fn, {n}, "
             f"device=...) or torchrun --nproc-per-node {n}, and call this "
             "on every rank")
-    dev = resolve_device(device)
-    rank = dist.get_rank()
-    if dev.type == "cuda":
-        dev = torch.device("cuda", rank % torch.cuda.device_count())
+    rank, backend = dist.get_rank(), str(dist.get_backend())
+    dev = _rank_device(_resolve(device, backend), rank, backend)
     extent = dict(zip(axes, shape))
     coords, r = {}, rank
     for a in reversed(axes):
         coords[a], r = r % extent[a], r // extent[a]
     data_axes = tuple(a for a in axes if a in ("pod", "data"))
     keys = [(a,) for a in axes] + ([data_axes] if len(data_axes) > 1 else [])
-    backend = str(dist.get_backend())
     parts = GLOO_PARTS if backend == "gloo" else 1
     groups = {}
     for key in keys:
@@ -334,6 +357,19 @@ def train_mesh(shape, axes, device: str | torch.device = "cuda") -> TrainMesh:
     return TrainMesh(axis_names=axes, shape=extent, rank=rank, coords=coords,
                      device=dev, backend=backend, groups=groups,
                      group=dist.group.WORLD)
+
+
+def _resolve(device, backend: str) -> torch.device:
+    """`resolve_device`; a fake group's mesh names "cuda" only while a
+    `FakeTensorMode` is active (where `resolve_device` allows it without
+    a card)."""
+    dev = torch.device(device)
+    if backend == "fake" and dev.type in ("cuda", "meta"):
+        from repro_torch.device import fake_mode_active
+        if not fake_mode_active():
+            raise RuntimeError("a fake process group computes nothing: name "
+                               "'cuda' on it only inside a FakeTensorMode")
+    return resolve_device(dev)
 
 
 def _ravel(at: dict, axes, extent) -> int:
@@ -431,12 +467,10 @@ def lane_mesh(n_devices: int, device: str | torch.device = "cuda") -> LaneMesh:
             + f": start {n} ranks with repro_torch.dist.spawn(fn, {n}, "
             f"device=...) or torchrun --nproc-per-node {n}, and call this "
             "on every rank")
-    dev = resolve_device(device)
-    rank = dist.get_rank()
-    if dev.type == "cuda":
-        dev = torch.device("cuda", rank % torch.cuda.device_count())
+    rank, backend = dist.get_rank(), str(dist.get_backend())
+    dev = _rank_device(_resolve(device, backend), rank, backend)
     return LaneMesh(group=dist.group.WORLD, rank=rank, size=n, device=dev,
-                    backend=str(dist.get_backend()))
+                    backend=backend)
 
 
 def lane_counts(n_lanes: int, mesh) -> tuple[int, int]:
@@ -462,11 +496,11 @@ def all_reduce_sum(t: torch.Tensor, mesh, axes: tuple | None = None
     (on ``mesh.device``) and comes back there; under gloo it runs on an
     explicit host copy and comes back on the host.  ``t`` itself is never
     written."""
-    if mesh.backend == "nccl":
+    if device_path(mesh.backend):
         buf = t.to(mesh.device, copy=True)
     else:
         buf = t.to("cpu", copy=True)
-    _count("reduced", buf)
+    _count("reduced", buf, "all-reduce")
     dist.all_reduce(buf, op=dist.ReduceOp.SUM,
                     group=mesh.group if axes is None else mesh.groups[axes][0])
     return buf
@@ -531,10 +565,10 @@ def gather_dim(shard: torch.Tensor, dim: int, axes: tuple, mesh: TrainMesh,
     shape = (n * x.shape[0],) + tuple(x.shape[1:])
     with warnings.catch_warnings():  # renamed *_single in torch 2.13
         warnings.simplefilter("ignore", FutureWarning)
-        if mesh.backend == "nccl":
+        if device_path(mesh.backend):
             g = mesh.groups[axes][0]
             out = torch.empty(shape, dtype=x.dtype, device=x.device)
-            _count("gathered", out)
+            _count("gathered", out, "gather" if root else "all-gather")
             if root:
                 dist.gather(x, list(out.chunk(n)) if mesh.rank == 0
                             else None, dst=0, group=g)
@@ -547,7 +581,7 @@ def gather_dim(shard: torch.Tensor, dim: int, axes: tuple, mesh: TrainMesh,
             src = _host_buffer((k, m), x.dtype, mesh)
             src.copy_(x.view(k, m))
             parts = _host_buffer((k, n, m), x.dtype, mesh)
-            _count("gathered", parts)
+            _count("gathered", parts, "gather" if root else "all-gather")
             _wait([dist.gather(src[j], list(parts[j]) if mesh.rank == 0
                                else None, dst=0, group=g, async_op=True)
                    if root else dist.all_gather_into_tensor(
@@ -555,7 +589,7 @@ def gather_dim(shard: torch.Tensor, dim: int, axes: tuple, mesh: TrainMesh,
                    for j, g in enumerate(gs)])
     if root and mesh.rank != 0:
         return None
-    if mesh.backend != "nccl":  # (part, rank, m) -> the ranks' blocks
+    if not device_path(mesh.backend):  # (part, rank, m) -> rank blocks
         out = parts.to(mesh.device, copy=True).transpose(0, 1).reshape(shape)
     return to_device(out.movedim(0, dim).contiguous(),
                      mesh.device if device is None else device)
@@ -573,9 +607,9 @@ def reduce_scatter_dim(full: torch.Tensor, dim: int, axes: tuple,
     shape = (x.shape[0] // n,) + tuple(x.shape[1:])
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", FutureWarning)
-        if mesh.backend == "nccl":
+        if device_path(mesh.backend):
             out = torch.empty(shape, dtype=x.dtype, device=x.device)
-            _count("reduced", x)
+            _count("reduced", x, "reduce-scatter")
             dist.reduce_scatter_tensor(out, x, op=dist.ReduceOp.SUM,
                                        group=mesh.groups[axes][0])
         else:
@@ -585,7 +619,7 @@ def reduce_scatter_dim(full: torch.Tensor, dim: int, axes: tuple,
             src = _host_buffer((k, n, m), x.dtype, mesh)
             src.copy_(x.view(n, k, m).transpose(0, 1))
             parts = _host_buffer((k, m), x.dtype, mesh)
-            _count("reduced", src)
+            _count("reduced", src, "reduce-scatter")
             _wait([dist.reduce_scatter_tensor(
                 parts[j], src[j].view(-1), op=dist.ReduceOp.SUM, group=g,
                 async_op=True) for j, g in enumerate(gs)])
@@ -612,8 +646,8 @@ def permute(t: torch.Tensor, shift: int, axis: str, mesh: TrainMesh
     at[axis] = (mesh.coords[axis] - shift) % n
     src = _ravel(at, mesh.axis_names, mesh.shape)
     x = t.contiguous()
-    _count("permuted", x)
-    if mesh.backend == "nccl":
+    _count("permuted", x, "collective-permute")
+    if device_path(mesh.backend):
         out = torch.empty_like(x)
         g = mesh.groups[(axis,)][0]
         _wait(dist.batch_isend_irecv([dist.P2POp(dist.isend, x, dst, g),

@@ -5,6 +5,16 @@ exists only because the caller asked for the CPU, goes to the plain
 PyTorch version.  A kernel that fails to build or launch raises: nothing
 here catches it and switches to the plain version.
 
+A `FakeTensor` on the card (a dry run traces the card's path with
+nothing allocated, `repro_torch.launch.dryrun`; on a machine without a
+card the meta device stands in for it, `device.resolve_device`) takes the
+kernel's shape route instead: the outputs the CUDA wrapper would return,
+with its shapes and dtypes and nothing computed, one counted launch
+where the wrapper counts one, and the kernel's work (`kernels.cost`)
+added to the dry run's record.  The route is a plain check ahead of
+everything that needs a card; a real tensor never reaches it, and a fake
+CPU tensor takes the plain version, as a CPU tensor does.
+
 `attention`, `rms_norm` and `ssd_scan` carry gradients on both devices,
 each a `torch.autograd.Function` (`repro` wraps its Pallas forwards in
 `jax.custom_vjp` the same way).  Attention saves its output and per-row
@@ -17,16 +27,122 @@ product.  `decode_attention` and the replan are inference only.
 from __future__ import annotations
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
-from repro_torch.kernels import ref
+from repro_torch import record
+from repro_torch.kernels import _build, cost, ref
+from repro_torch.kernels.decode_attention import \
+    check_operands as _check_decode
 from repro_torch.kernels.decode_attention import decode_attention as _cuda_decode
+from repro_torch.kernels.flash_attention import _check as _check_flash
 from repro_torch.kernels.flash_attention import flash_attention as _cuda_flash
 from repro_torch.kernels.flash_attention import \
     flash_attention_bwd as _cuda_flash_bwd
+from repro_torch.kernels.rmsnorm import check_operands as _check_rmsnorm
 from repro_torch.kernels.rmsnorm import rms_norm as _cuda_rmsnorm
+from repro_torch.kernels.ssd_scan import check_operands as _check_ssd
 from repro_torch.kernels.ssd_scan import ssd_scan as _cuda_ssd
 from repro_torch.kernels.trie_plan import bind as _bind_cuda_plan
 from repro_torch.kernels.trie_plan import fleet_plan_blocked, trie_plan_cuda
+
+
+# ----------------------------------------------------------------------
+# shape routes: a fake CUDA tensor's counterpart of each CUDA wrapper
+# ----------------------------------------------------------------------
+def _launched(name: str, work) -> None:
+    """What the wrapper does where it launches: one counted launch, and in
+    a dry run the kernel's ``work`` (bytes, operations) recorded."""
+    _build.count_launch(name)
+    rec = record.active()
+    if rec is not None:
+        rec.kernel(name, work)
+
+
+def _flash_shapes(q, k, v, *, causal: bool, window: int,
+                  return_lse: bool = False):
+    """`flash_attention.flash_attention`'s outputs, nothing computed."""
+    _check_flash("flash_attention", q, k, v)
+    B, H, Sq, D = q.shape
+    KV, Sk = k.shape[1], k.shape[2]
+    out = torch.empty_like(q)
+    lse = (torch.empty(B, H, Sq, dtype=torch.float32, device=q.device)
+           if return_lse else None)
+    if q.numel():
+        _launched("flash_attention", cost.flash_work(
+            B, H, KV, Sq, Sk, D, q.element_size(), causal, window,
+            lse=return_lse))
+    return (out, lse) if return_lse else out
+
+
+def _flash_bwd_shapes(q, k, v, o, lse, do, *, causal: bool, window: int):
+    """`flash_attention.flash_attention_bwd`'s outputs."""
+    _check_flash("flash_attention_bwd", q, k, v)
+    if q.numel() == 0 or k.numel() == 0:
+        return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
+    B, H, Sq, D = q.shape
+    KV, Sk = k.shape[1], k.shape[2]
+    _launched("flash_attention_bwd", cost.flash_bwd_work(
+        B, H, KV, Sq, Sk, D, q.element_size(), causal, window))
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+
+
+def _decode_shapes(q, k_cache, v_cache, cache_len, *, window: int):
+    """`decode_attention.decode_attention`'s output.  The lengths lie on
+    the device, out of a trace's reach: the work counted is that of every
+    slot, the most the call can need (a dry run decodes into a full
+    cache, where that is exact)."""
+    _check_decode(q, k_cache, v_cache, cache_len)
+    B, H, D = q.shape
+    KV, S = k_cache.shape[1], k_cache.shape[2]
+    if q.numel() == 0 or S == 0:
+        return torch.zeros_like(q)
+    _launched("decode_attention",
+              cost.decode_work(B, H, KV, D, S, q.element_size()))
+    return torch.empty_like(q)
+
+
+def _rms_norm_shapes(x, scale, eps: float):
+    """`rmsnorm.rms_norm`'s output."""
+    _check_rmsnorm(x, scale)
+    D = x.shape[-1]
+    rows = x.numel() // D if D else 0
+    if rows:
+        _launched("rms_norm", cost.rms_norm_work(rows, D, x.element_size()))
+    return torch.empty_like(x)
+
+
+def _ssd_shapes(x, dt, A, Bm, Cm, *, chunk: int, init_state=None,
+                return_state: bool = False):
+    """`ssd_scan.ssd_scan`'s outputs."""
+    _check_ssd(x, dt, A, Bm, Cm, chunk, init_state)
+    B, S, Hn, P = x.shape
+    N = Bm.shape[-1]
+    y = torch.empty_like(x)
+    state = (torch.empty(B, Hn, P, N, dtype=torch.float32, device=x.device)
+             if return_state else None)
+    if x.numel():
+        _launched("ssd_scan", cost.ssd_work(
+            S, Hn, P, N, min(chunk, S), final=return_state, B=B,
+            itemsize=x.element_size()))
+    return (y, state) if return_state else y
+
+
+def _fake(t) -> bool:
+    """A fake tensor on the card or its stand-in: the shape routes'."""
+    return isinstance(t, FakeTensor) and t.device.type != "cpu"
+
+
+# ----------------------------------------------------------------------
+# dispatch
+# ----------------------------------------------------------------------
+def _flash(q, k, v, causal, window, return_lse):
+    if q.is_cuda or _fake(q):
+        fn = _flash_shapes if _fake(q) else _cuda_flash
+        return fn(q, k, v, causal=causal, window=window,
+                  return_lse=return_lse)
+    if return_lse:
+        return ref.attention_fwd(q, k, v, causal=causal, window=window)
+    return ref.attention(q, k, v, causal=causal, window=window)
 
 
 class _Attention(torch.autograd.Function):
@@ -34,11 +150,7 @@ class _Attention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window):
-        if q.is_cuda:
-            o, lse = _cuda_flash(q, k, v, causal=causal, window=window,
-                                 return_lse=True)
-        else:
-            o, lse = ref.attention_fwd(q, k, v, causal=causal, window=window)
+        o, lse = _flash(q, k, v, causal, window, True)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.causal, ctx.window = causal, window
         return o
@@ -46,7 +158,10 @@ class _Attention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
-        bwd = _cuda_flash_bwd if q.is_cuda else ref.attention_bwd
+        if q.is_cuda or _fake(q):
+            bwd = _flash_bwd_shapes if _fake(q) else _cuda_flash_bwd
+        else:
+            bwd = ref.attention_bwd
         dq, dk, dv = bwd(q, k, v, o, lse, do.contiguous(), causal=ctx.causal,
                          window=ctx.window)
         return dq, dk, dv, None, None
@@ -58,9 +173,7 @@ def attention(q, k, v, *, causal: bool = True, window: int = 0):
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         return _Attention.apply(q, k, v, causal, window)
-    if q.is_cuda:
-        return _cuda_flash(q, k, v, causal=causal, window=window)
-    return ref.attention(q, k, v, causal=causal, window=window)
+    return _flash(q, k, v, causal, window, False)
 
 
 def _vjp(fn, inputs, needs, grads):
@@ -86,7 +199,7 @@ class _RMSNorm(torch.autograd.Function):
     def forward(ctx, x, scale, eps):
         ctx.save_for_backward(x, scale)
         ctx.eps = eps
-        return (_cuda_rmsnorm if x.is_cuda else ref.rms_norm)(x, scale, eps)
+        return _rms(x, scale, eps)
 
     @staticmethod
     def backward(ctx, g):
@@ -96,13 +209,18 @@ class _RMSNorm(torch.autograd.Function):
         return dx, ds, None
 
 
+def _rms(x, scale, eps):
+    if x.is_cuda or _fake(x):
+        return (_rms_norm_shapes if _fake(x) else _cuda_rmsnorm)(x, scale,
+                                                                 eps)
+    return ref.rms_norm(x, scale, eps)
+
+
 def rms_norm(x, scale, eps: float = 1e-6):
     """RMSNorm over the last axis, computed in float32."""
     if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad):
         return _RMSNorm.apply(x, scale, eps)
-    if x.is_cuda:
-        return _cuda_rmsnorm(x, scale, eps)
-    return ref.rms_norm(x, scale, eps)
+    return _rms(x, scale, eps)
 
 
 # `repro.kernels.ops._NAIVE_SSD_LEN`: up to this length `repro`'s plain
@@ -118,7 +236,7 @@ class _SSDScan(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, dt, A, Bm, Cm, init_state, chunk, return_state):
-        fn = _cuda_ssd if x.is_cuda else ref.ssd_scan_chunked
+        fn = _ssd_fn(x)
         ctx.save_for_backward(x, dt, A, Bm, Cm, init_state)
         ctx.chunk, ctx.return_state = chunk, return_state
         return fn(x, dt, A, Bm, Cm, chunk=chunk, init_state=init_state,
@@ -140,10 +258,17 @@ class _SSDScan(torch.autograd.Function):
                     grads) + (None, None)
 
 
+def _ssd_fn(x):
+    if x.is_cuda or _fake(x):
+        return _ssd_shapes if _fake(x) else _cuda_ssd
+    return ref.ssd_scan_chunked
+
+
 def decode_attention(q, k_cache, v_cache, cache_len, *, window: int = 0):
     """(B,H,D) x (B,KV,S,D)^2 with (B,) int32 lengths -> (B,H,D)."""
-    if q.is_cuda:
-        return _cuda_decode(q, k_cache, v_cache, cache_len, window=window)
+    if q.is_cuda or _fake(q):
+        fn = _decode_shapes if _fake(q) else _cuda_decode
+        return fn(q, k_cache, v_cache, cache_len, window=window)
     return ref.decode_attention(q, k_cache, v_cache, cache_len,
                                 window=window)
 
@@ -160,8 +285,7 @@ def ssd_scan(x, dt, A, Bm, Cm, *, chunk: int = 256, init_state=None,
             t is not None and t.requires_grad for t in operands):
         return _SSDScan.apply(x, dt, A, Bm, Cm, init_state, chunk,
                               return_state)
-    fn = _cuda_ssd if x.is_cuda else ref.ssd_scan_chunked
-    return fn(x, dt, A, Bm, Cm, chunk=chunk, init_state=init_state,
+    return _ssd_fn(x)(x, dt, A, Bm, Cm, chunk=chunk, init_state=init_state,
               return_state=return_state)
 
 

@@ -39,6 +39,16 @@ def ssd_scan(x, dt, A, Bm, Cm, *, chunk: int = 256, init_state=None,
     operands = (x, dt, A, Bm, Cm) + (
         (init_state,) if init_state is not None else ())
     _build.check_cuda("ssd_scan", *operands)
+    check_operands(x, dt, A, Bm, Cm, chunk, init_state)
+    B, S, Hn, P = x.shape
+    Q = min(chunk, S) if S else 1
+    runs = scan_runs(B, Hn, P, -(-S // Q), _build.sm_count(x.device.index))
+    return _launch(x, dt, A, Bm, Cm, Q, init_state, return_state, runs)
+
+
+def check_operands(x, dt, A, Bm, Cm, chunk: int, init_state=None) -> None:
+    """Raise unless the kernel takes these dtypes and shapes (see
+    `ssd_scan`)."""
     B, S, Hn, P = x.shape
     N = Bm.shape[-1]
     if x.dtype not in DTYPES or Bm.dtype != x.dtype or Cm.dtype != x.dtype \
@@ -53,9 +63,6 @@ def ssd_scan(x, dt, A, Bm, Cm, *, chunk: int = 256, init_state=None,
         raise ValueError(f"ssd_scan: unsupported shapes x {x.shape}, dt "
                          f"{dt.shape}, A {A.shape}, B {Bm.shape}, C "
                          f"{Cm.shape}, chunk {chunk}")
-    Q = min(chunk, S) if S else 1
-    runs = scan_runs(B, Hn, P, -(-S // Q), _build.sm_count(x.device.index))
-    return _launch(x, dt, A, Bm, Cm, Q, init_state, return_state, runs)
 
 
 def _launch(x, dt, A, Bm, Cm, Q: int, init_state, return_state: bool,

@@ -6,6 +6,9 @@ cache or an encoder's keys and values), multi-head latent
 attention (MLA: the flash kernel at prefill, `repro`'s absorbed form in
 plain PyTorch at decode), the SwiGLU MLP, the token-choice MoE (`route`,
 `MoE`) and the Mamba2 (SSD) block.
+The activations carry `repro`'s logical sharding sites
+(`dist.act_sharding.constrain`, ``x`` itself unless a dry run maps them)
+where `repro` puts them, in its order.
 Weights keep `repro`'s layout, ``(in, out)`` matrices applied as
 ``x @ w``, so `models.convert` copies them without transposes.  The
 attention cores, the SSD scan and every RMSNorm go through `kernels.ops`,
@@ -23,6 +26,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.dist.act_sharding import constrain
 from repro_torch.kernels import ops
 from repro_torch.models.config import ArchConfig
 
@@ -107,9 +111,12 @@ class Attention(nn.Module):
 
     def _qkv(self, x):
         c = self.cfg
-        return (self._proj(x, "q", c.n_heads),
-                self._proj(x, "k", c.n_kv_heads),
-                self._proj(x, "v", c.n_kv_heads))
+        return (constrain(self._proj(x, "q", c.n_heads), "dp", None, "tp",
+                          None),
+                constrain(self._proj(x, "k", c.n_kv_heads), "dp", None, "tp",
+                          None),
+                constrain(self._proj(x, "v", c.n_kv_heads), "dp", None, "tp",
+                          None))
 
     def forward(self, x, positions, *, causal: bool = True, window: int = 0,
                 kv_override=None):
@@ -121,7 +128,8 @@ class Attention(nn.Module):
         B, S, _ = x.shape
         if kv_override is not None:
             k, v = kv_override
-            q = self._proj(x, "q", self.cfg.n_heads).transpose(1, 2)
+            q = constrain(self._proj(x, "q", self.cfg.n_heads), "dp", None,
+                          "tp", None).transpose(1, 2)
         else:
             q, k, v = self._qkv(x)
             q = rope(q, positions, self.cfg.rope_theta).transpose(1, 2)
@@ -207,17 +215,23 @@ class MLA(nn.Module):
         for p in (self.wq_a, self.wq_b, self.wkv_a, self.wkv_b, self.wo):
             _dense_(p, generator)
 
-    def _q(self, x, positions):
-        """(q_nope (B, S, H, dn), roped q_rope (B, S, H, dr))."""
+    def _q(self, x, positions, site: bool = False):
+        """(q_nope (B, S, H, dn), roped q_rope (B, S, H, dr)); ``site``:
+        the full-sequence form, with `repro`'s sharding site on q."""
         B, S, _ = x.shape
         q = rms_norm(x @ self.wq_a, self.q_norm) @ self.wq_b
         q = q.view(B, S, self.cfg.n_heads, self.dn + self.dr)
+        if site:
+            q = constrain(q, "dp", None, "tp", None)
         return q[..., :self.dn], rope(q[..., self.dn:], positions,
                                       self.cfg.rope_theta)
 
-    def _latent(self, x, positions):
-        """(normed latent c (B, S, kvr), roped shared key r (B, S, dr))."""
+    def _latent(self, x, positions, site: bool = False):
+        """(normed latent c (B, S, kvr), roped shared key r (B, S, dr));
+        ``site`` as in `_q`."""
         kv_a = x @ self.wkv_a
+        if site:
+            kv_a = constrain(kv_a, "dp", None, None)
         c = rms_norm(kv_a[..., :self.kvr].contiguous(), self.kv_norm)
         r = rope(kv_a[..., self.kvr:][:, :, None, :], positions,
                  self.cfg.rope_theta)[:, :, 0]
@@ -229,9 +243,10 @@ class MLA(nn.Module):
         cache."""
         B, S, _ = x.shape
         H, dn, dr, dv = self.cfg.n_heads, self.dn, self.dr, self.dv
-        q_nope, q_rope = self._q(x, positions)
-        c, r = self._latent(x, positions)
-        kv = (c @ self.wkv_b).view(B, S, H, dn + dv)
+        q_nope, q_rope = self._q(x, positions, site=True)
+        c, r = self._latent(x, positions, site=True)
+        kv = constrain((c @ self.wkv_b).view(B, S, H, dn + dv), "dp", None,
+                       "tp", None)
         k = torch.cat([kv[..., :dn], r[:, :, None, :].expand(B, S, H, dr)],
                       dim=-1)
         v = F.pad(kv[..., dn:], (0, dn + dr - dv))
@@ -288,7 +303,9 @@ class MLP(nn.Module):
 
     def forward(self, x):
         """x (..., d) -> (..., d)."""
-        return (F.silu(x @ self.w1) * (x @ self.w3)) @ self.w2
+        h = F.silu(x @ self.w1) * (x @ self.w3)
+        h = constrain(h, *(("dp",) + (None,) * (h.ndim - 2) + ("tp",)))
+        return h @ self.w2
 
 
 @dataclasses.dataclass
@@ -452,10 +469,14 @@ def _experts_by_slot(xt, expert, pos, keep, nG, C, w1, w3, w2):
     cap = nG * C
     group = (torch.arange(R, device=xt.device) // G)[:, None]
     flat = expert * cap + group * C + torch.where(keep, pos, 0)
-    rows = torch.zeros(E * cap, dtype=torch.long, device=xt.device)
+    # each kept choice writes its row into its own slot; a dropped one
+    # into one spare slot past the end, cut off (no mask-selected index:
+    # the shapes stay those of the inputs, as a trace needs)
+    rows = torch.zeros(E * cap + 1, dtype=torch.long, device=xt.device)
     row_ids = torch.arange(R, device=xt.device)[:, None].expand(R, K)
-    rows[flat[keep]] = row_ids[keep]
-    out = _swiglu(xt[rows].view(E, cap, -1), w1, w3, w2)
+    rows.scatter_(0, torch.where(keep, flat, E * cap).reshape(-1),
+                  row_ids.reshape(-1))
+    out = _swiglu(xt[rows[:E * cap]].view(E, cap, -1), w1, w3, w2)
     return out.view(E * cap, -1)[flat]
 
 
@@ -536,6 +557,10 @@ class Mamba(nn.Module):
             conv = conv + xp[:, i: i + S] * self.conv_w[i]
         xBC = F.silu(conv + self.conv_b)
         x, Bm, Cm, dt, A = self._ssm_inputs(xBC, dt_raw)
+        x = constrain(x, "dp", None, "tp", None)
+        Bm = constrain(Bm, "dp", None, None)
+        Cm = constrain(Cm, "dp", None, None)
+        dt = constrain(dt, "dp", None, "tp")
         res = ops.ssd_scan(x.contiguous(), dt.contiguous(), A,
                            Bm.contiguous(), Cm.contiguous(),
                            chunk=self.cfg.ssm.chunk,

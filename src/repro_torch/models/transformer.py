@@ -42,6 +42,7 @@ from torch.func import functional_call
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
+from repro_torch.dist.act_sharding import constrain
 from repro_torch.models import layers as L
 from repro_torch.models.config import ArchConfig
 
@@ -928,6 +929,7 @@ class TrainModel(_TrainForm):
         if patch_embeds is not None:
             patches = patch_embeds.to(x.dtype) @ self._use("patch_proj")
             x = torch.cat([patches, x], dim=1)
+        x = constrain(x, "dp", None, None)
         S = x.shape[1]
         positions = torch.arange(S, device=x.device)[None, :]
         slices = self._slices(self._layer_names)
@@ -935,6 +937,7 @@ class TrainModel(_TrainForm):
         if cfg.family != "hybrid":
             for ws in slices:
                 x, a = self._remat(self._layer, x, positions, *ws)
+                x = constrain(x, "dp", None, None)
                 if a is not None:
                     aux = aux + a
         else:
@@ -944,8 +947,9 @@ class TrainModel(_TrainForm):
             def group(x, *flat):
                 n = len(self._layer_names)
                 for j in range(every):
-                    x = self._remat(self._layer, x, positions,
-                                    *flat[j * n:(j + 1) * n])[0]
+                    x = constrain(self._remat(
+                        self._layer, x, positions,
+                        *flat[j * n:(j + 1) * n])[0], "dp", None, None)
                 return self._shared_block(x, positions, window)
 
             for g in range(cfg.n_layers // every):

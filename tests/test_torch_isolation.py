@@ -55,7 +55,12 @@ def test_port_imports_neither_jax_nor_repro():
     files = _port_files()
     assert len(files) > 20 and files[-1].exists()
     dist = {p.name for p in files if p.parent.name == "dist"}
-    assert {"__init__.py", "sharding.py", "group.py", "runs.py"} <= dist
+    assert {"__init__.py", "sharding.py", "group.py", "runs.py",
+            "act_sharding.py"} <= dist
+    rel = {str(p.relative_to(ROOT / "src" / "repro_torch")) for p in files
+           if "repro_torch" in p.parts}
+    assert {"launch/mesh.py", "launch/dryrun.py", "launch/perf_probe.py",
+            "kernels/cost.py", "record.py"} <= rel
     bad = [f"{p.relative_to(ROOT)}:{line} imports {mod}"
            for p in files for mod, line in _imported_roots(p)
            if mod in FORBIDDEN]
