@@ -33,7 +33,10 @@ Phases (any failure exits non-zero and prints no result):
                training shapes (`BWD_SHAPES`) and at small ragged,
                windowed and GQA cases (`BWD_SMALL`: G = 7 and 8 run
                clusters of 7 and 8) from the forward's own output and
-               log-sum-exp (held against `ref.attention_fwd`), against
+               log-sum-exp (held against `ref.attention_fwd`, and at
+               every served and training shape, each launch plan
+               `fwd_plans` weighs, against `ref.attention_fwd_tiled`
+               within FLASH_TILED_TOL and timed), against
                `ref.attention_bwd`, every case called twice and equal bit
                for bit, beside SDPA's backward, every launch plan its rule
                weighs checked and timed, and its parts (prep, dq, dkdv)
@@ -181,8 +184,9 @@ Phases (any failure exits non-zero and prints no result):
                --profile-runs 80``) with its launches counted;
 
 On request: `profile` traces one generate per engine after each serve
-phase; `parts` (`--phases device,parts`) times copies of the bf16 SSD
-kernel with one part taken out or a design alternative put in.
+phase; `parts` (`--phases device,parts`) times copies of the bf16 flash
+forward and SSD kernels with one part taken out or a design alternative
+put in.
 
 The last three lines of output are the `{"kernels": [...]}` JSON line (its
 launches summed over the train, zoo and serve paths), the card's
@@ -228,6 +232,11 @@ SSM_ENGINES = {"engine-a": "mamba2-1.3b", "engine-b": "zamba2-2.7b"}
 SSM_ENGINE_LAYERS = {"mamba2-1.3b": 24}
 SSM_CHECK_LAYERS = {"mamba2-1.3b": 6, "zamba2-2.7b": 12}
 BF16_TOL, F32_TOL = 2e-2, 2e-5
+# the bf16 flash forward against `ref.attention_fwd_tiled`, which rounds P
+# to bf16 at the kernel's points and walks its key tiles: only float32
+# summation order differs, which can move one bf16 rounding of P or of
+# the output by an ulp (2^-8 relative)
+FLASH_TILED_TOL = 8e-3
 # the SSD scan against its plain version: f32 outputs and the f32 state
 # (the two sum L = cumsum(A dt), which reaches the thousands, in other
 # orders), bf16 outputs within BF16_TOL
@@ -731,19 +740,69 @@ def check_trie_plan(rec):
         "shape and lane form, tol 0")
 
 
+def _fwd_plan_str(p) -> str:
+    if p.kernel == "flash_kernel":
+        return f"{p.kernel}: {p.rows} rows x {p.keys} keys, grid {p.grid}"
+    return (f"{p.kernel}: {p.consumers} consumer warpgroup(s), {p.rows} "
+            f"rows x {p.keys} keys, {p.stages} stages, {p.swizzle} B "
+            f"swizzle, grid {p.grid}, {p.smem} shared bytes")
+
+
+def _fwd_plan_of(q, k, causal: bool = True) -> str:
+    """`fwd_plan`'s plan for a launch on these operands, as a string."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import fwd_plan
+
+    B, H, Sq, D = q.shape
+    return _fwd_plan_str(fwd_plan(B, H, k.shape[1], Sq, k.shape[2], D,
+                                  causal, q.element_size(),
+                                  _build.sm_count(q.device.index)))
+
+
 def _time_flash(rec, label, q, k, v, lse: bool = False,
                 causal: bool = True):
-    """Time the flash forward on (q, k, v) warm and cold in L2 (with
-    ``lse``, in the training form that also writes the log-sum-exp),
-    beside the plain version, SDPA on the same mask and the bound; record
-    and return it."""
+    """At a served or training shape: every launch plan `fwd_plans` lists
+    held against `ref.attention_fwd_tiled` at the plan's key tile
+    (`FLASH_TILED_TOL` in bf16; the log-sum-exp too with ``lse``) and
+    timed; then the chosen plan timed warm and cold in L2 (with ``lse``,
+    in the training form that also writes the log-sum-exp), beside the
+    plain version, SDPA on the same mask and the bound, with the host's
+    tensor-map encoding time of a bf16 launch; record and return it."""
+    import torch
     import torch.nn.functional as F
 
-    from repro_torch.kernels import cost, ref
+    from repro_torch.kernels import _build, cost, ref
+    from repro_torch.kernels import flash_attention as fmod
     from repro_torch.kernels.flash_attention import flash_attention
 
     B, H, Sq, D = q.shape
     KV, Sk = k.shape[1], k.shape[2]
+    bf16 = q.element_size() == 2
+    plans = fmod.fwd_plans(B, H, KV, Sq, Sk, D, causal, q.element_size(),
+                           _build.sm_count(q.device.index))
+    tol = FLASH_TILED_TOL if bf16 else F32_TOL
+    plan_ms, tiled_err = {}, 0.0
+    for plan in plans:
+        want_o, want_lse = ref.attention_fwd_tiled(q, k, v, causal=causal,
+                                                   keys=plan.keys)
+        o = torch.empty_like(q)
+        lv = torch.empty(B, H, Sq, device=q.device) if lse else None
+        fmod._launch_fwd(q, k, v, o, lv, causal, 0, plan)
+        torch.cuda.synchronize()
+        tiled_err = max(tiled_err, check_close(
+            "flash_attention against attention_fwd_tiled", o, want_o, tol))
+        msg = f"o {err_str(o, want_o, tol)}"
+        if lse:
+            check_close("flash_attention lse against attention_fwd_tiled",
+                        lv, want_lse, F32_TOL)
+            msg += f"; lse {err_str(lv, want_lse, F32_TOL)}"
+        del want_o, want_lse
+        plan_ms[_fwd_plan_str(plan)] = pms = graph_ms(
+            lambda: fmod._launch_fwd(q, k, v, o, lv, causal, 0, plan))
+        log(f"  flash_attention {label} plan {_fwd_plan_str(plan)}"
+            f"{' (chosen)' if plan is plans[0] else ''}: {pms:.4f} ms; "
+            f"against attention_fwd_tiled {msg}")
+        del o, lv
     ms = graph_ms(lambda: flash_attention(q, k, v, causal=causal,
                                           return_lse=lse))
     plain_ms = graph_ms(lambda: ref.attention(q, k, v, causal=causal),
@@ -758,19 +817,27 @@ def _time_flash(rec, label, q, k, v, lse: bool = False,
         lambda a, b, c: F.scaled_dot_product_attention(
             a, b, c, is_causal=causal, enable_gqa=True), inputs=cold)
     del cold
+    encode_us = None
+    if bf16:
+        encode_us = _build.extension().flash_encode_ns(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), B, H, KV, Sq, Sk, D,
+            plans[0].rows, 1000) / 1e3
     nbytes, ops = cost.flash_work(B, H, KV, Sq, Sk, D, q.element_size(),
                                   causal)
-    bf16 = q.element_size() == 2
     b_ms, b_by = bound(nbytes, ops, BF16_OPS if bf16 else F32_OPS)
     case = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                 library_ms=lib_ms, cold_ms=cold_ms,
                 library_cold_ms=lib_cold_ms,
-                tol=BF16_TOL if bf16 else F32_TOL)
+                tol=BF16_TOL if bf16 else F32_TOL,
+                plan=_fwd_plan_str(plans[0]), plan_ms=plan_ms,
+                tiled_err=tiled_err, encode_us=encode_us)
     rec.setdefault("timing_cases", {})[f"flash_attention {label}"] = case
     log(f"  flash_attention {label} {'causal' if causal else 'non-causal'}:"
         f" kernel {ms:.4f} ms (cold L2 "
         f"{cold_ms:.4f}), plain {plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms "
-        f"(cold L2 {lib_cold_ms:.4f}), bound {b_ms:.6f} ms ({b_by})")
+        f"(cold L2 {lib_cold_ms:.4f}), bound {b_ms:.6f} ms ({b_by})"
+        + (f", tensor maps encoded in {encode_us:.2f} us a launch"
+           if bf16 else ""))
     return case
 
 
@@ -799,7 +866,8 @@ def check_flash(rec):
             e = check_close("flash_attention", out, want, tol)
             err = max(err, e)
             log(f"  flash_attention {arch} {str(dt)[6:]} (1,{H},{S},{D}) kv "
-                f"{KV} window={window}: {err_str(out, want, tol)}")
+                f"{KV} window={window} ({_fwd_plan_of(q, k)}): "
+                f"{err_str(out, want, tol)}")
             if dt != torch.bfloat16 or S != PROMPT or window:
                 continue
             case = _time_flash(rec, f"{arch} (1,{H},{S},{D}) kv {KV}", q, k, v)
@@ -823,7 +891,8 @@ def check_flash(rec):
             raise AssertionError("flash_attention: the padded v columns "
                                  "gave nonzero output")
         log(f"  flash_attention {arch} MLA {str(dt)[6:]} (1,{H},{S},{D}) kv "
-            f"{H}, v padded {dv} -> {D}: {err_str(out, want, tol)}")
+            f"{H}, v padded {dv} -> {D} ({_fwd_plan_of(q, k)}): "
+            f"{err_str(out, want, tol)}")
         if dt == torch.bfloat16 and S == PROMPT:
             _time_flash(rec, f"{arch} MLA (1,{H},{S},{D}) kv {H}", q, k, v)
     # the serve-media phase's shapes: llava's image prefill, whisper's
@@ -839,7 +908,8 @@ def check_flash(rec):
         want = ref.attention(q, k, v, causal=causal)
         err = max(err, check_close("flash_attention", out, want, BF16_TOL))
         log(f"  flash_attention {label} bf16 ({B},{H},{Sq},{D}) kv {KV} "
-            f"Sk={Sk} causal={causal}: {err_str(out, want, BF16_TOL)}")
+            f"Sk={Sk} causal={causal} ({_fwd_plan_of(q, k, causal)}): "
+            f"{err_str(out, want, BF16_TOL)}")
         del want
         _time_flash(rec, f"{label} ({B},{H},{Sq},{D}) kv {KV} Sk {Sk}", q, k,
                     v, causal=causal)
@@ -1582,8 +1652,63 @@ SSD_ALTERNATIVES = {
 }
 
 
+# copies of `csrc/flash_attention.cu` with FLASH_VARIANT bits of its
+# `FlashVariant`, each taking a part out of the bf16 forward (or, bit 8,
+# the turns two consumer warpgroups take)
+FLASH_PARTS = {
+    "whole kernel": (),
+    "no softmax (P = S)": ("FLASH_VARIANT=1",),
+    "no P.V products": ("FLASH_VARIANT=2",),
+    "no Q.K^T products": ("FLASH_VARIANT=4",),
+    "copies and barriers only": ("FLASH_VARIANT=7",),
+    "no ping-pong (two consumers issue in any order)": ("FLASH_VARIANT=8",),
+}
+# the forward's shapes its parts are timed at: (label, B, H, KV, S, D)
+FLASH_PART_SHAPES = (("llava-next-34b image prefill", 1, 56, 8, 3328, 128),
+                     ("yi-9b train", 2, 32, 4, 2048, 128),
+                     ("yi-9b serve", 1, 32, 4, PROMPT, 128))
+
+
+def _flash_parts(rec):
+    """Time copies of the bf16 flash forward with parts taken out
+    (`FLASH_PARTS`) at `FLASH_PART_SHAPES`, causal, every plan
+    `fwd_plans` weighs, as `_time_flash` times the kernel."""
+    import torch
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as fmod
+
+    t0 = time.perf_counter()
+    copies = {name: _build.extension(defines=d)
+              for name, d in FLASH_PARTS.items()}
+    log(f"parts: {len(copies)} flash copies built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    g = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for label, B, H, KV, S, D in FLASH_PART_SHAPES:
+        q = torch.randn(B, H, S, D, generator=g, device="cuda").bfloat16()
+        k = torch.randn(B, KV, S, D, generator=g, device="cuda").bfloat16()
+        v = torch.randn(B, KV, S, D, generator=g, device="cuda").bfloat16()
+        o = torch.empty_like(q)
+        for plan in fmod.fwd_plans(B, H, KV, S, S, D, True, 2, sms):
+            for name, ext in copies.items():
+                def call(ext=ext, plan=plan):
+                    ext.flash_attention(
+                        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                        o.data_ptr(), 0, B, H, KV, S, S, D, D ** -0.5, 1, 0,
+                        fmod.DTYPES[torch.bfloat16], plan.rows,
+                        torch.cuda.current_stream().cuda_stream)
+
+                us = 1e3 * graph_ms(call)
+                rec.setdefault("parts", {})[
+                    f"flash {label} {plan.rows} rows {name}"] = us
+                log(f"  flash_attention parts {label} ({B},{H},{S},{D}) kv "
+                    f"{KV}, {plan.rows} rows a block, {name}: {us:.2f} us")
+
+
 def phase_parts(args, rec):
-    """Time copies of the bf16 SSD kernel at both serving shapes (S 448,
+    """Time copies of the bf16 flash forward (`_flash_parts`), then of
+    the bf16 SSD kernel at both serving shapes (S 448,
     chunk 256, final state, the run count the wrapper picks), as
     `check_ssd_scan` times the kernel.  A copy with a part taken out
     computes wrong outputs and only its time is read; the difference to the
@@ -1596,6 +1721,7 @@ def phase_parts(args, rec):
     from repro_torch.kernels import ssd_scan as smod
     from repro_torch.kernels.flash_attention import DTYPES
 
+    _flash_parts(rec)
     t0 = time.perf_counter()
     copies = {name: _build.extension(defines=d)
               for name, d in {**SSD_PARTS, **SSD_ALTERNATIVES}.items()}
@@ -1603,7 +1729,7 @@ def phase_parts(args, rec):
         f"{time.perf_counter() - t0:.1f} s")
     g = torch.Generator(device="cuda").manual_seed(SEED + 4)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    rec["parts"] = {}
+    rec.setdefault("parts", {})
     for arch in SSM_ENGINES.values():
         c = get_config(arch).ssm
         Hn = c.expand * get_config(arch).d_model // c.head_dim
@@ -5397,7 +5523,8 @@ def main(argv=None) -> int:
                     help=f"comma-separated subset of {','.join(PHASES)}; "
                          "add profile to trace one generate per engine "
                          "after each serve phase, parts to time copies of "
-                         "the bf16 SSD kernel with parts taken out")
+                         "the bf16 flash forward and SSD kernels with parts "
+                         "taken out")
     ap.add_argument("--verbose-build", action="store_true",
                     help="show the compiler's output (ptxas -v included)")
     args = ap.parse_args(argv)

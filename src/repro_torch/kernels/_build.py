@@ -116,3 +116,12 @@ def check_cuda(name: str, *tensors: torch.Tensor) -> None:
                              f"device, got {t.device} and {dev}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: operands must be contiguous")
+
+
+def check_aligned(name: str, *tensors: torch.Tensor) -> None:
+    """Raise unless every tensor starts on a 16-byte boundary: the
+    attention kernels copy 16 bytes at a time, and a TMA tensor map takes
+    no other base address."""
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{name}: operands must start on 16-byte "
+                         f"boundaries (the kernels copy 16 bytes)")

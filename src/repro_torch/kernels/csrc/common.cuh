@@ -23,6 +23,9 @@ constexpr int kDtypeBF16 = 1;
 constexpr int kStatusBadHeadDim = 100000;
 // Launcher status for sizes the kernel was not given consistently.
 constexpr int kStatusBadArgs = 100001;
+// Launcher status for a TMA tensor map the driver refused to encode (or a
+// driver without cuTensorMapEncodeTiled).
+constexpr int kStatusTensorMap = 100002;
 
 template <typename T> __device__ __forceinline__ float to_f32(T x);
 template <> __device__ __forceinline__ float to_f32<float>(float x) { return x; }
@@ -98,6 +101,14 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 2^x by the special-function unit alone (ex2.approx, denormal results
+// flushed to 0): -inf gives exactly 0.
+__device__ __forceinline__ float ex2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // Two floats rounded to bf16 (nearest even) in one register, lo first.

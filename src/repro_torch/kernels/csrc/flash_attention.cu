@@ -10,27 +10,50 @@
 // query and key axes are masked in the kernel, so any sequence length
 // works (the Pallas version asserts Sq % block_q == 0).
 //
-// What bounds it: at a 448-token Yi-9B prefill (H = 32, D = 128) a layer
-// does 4 x D x H x 100,576 causal pairs = 1.65 GFLOP, 1.7 us at the bf16
-// tensor cores' 989 TFLOP/s, and moves ~8.3 MB of q, k, v and o, 2.5 us at
-// 3.35 TB/s: bytes just above operations.  A kernel on the CUDA cores in
-// float32 (67 TFLOP/s) is bound by operations instead, 25 us at best.
+// What bounds it: the products.  Yi-9B's training form (2, 32, 2048, 128)
+// and LLaVA's image prefill (1, 56, 3328, 128) do 70 and 161 us of bf16
+// tensor-core work at 989 TFLOP/s against 23 and 33 us of bytes at 3.35
+// TB/s.  A served 448-token prefill (Yi-9B: 1.65 GFLOP, 8.3 MB) is 2.5 us
+// of bytes, and its 32 heads x 4 query tiles fill one wave of 132 SMs at
+// most: latency, not rate, bounds it there.  On the Ampere instruction set
+// (mma.sync fed by ldmatrix and two-stage cp.async, four warps that all
+// copy, then multiply, then run the softmax between two __syncthreads)
+// the training forms reached 0.19-0.20 of that bound.
 //
-// bf16 operands take flash_kernel_mma: four warps own 64 query rows, 16 a
-// warp, with Q's fragments in registers.  K and V tiles of 64 keys stay
-// bf16 in shared memory, copied by cp.async in two stages so that the next
-// tile's copy overlaps this tile's products; rows are padded by 16 bytes,
-// which puts the eight rows of every ldmatrix phase in distinct banks at
-// D = 128 (272-byte rows) and D = 80 (176-byte rows).  S = Q.K^T and
-// O += P.V run on mma.sync m16n8k16 (bf16 in, float32 accumulate), K
-// through ldmatrix and V through ldmatrix.trans; the online softmax works
-// on the accumulator fragments (row max and sum by quad shuffles, exp2
-// with the scale folded into log2 e), and P is rounded to bf16 in
-// registers and reused as the A operand, as ref.attention rounds its
-// probabilities to v.dtype.  Causal blocks visit only the tiles at or
-// below their diagonal and mask only the diagonal tile, the ragged tail
-// and the window's first tiles; the query blocks with the most tiles are
-// launched first, so the causal triangle balances over the card.
+// bf16 operands take flash_kernel_wgmma, built on Hopper's asynchronous
+// units (sm90.cuh):
+//  - warp specialisation: warpgroup 0 is the producer, one thread of it
+//    issuing every copy, brought down to 24 registers (setmaxnreg); one or
+//    two consumer warpgroups own 64 query rows each and take the
+//    registers it gave up (240 or 232 a thread);
+//  - copies by TMA: Q's tile once, K and V tiles through a ring of 2-4
+//    stages, each with a "full" mbarrier the copy completes and an "empty"
+//    one the consumers' warps arrive on when their products have read it,
+//    so the next tiles load while this one is multiplied.  The tensor maps
+//    are rank 3, (B*H, Sq, D) and (B*KV, Sk, D): a box past Sq or Sk reads
+//    zeros, never the next head's rows.  Tiles are stored with the widest
+//    swizzle whose row divides D (128 B at D = 64 and 128, 64 B at 32 and
+//    96, 32 B at 16 and 80), the layout wgmma reads without bank
+//    conflicts;
+//  - S = Q.K^T on wgmma m64n{keys}k16 with both operands in shared memory;
+//    O += P.V on wgmma m64n{D}k16 with P from registers (the accumulator
+//    fragment of S, rounded to bf16, is already the A fragment, as
+//    ref.attention rounds its probabilities to v.dtype) and V read
+//    MN-major from its tile;
+//  - the softmax overlaps the products: a consumer issues tile i's
+//    Q.K^T together with tile i-1's P.V, runs tile i's online softmax
+//    (row max and sum by quad shuffles, one fma and ex2 a score, the
+//    scale folded into log2 e) while P.V runs, and rescales O once it is
+//    done; two consumers take turns issuing their products (a pair of
+//    named barriers), so one's softmax also overlaps the other's
+//    products (a softmax run between the two products left the tensor
+//    cores idle for much of the kernel's time);
+//  - -inf masks only on the diagonal tile, the ragged tail and the
+//    window's first tiles; the query blocks with the most tiles are
+//    launched first, so the causal triangle balances over the card.
+// Two consumer warpgroups (128 rows, 128-key tiles, one block an SM) for
+// long query axes, one (64 rows, 64-key tiles, two blocks an SM) for the
+// served prefills: flash_attention.fwd_plan chooses by shape.
 //
 // float32 operands take flash_kernel on the CUDA cores (four warps, four
 // query rows a warp, one key a lane; attention_tile.cuh): TF32 products
@@ -38,9 +61,11 @@
 // float32 on the card.  The C entry point chooses by dtype; a bf16 call
 // never reaches the float32 kernel.
 
+#include <chrono>
 #include <type_traits>
 
 #include "attention_tile.cuh"
+#include "sm90.cuh"
 
 namespace repro {
 
@@ -131,238 +156,370 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------
-// bf16 on the tensor cores
+// bf16 on Hopper's tensor cores: wgmma, TMA, a producer warpgroup
 // ---------------------------------------------------------------------
-constexpr int kMmaThreads = 128;  // four warps
-constexpr int kMmaBlockQ = 64;    // query rows a block, 16 a warp
-constexpr int kMmaBlockK = 64;    // keys a tile
-constexpr int kMmaPad = 8;        // bf16 padding of a shared row (16 bytes)
+// Timing copies only: `chip_smoke.py --phases parts` builds the kernels
+// with -DFLASH_VARIANT=<bits>, each bit taking one part out of the bf16
+// kernel (whose outputs are then wrong).  The served build leaves it 0.
+#ifndef FLASH_VARIANT
+#define FLASH_VARIANT 0
+#endif
+enum FlashVariant : int {
+  kFlashNoSoftmax = 1 << 0,  // P = S rounded to bf16: no mask, max, exp or rescale
+  kFlashNoPV = 1 << 1,       // no O += P.V products
+  kFlashNoQK = 1 << 2,       // no S = Q.K^T products (S = 0)
+  kFlashNoPingPong = 1 << 3, // two consumers issue their products in any order
+};
+__host__ __device__ constexpr bool flash_has(int bit) { return (FLASH_VARIANT & bit) != 0; }
 
-template <int D>
-constexpr size_t flash_mma_smem_bytes() {
-  return static_cast<size_t>(kMmaBlockQ + 4 * kMmaBlockK) * (D + kMmaPad) * sizeof(bf16);
-}
+// The tiles of flash_kernel_wgmma<D, NWG>: NWG consumer warpgroups of 64
+// query rows each (128 or 64 rows a block) behind one producer warpgroup;
+// key tiles of 128 keys with two consumers, 64 with one, so that a block
+// of one consumer fits two to an SM.  A tile of R rows is stored as D /
+// kAtom column blocks of R x kAtom bf16 (swizzled, sm90.cuh): kAtom is the
+// widest of 64, 32, 16 that divides D (128-, 64- or 32-byte rows).  The
+// ring has as many K/V stages, up to 4, as the shared memory of one block
+// an SM (two consumers) or of two (one consumer) holds; kSmem adds 1024
+// bytes to align the tiles and 128 for the barriers.
+template <int D, int NWG>
+struct FwdTiles {
+  static constexpr int kAtom = D % 64 == 0 ? 64 : D % 32 == 0 ? 32 : 16;
+  static constexpr int kSpan = 2 * kAtom;  // bytes of a swizzled row
+  static constexpr int kColBlocks = D / kAtom;
+  static constexpr int kRows = 64 * NWG;
+  static constexpr int kKeys = NWG == 2 ? 128 : 64;
+  static constexpr int kThreads = 128 * (NWG + 1);
+  static constexpr int kQBytes = kRows * D * 2;
+  static constexpr int kTileBytes = kKeys * D * 2;  // K or V of one stage
+  static constexpr int kBudget = NWG == 2 ? 232448 : 115712;
+  static constexpr int kFit = (kBudget - 1024 - 128 - kQBytes) / (2 * kTileBytes);
+  static constexpr int kStages = kFit < 4 ? kFit : 4;
+  static constexpr int kSmem = 1024 + kQBytes + kStages * 2 * kTileBytes + 128;
+  // registers a thread after setmaxnreg: producer, consumers (the
+  // launch's 168 or 128 a thread, moved from the producer)
+  static constexpr int kProducerRegs = 24;
+  static constexpr int kConsumerRegs = NWG == 2 ? 240 : 232;
+  static_assert(kStages >= 2 && kSmem <= kBudget, "the K/V ring does not fit");
+  static_assert(kProducerRegs * 128 + kConsumerRegs * 128 * NWG <=
+                    (NWG == 2 ? 168 * 384 : 128 * 256),
+                "the warpgroups' registers exceed the launch's");
+};
 
-template <int D>
-__global__ void __launch_bounds__(kMmaThreads)
-flash_kernel_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, bf16* __restrict__ o,
-                 float* __restrict__ lse, int H, int KV, int Sq, int Sk,
-                 float scale_log2, int causal, int window) {
-  constexpr int P = D + kMmaPad;  // shared row pitch (elements)
-  constexpr int KSTEPS = D / 16;  // k-steps of Q.K^T
-  constexpr int NT = D / 8;       // n-tiles of the output
-  constexpr int CH = D / 8;       // 16-byte copies a row
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // [64][P]
-  bf16* ks = qs + kMmaBlockQ * P;                // [2][64][P]
-  bf16* vs = ks + 2 * kMmaBlockK * P;            // [2][64][P]
+template <int D, int NWG>
+__global__ void __launch_bounds__(FwdTiles<D, NWG>::kThreads, NWG == 1 ? 2 : 1)
+flash_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q,
+                   const __grid_constant__ CUtensorMap tm_k,
+                   const __grid_constant__ CUtensorMap tm_v, bf16* __restrict__ o,
+                   float* __restrict__ lse, int H, int KV, int Sq, int Sk,
+                   float scale_log2, int causal, int window) {
+  using T = FwdTiles<D, NWG>;
+  using namespace sm90;
+  constexpr int BK = T::kKeys, A = T::kAtom, ST = T::kStages;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  bf16* qs = reinterpret_cast<bf16*>(base);  // [col block][kRows][A]
+  bf16* kvs = reinterpret_cast<bf16*>(base + T::kQBytes);  // [stage][K, V][col block][BK][A]
+  uint64_t* qbar = reinterpret_cast<uint64_t*>(base + T::kQBytes + ST * 2 * T::kTileBytes);
+  uint64_t* full = qbar + 1;
+  uint64_t* empty = full + ST;
 
   const int bh = blockIdx.x;
   const int b = bh / H, h = bh % H;
   const int kvh = h / (H / KV);
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * kMmaBlockQ;  // most tiles first
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int gr = lane >> 2, t4 = lane & 3;  // fragment row group, column pair
-  const bf16* qg = q + static_cast<size_t>(bh) * Sq * D;
-  const bf16* kg = k + static_cast<size_t>(b * KV + kvh) * Sk * D;
-  const bf16* vg = v + static_cast<size_t>(b * KV + kvh) * Sk * D;
-  bf16* og = o + static_cast<size_t>(bh) * Sq * D;
-
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * T::kRows;  // most tiles first
   int k_begin = 0, k_end = Sk;
   if (causal) {
-    k_end = min(Sk, q0 + kMmaBlockQ);
+    k_end = min(Sk, q0 + T::kRows);
     if (window > 0) k_begin = max(0, q0 - window + 1);
   }
-  const int t_begin = k_begin / kMmaBlockK;
-  const int ntiles = max(0, (k_end + kMmaBlockK - 1) / kMmaBlockK - t_begin);
+  const int t_begin = k_begin / BK;
+  const int ntiles = max(0, (k_end + BK - 1) / BK - t_begin);
+  const int wg = threadIdx.x / 128;
 
-  // Q, then the first K/V tile: two commit groups; rows past the end are
-  // zero-filled (and never written back or seen unmasked)
-  for (int i = tid; i < kMmaBlockQ * CH; i += kMmaThreads) {
-    const int r = i / CH, c = i - r * CH, qi = q0 + r;
-    cp_async16(qs + r * P + c * 8, qg + static_cast<size_t>(min(qi, Sq - 1)) * D + c * 8,
-               qi < Sq);
+  if (threadIdx.x == 0) {
+    mbar_init(qbar, 1);
+#pragma unroll
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, 4 * NWG);  // lane 0 of every consumer warp
+    }
+    mbar_init_fence();
   }
-  cp_async_commit();
-  auto load_kv = [&](int tile, int st) {
-    const int k0 = tile * kMmaBlockK;
-    bf16* kd = ks + st * kMmaBlockK * P;
-    bf16* vd = vs + st * kMmaBlockK * P;
-    for (int i = tid; i < kMmaBlockK * CH; i += kMmaThreads) {
-      const int r = i / CH, c = i - r * CH, kj = k0 + r;
-      const size_t src = static_cast<size_t>(min(kj, Sk - 1)) * D + c * 8;
-      cp_async16(kd + r * P + c * 8, kg + src, kj < Sk);
-      cp_async16(vd + r * P + c * 8, vg + src, kj < Sk);
-    }
-    cp_async_commit();
-  };
+  __syncthreads();
 
-  float acc[NT][4];
+  if (wg == 0) {
+    // the producer: one thread issues every copy, the others leave
+    regs_dec<T::kProducerRegs>();
+    if (threadIdx.x == 0) {
+      tma_prefetch_map(&tm_q);
+      tma_prefetch_map(&tm_k);
+      tma_prefetch_map(&tm_v);
+      mbar_arrive_expect_tx(qbar, T::kQBytes);
 #pragma unroll
-  for (int j = 0; j < NT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-  float m_r[2] = {kNegInf, kNegInf}, l_r[2] = {0.f, 0.f};
-  uint32_t qf[KSTEPS][4];
-  const int row0 = q0 + warp * 16 + gr, row1 = row0 + 8;
-
-  if (ntiles > 0) load_kv(t_begin, 0);
-  for (int it = 0; it < ntiles; ++it) {
-    const int tile = t_begin + it, st = it & 1, k0 = tile * kMmaBlockK;
-    if (it + 1 < ntiles) {
-      load_kv(tile + 1, st ^ 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    if (it == 0) {
-#pragma unroll
-      for (int kk = 0; kk < KSTEPS; ++kk) {
-        ldmatrix_x4(qf[kk], qs + (warp * 16 + (lane & 15)) * P + kk * 16 + (lane >> 4) * 8);
+      for (int c = 0; c < T::kColBlocks; ++c) {
+        tma_load_3d(qs + c * T::kRows * A, &tm_q, qbar, c * A, q0, bh);
       }
-    }
-    const bf16* kt = ks + st * kMmaBlockK * P;
-    const bf16* vt = vs + st * kMmaBlockK * P;
-
-    // S = Q.K^T: 16 rows x 64 keys a warp, 8 n-tiles of 8 keys
-    float sc[8][4];
+      const int slab = b * KV + kvh;
+      for (int it = 0; it < ntiles; ++it) {
+        const int s = it % ST;
+        mbar_wait(empty + s, ((it / ST) & 1) ^ 1);
+        mbar_arrive_expect_tx(full + s, 2 * T::kTileBytes);
+        bf16* kd = kvs + s * 2 * BK * D;
+        bf16* vd = kd + BK * D;
+        const int k0 = (t_begin + it) * BK;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) sc[j][0] = sc[j][1] = sc[j][2] = sc[j][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KSTEPS; ++kk) {
-#pragma unroll
-      for (int np = 0; np < 4; ++np) {
-        uint32_t kb[4];
-        ldmatrix_x4(kb, kt + (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * P + kk * 16 +
-                            ((lane >> 3) & 1) * 8);
-        mma_bf16(sc[2 * np], qf[kk], kb[0], kb[1]);
-        mma_bf16(sc[2 * np + 1], qf[kk], kb[2], kb[3]);
-      }
-    }
-
-    // scale into log2 units; mask the diagonal tile, the ragged tail and
-    // the window's edge with -inf (exp2 gives exactly 0)
-    const bool need_mask = k0 + kMmaBlockK > Sk ||
-                           (causal && (k0 + kMmaBlockK - 1 > q0 ||
-                                       (window > 0 && k0 <= q0 + kMmaBlockQ - 1 - window)));
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float s = sc[j][e] * scale_log2;
-        if (need_mask) {
-          const int row = e < 2 ? row0 : row1;
-          const int col = k0 + j * 8 + 2 * t4 + (e & 1);
-          bool ok = col < Sk;
-          if (causal) ok = ok && col <= row && (window <= 0 || col > row - window);
-          if (!ok) s = __int_as_float(static_cast<int>(0xff800000u));  // -inf
+        for (int c = 0; c < T::kColBlocks; ++c) {
+          tma_load_3d(kd + c * BK * A, &tm_k, full + s, c * A, k0, slab);
+          tma_load_3d(vd + c * BK * A, &tm_v, full + s, c * A, k0, slab);
         }
-        sc[j][e] = s;
       }
     }
+  } else {
+    // a consumer: 64 query rows, 16 a warp
+    regs_inc<T::kConsumerRegs>();
+    const int t = threadIdx.x - 128 * wg;
+    const int warp = t / 32, lane = t % 32;
+    const int gr = lane >> 2, t4 = lane & 3;  // fragment row group, column pair
+    const int r0 = 64 * (wg - 1);             // the warpgroup's rows in the block
+    const int wq0 = q0 + r0;
+    const int row0 = wq0 + warp * 16 + gr, row1 = row0 + 8;
+    const bf16* qw = qs + r0 * A;
 
-    // online softmax on the fragments: rows row0 (e 0, 1) and row1 (e 2, 3)
-    float mx[2] = {m_r[0], m_r[1]};
+    float acc[D / 2];
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      mx[0] = fmaxf(mx[0], fmaxf(sc[j][0], sc[j][1]));
-      mx[1] = fmaxf(mx[1], fmaxf(sc[j][2], sc[j][3]));
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    float m_r[2] = {kNegInf, kNegInf}, l_r[2] = {0.f, 0.f}, alpha[2];
+    float sc[BK / 2];         // S, then P in float32, of one key tile
+    uint32_t pa[BK / 16][4];  // P in bf16: the A operand of BK / 16 key steps
+
+    // S = Q.K^T on stage s: D / 16 steps of m64n{BK}k16, both operands
+    // K-major; issued and committed, not waited for
+    auto issue_qk = [&](int s) {
+      const bf16* kt = kvs + s * 2 * BK * D;
+      if constexpr (flash_has(kFlashNoQK)) {
+#pragma unroll
+        for (int i = 0; i < BK / 2; ++i) sc[i] = 0.f;
+      } else {
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          const int c = kk * 16 / A, off = kk * 16 % A;
+          const uint64_t da = smem_desc(qw + c * T::kRows * A + off, 16, 8 * T::kSpan, T::kSpan);
+          const uint64_t db = smem_desc(kt + c * BK * A + off, 16, 8 * T::kSpan, T::kSpan);
+          Wgmma<BK>::template ss<0, 0>(sc, da, db, kk > 0);
+        }
+      }
+      wgmma_commit();
+    };
+    // O += P.V on stage s: BK / 16 steps of m64n{D}k16, P from registers,
+    // V read MN-major (its rows are keys, D contiguous); issued, not waited
+    auto issue_pv = [&](int s) {
+      const bf16* vt = kvs + s * 2 * BK * D + BK * D;
+      if constexpr (flash_has(kFlashNoPV)) {
+        acc[0] += __uint_as_float(pa[0][0]);  // keep P alive
+      } else {
+        fence_regs(acc);  // the rescaled accumulators and P are written
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk) fence_regs(pa[kk]);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk) {
+          const uint64_t dv = smem_desc(vt + kk * 16 * A, BK * T::kSpan, 8 * T::kSpan, T::kSpan);
+          Wgmma<D>::template rs<1>(acc, pa[kk], dv, 1);
+        }
+      }
+      wgmma_commit();
+    };
+    // the online softmax of the tile of keys from k0 in sc: mask the
+    // diagonal tile, the ragged tail and the window's edge with -inf; the
+    // new row max m in log2 units (scores times scale_log2) from quad
+    // shuffles, alpha = 2^(m_old - m), p = 2^(s scale_log2 - m) by one fma
+    // and ex2 (exactly 0 where masked) left in sc, l = alpha l + row sum
+    // of p.  Rows row0 (e 0, 1), row1 (e 2, 3).
+    auto softmax = [&](int k0) {
+      if constexpr (flash_has(kFlashNoSoftmax)) {
+        alpha[0] = alpha[1] = 1.f;
+        return;
+      }
+      const float kInf = __int_as_float(0x7f800000);
+      const bool need_mask =
+          k0 + BK > Sk ||
+          (causal && (k0 + BK - 1 > wq0 || (window > 0 && k0 <= wq0 + 63 - window)));
+      if (need_mask) {
+#pragma unroll
+        for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int row = e < 2 ? row0 : row1;
+            const int col = k0 + j * 8 + 2 * t4 + (e & 1);
+            bool ok = col < Sk;
+            if (causal) ok = ok && col <= row && (window <= 0 || col > row - window);
+            if (!ok) sc[4 * j + e] = -kInf;
+          }
+        }
+      }
+      float mx[2] = {-kInf, -kInf};
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j) {
+        mx[0] = fmaxf(mx[0], fmaxf(sc[4 * j], sc[4 * j + 1]));
+        mx[1] = fmaxf(mx[1], fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+        mx[i] = fmaxf(m_r[i], mx[i] * scale_log2);
+        alpha[i] = ex2_approx(m_r[i] - mx[i]);
+        m_r[i] = mx[i];
+        l_r[i] *= alpha[i];
+      }
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          sc[4 * j + e] = ex2_approx(fmaf(sc[4 * j + e], scale_log2, -mx[e >> 1]));
+        }
+        l_r[0] += sc[4 * j] + sc[4 * j + 1];
+        l_r[1] += sc[4 * j + 2] + sc[4 * j + 3];
+      }
+    };
+    // once the product with the previous P is done: O *= alpha, and the
+    // new P rounded to bf16 pairs into the A fragment
+    auto rescale_pack = [&]() {
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        acc[4 * j] *= alpha[0];
+        acc[4 * j + 1] *= alpha[0];
+        acc[4 * j + 2] *= alpha[1];
+        acc[4 * j + 3] *= alpha[1];
+      }
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j) {
+        pa[j / 2][(j & 1) * 2] = pack_bf16(sc[4 * j], sc[4 * j + 1]);
+        pa[j / 2][(j & 1) * 2 + 1] = pack_bf16(sc[4 * j + 2], sc[4 * j + 3]);
+      }
+    };
+
+    // Tile i's scores are multiplied while tile i - 1's P.V runs: S_i and
+    // P_{i-1}.V_{i-1} are issued together, the softmax of S_i overlaps
+    // the second product, and O is rescaled by alpha_i once it is done
+    // (the sums are those of rescaling first, then adding, tile by tile).
+    // With two consumers a named barrier pair takes turns issuing the
+    // products (bar 1: warpgroup 1's turn, bar 2: warpgroup 2's), so that
+    // one's softmax overlaps the other's products.
+    constexpr bool kPingPong = NWG == 2 && !flash_has(kFlashNoPingPong);
+    const int wgi = wg - 1;
+    if constexpr (kPingPong) {
+      if (wgi == 1) named_arrive(1, 256);  // warpgroup 1 issues first
     }
+    mbar_wait(qbar, 0);
+    if (ntiles > 0) {
+      mbar_wait(full, 0);
+      issue_qk(0);
+      wgmma_wait<0>();
+      fence_regs(sc);
+      softmax(t_begin * BK);
+      rescale_pack();
+    }
+    for (int it = 1; it < ntiles; ++it) {
+      const int s = it % ST, sp = (it - 1) % ST;
+      mbar_wait(full + s, (it / ST) & 1);
+      if constexpr (kPingPong) named_sync(1 + wgi, 256);
+      issue_qk(s);
+      issue_pv(sp);
+      if constexpr (kPingPong) named_arrive(2 - wgi, 256);
+      wgmma_wait<1>();
+      fence_regs(sc);
+      softmax((t_begin + it) * BK);
+      wgmma_wait<0>();
+      fence_regs(acc);
+      if (lane == 0) mbar_arrive(empty + sp);  // stage sp is free
+      rescale_pack();
+    }
+    if (ntiles > 0) {
+      const int sp = (ntiles - 1) % ST;
+      issue_pv(sp);
+      wgmma_wait<0>();
+      fence_regs(acc);
+      if (lane == 0) mbar_arrive(empty + sp);
+    }
+    if constexpr (kPingPong) {
+      if (wgi == 0) named_sync(1, 256);  // warpgroup 2's last turn
+    }
+
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      l_r[i] += __shfl_xor_sync(0xffffffffu, l_r[i], 1);
+      l_r[i] += __shfl_xor_sync(0xffffffffu, l_r[i], 2);
     }
-    const float alpha0 = exp2f(m_r[0] - mx[0]), alpha1 = exp2f(m_r[1] - mx[1]);
-    m_r[0] = mx[0];
-    m_r[1] = mx[1];
-    l_r[0] *= alpha0;
-    l_r[1] *= alpha1;
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      acc[j][0] *= alpha0;
-      acc[j][1] *= alpha0;
-      acc[j][2] *= alpha1;
-      acc[j][3] *= alpha1;
+    const float d0 = l_r[0] == 0.f ? 1.f : l_r[0], d1 = l_r[1] == 0.f ? 1.f : l_r[1];
+    if (lse != nullptr && t4 == 0) {
+      // natural log of the row sum of exp(q.k scale): m_r and the sum are
+      // in log2 units, so log(l) + m ln 2 = (m + log2 l) ln 2
+      constexpr float kLn2 = 0.6931471805599453f;
+      float* lb = lse + static_cast<size_t>(bh) * Sq;
+      if (row0 < Sq) lb[row0] = l_r[0] == 0.f ? kNegInf : (m_r[0] + log2f(l_r[0])) * kLn2;
+      if (row1 < Sq) lb[row1] = l_r[1] == 0.f ? kNegInf : (m_r[1] + log2f(l_r[1])) * kLn2;
     }
-    uint32_t pa[4][4];  // P as the A operand of four 16-key steps
+    bf16* og = o + static_cast<size_t>(bh) * Sq * D;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const float p0 = exp2f(sc[j][0] - mx[0]), p1 = exp2f(sc[j][1] - mx[0]);
-      const float p2 = exp2f(sc[j][2] - mx[1]), p3 = exp2f(sc[j][3] - mx[1]);
-      l_r[0] += p0 + p1;
-      l_r[1] += p2 + p3;
-      pa[j / 2][(j & 1) * 2] = pack_bf16(p0, p1);
-      pa[j / 2][(j & 1) * 2 + 1] = pack_bf16(p2, p3);
-    }
-
-    // O += P.V: V rows are keys, read transposed as the B operand
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-#pragma unroll
-      for (int dp = 0; dp < D / 16; ++dp) {
-        uint32_t vb[4];
-        ldmatrix_x4_trans(vb, vt + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * P +
-                                  dp * 16 + (lane >> 4) * 8);
-        mma_bf16(acc[2 * dp], pa[kk], vb[0], vb[1]);
-        mma_bf16(acc[2 * dp + 1], pa[kk], vb[2], vb[3]);
+    for (int j = 0; j < D / 8; ++j) {
+      const int col = j * 8 + 2 * t4;
+      if (row0 < Sq) {
+        *reinterpret_cast<uint32_t*>(og + static_cast<size_t>(row0) * D + col) =
+            pack_bf16(acc[4 * j] / d0, acc[4 * j + 1] / d0);
       }
-    }
-    __syncthreads();  // this stage is free for the tile after next
-  }
-  if (ntiles == 0) cp_async_wait<0>();
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    l_r[i] += __shfl_xor_sync(0xffffffffu, l_r[i], 1);
-    l_r[i] += __shfl_xor_sync(0xffffffffu, l_r[i], 2);
-  }
-  const float d0 = l_r[0] == 0.f ? 1.f : l_r[0], d1 = l_r[1] == 0.f ? 1.f : l_r[1];
-  if (lse != nullptr && t4 == 0) {
-    // natural log of the row sum of exp(q.k scale): m_r and the sum are
-    // in log2 units, so log(l) + m ln 2 = (m + log2 l) ln 2
-    constexpr float kLn2 = 0.6931471805599453f;
-    float* lb = lse + static_cast<size_t>(bh) * Sq;
-    if (row0 < Sq) lb[row0] = l_r[0] == 0.f ? kNegInf : (m_r[0] + log2f(l_r[0])) * kLn2;
-    if (row1 < Sq) lb[row1] = l_r[1] == 0.f ? kNegInf : (m_r[1] + log2f(l_r[1])) * kLn2;
-  }
-#pragma unroll
-  for (int j = 0; j < NT; ++j) {
-    const int col = j * 8 + 2 * t4;
-    if (row0 < Sq) {
-      *reinterpret_cast<uint32_t*>(og + static_cast<size_t>(row0) * D + col) =
-          pack_bf16(acc[j][0] / d0, acc[j][1] / d0);
-    }
-    if (row1 < Sq) {
-      *reinterpret_cast<uint32_t*>(og + static_cast<size_t>(row1) * D + col) =
-          pack_bf16(acc[j][2] / d1, acc[j][3] / d1);
+      if (row1 < Sq) {
+        *reinterpret_cast<uint32_t*>(og + static_cast<size_t>(row1) * D + col) =
+            pack_bf16(acc[4 * j + 2] / d1, acc[4 * j + 3] / d1);
+      }
     }
   }
 }
 
-template <int D>
-int launch_flash_mma(const void* q, const void* k, const void* v, void* o,
-                     float* lse, int B, int H, int KV, int Sq, int Sk,
-                     float scale, int causal, int window, cudaStream_t s) {
-  constexpr size_t smem = flash_mma_smem_bytes<D>();
-  const int st = allow_smem(flash_kernel_mma<D>, smem);
+// The three tensor maps of a launch: Q (B H, Sq, D) in boxes of the
+// block's rows, K and V (B KV, Sk, D) in boxes of a key tile.
+template <int D, int NWG>
+int encode_flash_maps(CUtensorMap* maps, const void* q, const void* k, const void* v, int B,
+                      int H, int KV, int Sq, int Sk) {
+  using T = FwdTiles<D, NWG>;
+  int st = encode_tile_map(maps, q, B * H, Sq, D, T::kRows, T::kAtom);
+  if (!st) st = encode_tile_map(maps + 1, k, B * KV, Sk, D, T::kKeys, T::kAtom);
+  if (!st) st = encode_tile_map(maps + 2, v, B * KV, Sk, D, T::kKeys, T::kAtom);
+  return st;
+}
+
+template <int D, int NWG>
+int launch_flash_wgmma(const void* q, const void* k, const void* v, void* o, float* lse,
+                       int B, int H, int KV, int Sq, int Sk, float scale, int causal,
+                       int window, cudaStream_t s) {
+  using T = FwdTiles<D, NWG>;
+  CUtensorMap maps[3];
+  int st = encode_flash_maps<D, NWG>(maps, q, k, v, B, H, KV, Sq, Sk);
+  if (!st) st = allow_smem(flash_kernel_wgmma<D, NWG>, T::kSmem);
   if (st) return st;
-  dim3 grid(B * H, (Sq + kMmaBlockQ - 1) / kMmaBlockQ);
-  flash_kernel_mma<D><<<grid, kMmaThreads, smem, s>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, H, KV, Sq,
-      Sk, scale * 1.4426950408889634f, causal, window);
+  dim3 grid(B * H, (Sq + T::kRows - 1) / T::kRows);
+  flash_kernel_wgmma<D, NWG><<<grid, T::kThreads, T::kSmem, s>>>(
+      maps[0], maps[1], maps[2], static_cast<bf16*>(o), lse, H, KV, Sq, Sk,
+      scale * 1.4426950408889634f, causal, window);
   return launch_status();
 }
 
-// The kernel of dtype T at head dimension D: bf16 on the tensor cores,
-// float32 on the CUDA cores.
+// The kernel of dtype T at head dimension D: bf16 on the tensor cores
+// with ``rows`` (64 or 128) query rows a block, float32 on the CUDA cores.
 template <typename T, int D>
 int launch_flash(const void* q, const void* k, const void* v, void* o,
                  float* lse, int B, int H, int KV, int Sq, int Sk,
-                 float scale, int causal, int window, cudaStream_t s) {
+                 float scale, int causal, int window, int rows, cudaStream_t s) {
   if constexpr (std::is_same_v<T, bf16>) {
-    return launch_flash_mma<D>(q, k, v, o, lse, B, H, KV, Sq, Sk, scale, causal, window, s);
+    if (rows == 128) {
+      return launch_flash_wgmma<D, 2>(q, k, v, o, lse, B, H, KV, Sq, Sk, scale, causal, window, s);
+    }
+    if (rows == 64) {
+      return launch_flash_wgmma<D, 1>(q, k, v, o, lse, B, H, KV, Sq, Sk, scale, causal, window, s);
+    }
+    return kStatusBadArgs;
   } else {
     dim3 grid(B * H, (Sq + kFlashBlockQ - 1) / kFlashBlockQ);
     flash_kernel<float, D><<<grid, kFlashThreads, 0, s>>>(
@@ -378,16 +535,32 @@ int launch_flash(const void* q, const void* k, const void* v, void* o,
 template <typename T>
 int dispatch_flash(int D, const void* q, const void* k, const void* v,
                    void* o, float* lse, int B, int H, int KV, int Sq, int Sk,
-                   float scale, int causal, int window, cudaStream_t s) {
+                   float scale, int causal, int window, int rows, cudaStream_t s) {
   switch (D) {
-    case 16: return launch_flash<T, 16>(q, k, v, o, lse, B, H, KV, Sq, Sk, scale, causal, window, s);
-    case 32: return launch_flash<T, 32>(q, k, v, o, lse, B, H, KV, Sq, Sk, scale, causal, window, s);
-    case 64: return launch_flash<T, 64>(q, k, v, o, lse, B, H, KV, Sq, Sk, scale, causal, window, s);
-    case 80: return launch_flash<T, 80>(q, k, v, o, lse, B, H, KV, Sq, Sk, scale, causal, window, s);
-    case 96: return launch_flash<T, 96>(q, k, v, o, lse, B, H, KV, Sq, Sk, scale, causal, window, s);
-    case 128: return launch_flash<T, 128>(q, k, v, o, lse, B, H, KV, Sq, Sk, scale, causal, window, s);
+    case 16: return launch_flash<T, 16>(q, k, v, o, lse, B, H, KV, Sq, Sk, scale, causal, window, rows, s);
+    case 32: return launch_flash<T, 32>(q, k, v, o, lse, B, H, KV, Sq, Sk, scale, causal, window, rows, s);
+    case 64: return launch_flash<T, 64>(q, k, v, o, lse, B, H, KV, Sq, Sk, scale, causal, window, rows, s);
+    case 80: return launch_flash<T, 80>(q, k, v, o, lse, B, H, KV, Sq, Sk, scale, causal, window, rows, s);
+    case 96: return launch_flash<T, 96>(q, k, v, o, lse, B, H, KV, Sq, Sk, scale, causal, window, rows, s);
+    case 128: return launch_flash<T, 128>(q, k, v, o, lse, B, H, KV, Sq, Sk, scale, causal, window, rows, s);
     default: return kStatusBadHeadDim;
   }
+}
+
+// Nanoseconds of host time a bf16 launch spends encoding its three tensor
+// maps, the mean of ``reps`` encodings (chip_smoke.py reads it).
+template <int D>
+double encode_ns(const void* q, const void* k, const void* v, int B, int H, int KV, int Sq,
+                 int Sk, int rows, int reps) {
+  CUtensorMap maps[3];
+  const auto t0 = std::chrono::steady_clock::now();
+  for (int i = 0; i < reps; ++i) {
+    const int st = rows == 128 ? encode_flash_maps<D, 2>(maps, q, k, v, B, H, KV, Sq, Sk)
+                               : encode_flash_maps<D, 1>(maps, q, k, v, B, H, KV, Sq, Sk);
+    if (st) return -1.0;
+  }
+  const auto t1 = std::chrono::steady_clock::now();
+  return std::chrono::duration<double, std::nano>(t1 - t0).count() / (reps > 0 ? reps : 1);
 }
 
 }  // namespace repro
@@ -396,12 +569,25 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
                                      const void* v, void* o, void* lse,
                                      int B, int H, int KV, int Sq, int Sk,
                                      int D, float scale, int causal,
-                                     int window, int dtype, void* stream) {
+                                     int window, int dtype, int rows, void* stream) {
   using namespace repro;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
   if (dtype == kDtypeBF16) {
-    return dispatch_flash<__nv_bfloat16>(D, q, k, v, o, l, B, H, KV, Sq, Sk, scale, causal, window, s);
+    return dispatch_flash<__nv_bfloat16>(D, q, k, v, o, l, B, H, KV, Sq, Sk, scale, causal, window, rows, s);
   }
-  return dispatch_flash<float>(D, q, k, v, o, l, B, H, KV, Sq, Sk, scale, causal, window, s);
+  return dispatch_flash<float>(D, q, k, v, o, l, B, H, KV, Sq, Sk, scale, causal, window, rows, s);
+}
+
+extern "C" double repro_flash_encode_ns(const void* q, const void* k, const void* v, int B,
+                                        int H, int KV, int Sq, int Sk, int D, int rows,
+                                        int reps) {
+  using namespace repro;
+  switch (D) {
+    case 64: return encode_ns<64>(q, k, v, B, H, KV, Sq, Sk, rows, reps);
+    case 80: return encode_ns<80>(q, k, v, B, H, KV, Sq, Sk, rows, reps);
+    case 96: return encode_ns<96>(q, k, v, B, H, KV, Sq, Sk, rows, reps);
+    case 128: return encode_ns<128>(q, k, v, B, H, KV, Sq, Sk, rows, reps);
+    default: return -1.0;
+  }
 }

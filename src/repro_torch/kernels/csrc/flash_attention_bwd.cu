@@ -499,10 +499,10 @@ flash_bwd_dkdv_f32(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------
-// bf16 on the tensor cores (mma.sync m16n8k16, float32 accumulators), the
-// forward's fragment code (flash_attention.cu::flash_kernel_mma): every
-// product of the backward is an A.B of bf16 tiles in shared memory or
-// registers, P and dS rounded to bf16 where they enter a product.
+// bf16 on the tensor cores (mma.sync m16n8k16, float32 accumulators, the
+// fragments of common.cuh): every product of the backward is an A.B of
+// bf16 tiles in shared memory or registers, P and dS rounded to bf16
+// where they enter a product.
 // ---------------------------------------------------------------------
 constexpr int kMmaBwdThreads = 128;  // four warps
 constexpr int kMmaBwdTile = 64;      // dq: query rows a block, keys a step;

@@ -149,7 +149,11 @@ extern "C" const char* repro_error_string(int code) {
   if (code == repro::kStatusBadArgs) {
     return "inconsistent launch arguments (decode split, column slice or head "
            "chunk sizes; SSD channel slice or chunk runs; replan sizes, "
-           "slices or lanes a block; flash backward plan)";
+           "slices or lanes a block; flash forward or backward plan)";
+  }
+  if (code == repro::kStatusTensorMap) {
+    return "the driver refused a TMA tensor map (operand not on a 16-byte "
+           "boundary, or no cuTensorMapEncodeTiled)";
   }
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

@@ -4,14 +4,15 @@ causal / sliding-window GQA attention forward with an online softmax
 `ref.attention` and `ref.attention_fwd`) and its backward
 (`repro.kernels.xla_flash._flash_bwd_impl` counterpart; the plain version
 is `ref.attention_bwd` and, summed the way the kernels sum,
-`ref.attention_bwd_tiled`), with the backward's launch plan `bwd_plan`."""
+`ref.attention_bwd_tiled`), with the launch plans `fwd_plan` and
+`bwd_plan`."""
 from __future__ import annotations
 
 from typing import NamedTuple
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, ref
 
 # head dimensions compiled into csrc/flash_attention.cu and
 # flash_attention_bwd.cu (96: MLA's 64 + 32 query/key dims)
@@ -25,6 +26,98 @@ BWD_MMA_ROWS = (32, 64)       # bf16: dkdv query rows a step
 BWD_MMA_ROWS64_DIMS = (64, 80, 96)  # csrc kMmaRows64: head dims with 64
 MAX_CLUSTER = 8               # csrc kMaxCluster: blocks of a cluster at most
 PARTS = {"prep": 1, "dq": 2, "dkdv": 4}  # csrc kPart*: kernels of a call
+
+
+# the bf16 forward's tiles (csrc FwdTiles<D, NWG>), by its consumer
+# warpgroups: query rows, keys a tile, the shared bytes its blocks of one
+# SM may use (one block an SM with two consumers, two with one), and the
+# registers a thread after setmaxnreg (producer, consumer) against the
+# launch's (__launch_bounds__: 384 threads at 1 block, 256 at 2 blocks)
+FWD_ROWS = {2: 128, 1: 64}
+FWD_KEYS = {2: 128, 1: 64}
+FWD_BUDGET = {2: 232448, 1: 115712}
+FWD_REGS = {2: (24, 240), 1: (24, 232)}
+FWD_LAUNCH_REGS = {2: 168, 1: 128}
+FWD_MAX_STAGES = 4
+# query rows from which the bf16 forward takes two consumer warpgroups
+FWD_LONG = 1024
+FWD_F32_ROWS, FWD_F32_KEYS = 16, 32  # csrc kFlashBlockQ, kTileKeys
+
+
+class FwdPlan(NamedTuple):
+    """How a forward launch cuts the work.  ``kernel`` is
+    ``flash_kernel_wgmma`` (bf16) or ``flash_kernel`` (float32, the CUDA
+    cores); a block owns ``rows`` query rows of one (batch, head) and walks
+    its keys ``keys`` at a time through a ring of ``stages`` K/V stages
+    stored with a ``swizzle``-byte swizzle, with ``consumers`` warpgroups
+    of 64 rows behind one producer warpgroup; grid ``grid`` = (B H, query
+    tiles), the last query tile dispatched first.  ``smem``: dynamic
+    shared bytes of a block; ``regs``: registers of its threads after
+    setmaxnreg (0 for the float32 kernel, which sets none)."""
+    kernel: str
+    rows: int
+    keys: int
+    stages: int
+    swizzle: int
+    consumers: int
+    grid: tuple
+    smem: int
+    regs: int
+
+
+def fwd_tiles(D: int, consumers: int):
+    """(atom, stages, smem) of the bf16 forward at head dim ``D``: the
+    swizzled row's elements (the widest of 64, 32, 16 dividing D), the
+    ring's K/V stages (up to `FWD_MAX_STAGES` that fit `FWD_BUDGET`), and
+    the dynamic shared bytes with 1024 to align the tiles and 128 for the
+    mbarriers, as `csrc/flash_attention.cu` FwdTiles computes them."""
+    atom = 64 if D % 64 == 0 else 32 if D % 32 == 0 else 16
+    q_bytes = FWD_ROWS[consumers] * D * 2
+    tile = FWD_KEYS[consumers] * D * 2
+    stages = min(FWD_MAX_STAGES,
+                 (FWD_BUDGET[consumers] - 1024 - 128 - q_bytes) // (2 * tile))
+    return atom, stages, 1024 + q_bytes + stages * 2 * tile + 128
+
+
+def fwd_plan(B: int, H: int, KV: int, Sq: int, Sk: int, D: int,
+             causal: bool, itemsize: int, sms: int) -> FwdPlan:
+    """The forward's launch plan for these shapes on ``sms`` SMs.
+
+    bf16 (``itemsize`` 2): two consumer warpgroups (128 rows, 128-key
+    tiles, one block an SM) from `FWD_LONG` query rows on, else one (64
+    rows, 64-key tiles, two blocks an SM).  `chip_smoke.py`'s kernels
+    phase times both at every served and training shape (NVIDIA H100 80GB
+    HBM3, 700 W): from 1,500 rows 128 ran 1.02-1.62x faster (Zamba2's
+    (1, 32, 2048, 80) 0.0749 ms against 0.1211, LLaVA's 3328-row image
+    prefill 0.3172 against 0.3929), below 1,024 rows 64 ran 1.05-1.33x
+    faster (Qwen2's (1, 64, 448, 128) 0.0200 against 0.0233), save
+    Zamba2's (1, 32, 448, 80), 0.0131 against 0.0130.  float32: the
+    CUDA-core kernel, 16 rows and 32-key tiles.  Shapes only."""
+    if itemsize != 2:
+        smem = 4 * (FWD_F32_ROWS * D + FWD_F32_KEYS * (D + 1) +
+                    FWD_F32_KEYS * D)
+        return FwdPlan("flash_kernel", FWD_F32_ROWS, FWD_F32_KEYS, 1, 0, 0,
+                       (B * H, -(-Sq // FWD_F32_ROWS)), smem, 0)
+    return _wgmma_plan(B * H, Sq, D, 2 if Sq >= FWD_LONG else 1)
+
+
+def _wgmma_plan(slabs: int, Sq: int, D: int, nwg: int) -> FwdPlan:
+    """The bf16 kernel's plan with ``nwg`` consumer warpgroups."""
+    atom, stages, smem = fwd_tiles(D, nwg)
+    producer, consumer = FWD_REGS[nwg]
+    return FwdPlan("flash_kernel_wgmma", FWD_ROWS[nwg], FWD_KEYS[nwg],
+                   stages, 2 * atom, nwg, (slabs, -(-Sq // FWD_ROWS[nwg])),
+                   smem, 128 * (producer + nwg * consumer))
+
+
+def fwd_plans(B: int, H: int, KV: int, Sq: int, Sk: int, D: int,
+              causal: bool, itemsize: int, sms: int) -> list:
+    """The plan `fwd_plan` picks, then the one its rule passes over (bf16:
+    the other number of consumer warpgroups); float32 has one."""
+    chosen = fwd_plan(B, H, KV, Sq, Sk, D, causal, itemsize, sms)
+    if itemsize != 2:
+        return [chosen]
+    return [chosen, _wgmma_plan(B * H, Sq, D, 3 - chosen.consumers)]
 
 
 class BwdPlan(NamedTuple):
@@ -113,7 +206,9 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     sequence length works: the kernel masks ragged tiles itself.  With
     ``return_lse`` also the float32 (B,H,Sq) log-sum-exp of each row's
     scaled scores (the flash backward's residual); without it the kernel
-    writes none."""
+    writes none.  One call is one counted launch, cut by `fwd_plan`; no
+    key at all (Sk = 0) launches nothing and gives zeros (lse ``NEG_INF``,
+    as the kernel writes for a row that sees no key)."""
     _build.check_cuda("flash_attention", q, k, v)
     _check("flash_attention", q, k, v)
     B, H, Sq, D = q.shape
@@ -121,14 +216,30 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     out = torch.empty_like(q)
     lse = (torch.empty(B, H, Sq, dtype=torch.float32, device=q.device)
            if return_lse else None)
-    if q.numel():
-        _build.extension().flash_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            0 if lse is None else lse.data_ptr(), B, H, KV, Sq, Sk, D,
-            D ** -0.5, int(causal), int(window), DTYPES[q.dtype],
-            _build.stream_of(q))
-        _build.count_launch("flash_attention")
+    if q.numel() and not Sk:
+        out.zero_()
+        if lse is not None:
+            lse.fill_(ref.NEG_INF)
+    elif q.numel():
+        _build.check_aligned("flash_attention", q, k, v)
+        plan = fwd_plan(B, H, KV, Sq, Sk, D, causal, q.element_size(),
+                        _build.sm_count(q.device.index))
+        _launch_fwd(q, k, v, out, lse, causal, window, plan)
     return (out, lse) if return_lse else out
+
+
+def _launch_fwd(q, k, v, out, lse, causal: bool, window: int,
+                plan: FwdPlan) -> None:
+    """Launch the forward on checked operands with ``plan``, writing
+    ``out`` (and ``lse`` unless None)."""
+    B, H, Sq, D = q.shape
+    KV, Sk = k.shape[1], k.shape[2]
+    _build.extension().flash_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        0 if lse is None else lse.data_ptr(), B, H, KV, Sq, Sk, D,
+        D ** -0.5, int(causal), int(window), DTYPES[q.dtype], plan.rows,
+        _build.stream_of(q))
+    _build.count_launch("flash_attention")
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
@@ -153,9 +264,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
                          f"{lse.dtype} do not fit q {q.shape}/{q.dtype}")
     if q.numel() == 0 or k.numel() == 0:
         return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
-    if any(t.data_ptr() % 16 for t in (q, k, v, o, do)):
-        raise ValueError("flash_attention_bwd: q, k, v, o and do must start "
-                         "on 16-byte boundaries (the kernels copy 16 bytes)")
+    _build.check_aligned("flash_attention_bwd", q, k, v, o, do)
     plan = bwd_plan(B, H, KV, Sq, Sk, D, causal, q.element_size(),
                     _build.sm_count(q.device.index))
     return _launch_bwd(q, k, v, o, lse, do, causal, window, plan)[:3]

@@ -73,6 +73,51 @@ def attention_fwd(q, k, v, *, causal: bool = True, window: int = 0):
     return attention(q, k, v, causal=causal, window=window), lse
 
 
+def attention_fwd_tiled(q, k, v, *, causal: bool = True, window: int = 0,
+                        keys: int):
+    """`attention_fwd` computed the way `csrc/flash_attention.cu`'s bf16
+    kernel computes it, walking the keys ``keys`` at a time
+    (`flash_attention.fwd_plan`'s ``keys``): scores in float32 times the
+    scale in log2 units (``D**-0.5`` times log2 e, a float32 product as the
+    launcher forms it); per tile the running max ``m`` (from ``NEG_INF``),
+    ``alpha = exp2(m_old - m)``, ``p = exp2(s - m)``; the row sum adds p in
+    float32 while the product with V takes p rounded to the operands'
+    dtype (bf16: the kernel's P fragment).  Masked scores are -inf (exp2
+    gives exactly 0); a tile's ragged tail holds no keys, as the kernel's
+    zero-filled rows are masked.  -> (o in q's dtype, lse float32 natural
+    log: ``(m + log2 l) ln 2``, ``NEG_INF`` for a row that sees no key)."""
+    B, H, Sq, D = q.shape
+    KV, Sk = k.shape[1], k.shape[2]
+    G = H // KV
+    low = v.dtype if v.dtype == torch.bfloat16 else torch.float32
+    scale_log2 = (torch.tensor(D ** -0.5, dtype=torch.float32) *
+                  torch.tensor(1.4426950408889634, dtype=torch.float32))
+    qg = q.reshape(B, KV, G, Sq, D).float()
+    kf, vf = k.float(), v.float()
+    mask = _attn_mask(Sq, Sk, causal, window, q.device)
+    m = torch.full((B, KV, G, Sq), NEG_INF, device=q.device)
+    l = torch.zeros(B, KV, G, Sq, device=q.device)
+    acc = torch.zeros(B, KV, G, Sq, D, device=q.device)
+    for k0 in range(0, Sk, keys):
+        t = slice(k0, k0 + keys)
+        s = torch.einsum("bkgqd,bkTd->bkgqT", qg, kf[:, :, t]) * scale_log2
+        if mask is not None:
+            s = torch.where(mask[:, t], s, float("-inf"))
+        mx = torch.maximum(m, s.amax(-1))
+        alpha = torch.exp2(m - mx)
+        p = torch.exp2(s - mx[..., None])
+        l = l * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bkgqT,bkTd->bkgqd", p.to(low).float(), vf[:, :, t])
+        m = mx
+    empty = l == 0
+    o = acc / torch.where(empty, 1.0, l)[..., None]
+    lse = torch.where(empty, NEG_INF,
+                      (m + torch.log2(torch.where(empty, 1.0, l))) *
+                      0.6931471805599453)
+    return o.reshape(B, H, Sq, D).to(q.dtype), lse.reshape(B, H, Sq)
+
+
 def attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
                   window: int = 0):
     """Plain flash backward (`repro.kernels.xla_flash._flash_bwd_impl`):
