@@ -184,9 +184,10 @@ Phases (any failure exits non-zero and prints no result):
                --profile-runs 80``) with its launches counted;
 
 On request: `profile` traces one generate per engine after each serve
-phase; `parts` (`--phases device,parts`) times copies of the bf16 flash
-forward and SSD kernels with one part taken out or a design alternative
-put in.
+phase; `parts` (`--phases device,parts`) times copies of the decode
+kernel (at LLaVA's image cache: copies only, no cluster merge), the bf16
+flash forward and the SSD kernel with one part taken out or a design
+alternative put in.
 
 The last three lines of output are the `{"kernels": [...]}` JSON line (its
 launches summed over the train, zoo and serve paths), the card's
@@ -1145,25 +1146,45 @@ def _time_bwd_plans(rec, fmod, label, shape, q, k, v, o, lse, do, want,
 
 
 def _plan_str(p) -> str:
-    return (f"span {p.span} x {p.splits} splits, {p.slices} column slices, "
-            f"{p.hc} heads a block")
+    return (f"clusters of {p.cluster}, {p.slices} column slices, {p.hc} "
+            f"heads a block, {p.stages} stages")
 
 
-def _decode_plans(dmod, B, KV, G, S, D, sms, itemsize=2):
-    """The plan `split_plan` picks, then the plans its rule passes over:
-    with each column slice count, spans of one staged tile and spans just
-    short enough that the grid fills a wave of the SMs."""
-    chosen = dmod.split_plan(B, KV, G, S, D, sms, itemsize=itemsize)
-    tiles = -(-S // (128 // itemsize))
-    slabs = B * KV * -(-G // chosen.hc)
-    plans = [chosen]
-    for c in dmod.column_slices(D, itemsize):
-        for n in (tiles, max(tiles, -(-sms // (slabs * c)))):
-            span = max(-(-S // dmod.MAX_SPLITS), -(-S // n))
-            p = dmod.Plan(span, -(-S // span), chosen.hc, c)
-            if p not in plans:
-                plans.append(p)
-    return plans
+def _decode_plans(dmod, B, KV, G, S, D, sms, dtype):
+    """Every plan `decode_plans` weighs at these shapes on this card, the
+    chosen one first, with the clusters of each the card holds at once
+    (`cudaOccupancyMaxActiveClusters`, 0 for a cluster of one)."""
+    import torch
+
+    isz = torch.empty((), dtype=dtype).element_size()
+    plans = dmod.decode_plans(
+        B, KV, G, S, D, sms, isz,
+        max_clusters=lambda p: dmod.max_clusters(0, D, G, dtype, p))
+    return [(p, dmod.max_clusters(0, D, G, dtype, p) if p.cluster > 1 else 0)
+            for p in plans]
+
+
+def _replays_equal(kernel, q, k, v):
+    """Two replays of one captured graph of ``kernel`` give outputs equal
+    bit for bit: the cluster merge sums in rank order, with no atomic."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        kernel(q, k, v)
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out = kernel(q, k, v)
+    g.replay()
+    first = out.clone()
+    g.replay()
+    torch.cuda.synchronize()
+    if not torch.equal(first, out):
+        raise AssertionError("decode_attention: two replays of one graph "
+                             "differ")
+    log("  decode_attention: two graph replays equal bit for bit")
 
 
 def check_decode(rec):
@@ -1187,12 +1208,13 @@ def check_decode(rec):
         torch.cuda.synchronize()
         want = ref.decode_attention(q, kc, vc, lens, window=w)
         e = check_close("decode_attention", out, want, tol)
-        p = dmod.split_plan(q.shape[0], kc.shape[1],
-                            q.shape[1] // kc.shape[1], kc.shape[2],
-                            q.shape[2], sms, itemsize=q.element_size())
+        p, fit = _decode_plans(dmod, q.shape[0], kc.shape[1],
+                               q.shape[1] // kc.shape[1], kc.shape[2],
+                               q.shape[2], sms, q.dtype)[0]
         log(f"  decode_attention {label} {str(q.dtype)[6:]} q "
             f"{tuple(q.shape)} kv {kc.shape[1]} S={kc.shape[2]} window={w}"
-            f" ({_plan_str(p)}): {err_str(out, want, tol)}")
+            f" ({_plan_str(p)}, {fit} such clusters fit): "
+            f"{err_str(out, want, tol)}")
         return e, p
 
     for dt, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, F32_TOL)):
@@ -1207,8 +1229,8 @@ def check_decode(rec):
                 for w in sorted({0, 128, window}):
                     err = max(err, check(f"{arch} lens={tuple(lens.tolist())}",
                                          q, kc, vc, lens, w, tol)[0])
-        # the split-K merge: G = 16 and 32 (and 64, two head chunks of
-        # 32) at lengths 1, 33 and S, where most splits are empty
+        # the cluster merge: G = 16 and 32 (and 64, two head chunks of
+        # 32) at lengths 1, 33 and S, where most ranks are empty
         for H, KV in ((32, 2), (32, 1), (64, 1)):
             q, kc, vc = rn(3, H, 128, dt=dt), rn(3, KV, S, 128, dt=dt), \
                 rn(3, KV, S, 128, dt=dt)
@@ -1222,14 +1244,14 @@ def check_decode(rec):
                 rn(2, KV, 48, D, dt=dt)
             lens = torch.tensor([17, 24], dtype=torch.int32, device="cuda")
             err = max(err, check(arch, q, kc, vc, lens, 0, tol)[0])
-        # a cache of one tile: one split, no merge
+        # a cache of one tile: a cluster of one, no merge
         H, KV, D, _ = ATTN_SHAPES["zamba2-2.7b"]
         q, kc, vc = rn(2, H, D, dt=dt), rn(2, KV, 32, D, dt=dt), \
             rn(2, KV, 32, D, dt=dt)
         lens = torch.tensor([20, 32], dtype=torch.int32, device="cuda")
         for w in (0, 8):
-            e, p = check("one split", q, kc, vc, lens, w, tol)
-            assert p.splits == 1, p
+            e, p = check("one tile", q, kc, vc, lens, w, tol)
+            assert p.cluster == 1, p
             err = max(err, e)
 
     # timed at every serving shape: batch 1 at a 448-token prompt's
@@ -1262,16 +1284,17 @@ def check_decode(rec):
         # every plan the rule weighs, each held against the plain version
         # and timed, for the record of the choice
         plans, chosen = [], None
-        for p in _decode_plans(dmod, B, KV, H // KV, Sc, D, sms,
-                               itemsize=isz):
+        for p, fit in _decode_plans(dmod, B, KV, H // KV, Sc, D, sms, dt):
             chosen = chosen or p
             out = dmod._launch(q1, k1, v1, l1, window, p)
             e = check_close("decode_attention", out, want, tol)
             p_ms = graph_ms(lambda p=p: dmod._launch(q1, k1, v1, l1, window,
                                                      p))
-            plans.append(dict(plan=p._asdict(), ms=p_ms, max_abs_err=e))
-            log(f"    plan {_plan_str(p)}: {p_ms:.4f} ms, max abs err "
-                f"{e:.3g}{' (chosen)' if p is chosen else ''}")
+            plans.append(dict(plan=p._asdict(), ms=p_ms, max_abs_err=e,
+                              clusters_fit=fit))
+            log(f"    plan {_plan_str(p)} ({fit} such clusters fit): "
+                f"{p_ms:.4f} ms, max abs err {e:.3g}"
+                f"{' (chosen)' if p is chosen else ''}")
         err = max(err, check_close("decode_attention", kernel(q1, k1, v1),
                                    want, tol))
         ms = graph_ms(lambda: kernel(q1, k1, v1))
@@ -1294,6 +1317,8 @@ def check_decode(rec):
         rec.setdefault("timing_cases", {})[label] = case
         if arch == "yi-9b":
             rec["kernels"]["decode_attention"] = case
+        if arch == MEDIA_DECODE[0][0]:
+            _replays_equal(kernel, q1, k1, v1)
         log(f"  {label} ({_plan_str(chosen)}): kernel "
             f"{ms:.4f} ms (cold L2 {cold_ms:.4f}), plain {plain_ms:.4f} ms, "
             f"SDPA {lib_ms:.4f} ms (cold L2 {lib_cold_ms:.4f}), bound "
@@ -1706,8 +1731,63 @@ def _flash_parts(rec):
                     f"{KV}, {plan.rows} rows a block, {name}: {us:.2f} us")
 
 
+# copies of `csrc/decode_attention.cu` with DECODE_VARIANT bits: 1 keeps
+# the TMA ring and its barriers and takes the scores, softmax and P.V
+# out, 2 takes the cluster merge out
+DECODE_PARTS = {
+    "whole kernel": (),
+    "copies only": ("DECODE_VARIANT=1",),
+    "no cluster merge": ("DECODE_VARIANT=2",),
+}
+
+
+def _decode_parts(rec):
+    """Time copies of the decode kernel with parts taken out
+    (`DECODE_PARTS`) at LLaVA's image cache (`MEDIA_DECODE`'s first row),
+    every clustered plan `decode_plans` weighs, as `check_decode` times
+    the kernel."""
+    import torch
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import decode_attention as dmod
+    from repro_torch.kernels.flash_attention import DTYPES
+
+    t0 = time.perf_counter()
+    copies = {name: _build.extension(defines=d)
+              for name, d in DECODE_PARTS.items()}
+    log(f"parts: {len(copies)} decode copies built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    g = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    label, B, H, KV, D, Sc, Lc = MEDIA_DECODE[0]
+    bf16 = torch.bfloat16
+    q = torch.randn(B, H, D, generator=g, device="cuda").to(bf16)
+    k = torch.randn(B, KV, Sc, D, generator=g, device="cuda").to(bf16)
+    v = torch.randn(B, KV, Sc, D, generator=g, device="cuda").to(bf16)
+    lens = torch.full((B,), Lc, dtype=torch.int32, device="cuda")
+    o = torch.empty_like(q)
+    for plan, fit in _decode_plans(dmod, B, KV, H // KV, Sc, D, sms, bf16):
+        if plan.cluster == 1:
+            continue
+        for name, ext in copies.items():
+            def call(ext=ext, plan=plan):
+                ext.decode_attention(
+                    q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                    lens.data_ptr(), o.data_ptr(), B, H, KV, Sc, D,
+                    plan.cluster, plan.slices, plan.hc, plan.stages,
+                    D ** -0.5, 0, DTYPES[bf16],
+                    torch.cuda.current_stream().cuda_stream)
+
+            us = 1e3 * graph_ms(call)
+            rec.setdefault("parts", {})[
+                f"decode {label} {_plan_str(plan)} {name}"] = us
+            log(f"  decode_attention parts {label} ({_plan_str(plan)}, "
+                f"{fit} such clusters fit) {name}: {us:.2f} us")
+
+
 def phase_parts(args, rec):
-    """Time copies of the bf16 flash forward (`_flash_parts`), then of
+    """Time copies of the decode kernel (`_decode_parts`) and of the bf16
+    flash forward (`_flash_parts`), then of
     the bf16 SSD kernel at both serving shapes (S 448,
     chunk 256, final state, the run count the wrapper picks), as
     `check_ssd_scan` times the kernel.  A copy with a part taken out
@@ -1721,6 +1801,7 @@ def phase_parts(args, rec):
     from repro_torch.kernels import ssd_scan as smod
     from repro_torch.kernels.flash_attention import DTYPES
 
+    _decode_parts(rec)
     _flash_parts(rec)
     t0 = time.perf_counter()
     copies = {name: _build.extension(defines=d)
@@ -5523,8 +5604,8 @@ def main(argv=None) -> int:
                     help=f"comma-separated subset of {','.join(PHASES)}; "
                          "add profile to trace one generate per engine "
                          "after each serve phase, parts to time copies of "
-                         "the bf16 flash forward and SSD kernels with parts "
-                         "taken out")
+                         "the decode, bf16 flash forward and SSD kernels "
+                         "with parts taken out")
     ap.add_argument("--verbose-build", action="store_true",
                     help="show the compiler's output (ptxas -v included)")
     args = ap.parse_args(argv)

@@ -27,8 +27,9 @@ int repro_flash_attention_bwd(const void*, const void*, const void*,
                               int, float, int, int, int, int, int, int, int,
                               int, int, void*);
 int repro_decode_attention(const void*, const void*, const void*, const void*,
-                           void*, void*, void*, int, int, int, int, int, int,
-                           int, int, int, float, int, int, void*);
+                           void*, int, int, int, int, int, int, int, int, int,
+                           float, int, int, void*);
+int repro_decode_max_clusters(int, int, int, int, int, int, int, int*);
 int repro_rms_norm(const void*, const void*, void*, int, int, float, int,
                    void*);
 int repro_ssd_scan(const void*, const void*, const void*, const void*,
@@ -103,14 +104,23 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
                 "flash_attention_bwd");
         });
   m.def("decode_attention",
-        [](ptr q, ptr kc, ptr vc, ptr lens, ptr o, ptr ws, ptr counters,
-           int B, int H, int KV, int S, int D, int span, int nsplit, int ncs,
-           int hc, float scale, int window, int dtype, ptr stream) {
-          check(repro_decode_attention(P(q), P(kc), P(vc), P(lens), P(o),
-                                       P(ws), P(counters), B, H, KV, S, D,
-                                       span, nsplit, ncs, hc, scale, window,
-                                       dtype, P(stream)),
+        [](ptr q, ptr kc, ptr vc, ptr lens, ptr o, int B, int H, int KV,
+           int S, int D, int cluster, int slices, int hc, int stages,
+           float scale, int window, int dtype, ptr stream) {
+          check(repro_decode_attention(P(q), P(kc), P(vc), P(lens), P(o), B,
+                                       H, KV, S, D, cluster, slices, hc,
+                                       stages, scale, window, dtype,
+                                       P(stream)),
                 "decode_attention");
+        });
+  m.def("decode_max_clusters",
+        [](int D, int G, int cluster, int slices, int hc, int stages,
+           int dtype) {
+          int n = 0;
+          check(repro_decode_max_clusters(D, G, cluster, slices, hc, stages,
+                                          dtype, &n),
+                "decode_max_clusters");
+          return n;
         });
   m.def("rms_norm",
         [](ptr x, ptr scale, ptr out, int rows, int D, float eps, int dtype,

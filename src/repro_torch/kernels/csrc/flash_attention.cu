@@ -484,9 +484,9 @@ template <int D, int NWG>
 int encode_flash_maps(CUtensorMap* maps, const void* q, const void* k, const void* v, int B,
                       int H, int KV, int Sq, int Sk) {
   using T = FwdTiles<D, NWG>;
-  int st = encode_tile_map(maps, q, B * H, Sq, D, T::kRows, T::kAtom);
-  if (!st) st = encode_tile_map(maps + 1, k, B * KV, Sk, D, T::kKeys, T::kAtom);
-  if (!st) st = encode_tile_map(maps + 2, v, B * KV, Sk, D, T::kKeys, T::kAtom);
+  int st = encode_tile_map<bf16>(maps, q, B * H, Sq, D, T::kRows, T::kAtom, T::kSpan);
+  if (!st) st = encode_tile_map<bf16>(maps + 1, k, B * KV, Sk, D, T::kKeys, T::kAtom, T::kSpan);
+  if (!st) st = encode_tile_map<bf16>(maps + 2, v, B * KV, Sk, D, T::kKeys, T::kAtom, T::kSpan);
   return st;
 }
 

@@ -126,6 +126,20 @@ __device__ __forceinline__ void named_arrive(int id, int threads) {
 }
 
 // ---------------------------------------------------------------------
+// the cluster barrier in halves: every thread of the cluster arrives once
+// (relaxed: no memory ordering), then waits for all to have arrived.  Past
+// the wait every block of the cluster has started, so its shared memory
+// may be written through distributed shared memory.
+// ---------------------------------------------------------------------
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait;\n" ::: "memory");
+}
+
+// ---------------------------------------------------------------------
 // setmaxnreg: all four warps of a warpgroup execute it together
 // ---------------------------------------------------------------------
 template <int R>
@@ -265,12 +279,14 @@ REPRO_WGMMA(128, 64, 64, 65, 66, 67, 68, 64, 65, 66, 67, 68, 69, 70)
 // ---------------------------------------------------------------------
 // Host: tensor maps
 // ---------------------------------------------------------------------
-// Encode the map of a row-major bf16 tensor (slabs, rows, D) read in boxes
-// of (1, box_rows, atom) elements with the swizzle of an atom-wide row
-// (atom 16, 32 or 64: 32-, 64- or 128-byte swizzle); boxes past ``rows``
-// read zeros.  cuTensorMapEncodeTiled is reached through the runtime's
-// cudaGetDriverEntryPoint, so nothing links against libcuda.  Returns 0
-// or kStatusTensorMap.
+// Encode the map of a row-major tensor of T (bf16 or float32) shaped
+// (slabs, rows, D), read in boxes of (1, box_rows, box_cols) elements.
+// With ``swizzle_bytes`` 32, 64 or 128 a row of the box is that many bytes
+// (box_cols x sizeof(T)) and is stored swizzled; with 0 the box is stored
+// as dense rows of box_cols elements (a multiple of 16 bytes, at most 256
+// elements).  Boxes past ``rows`` read zeros.  cuTensorMapEncodeTiled is
+// reached through the runtime's cudaGetDriverEntryPoint, so nothing links
+// against libcuda.  Returns 0 or kStatusTensorMap.
 using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                    const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                                    const cuuint32_t*, CUtensorMapInterleave,
@@ -295,22 +311,30 @@ inline EncodeTiledFn encode_tiled_fn() {
   return fn;
 }
 
+template <typename T>
 inline int encode_tile_map(CUtensorMap* map, const void* base, int slabs, int rows, int D,
-                           int box_rows, int atom) {
+                           int box_rows, int box_cols, int swizzle_bytes) {
+  static_assert(sizeof(T) == 2 || sizeof(T) == 4, "bf16 or float32 tiles");
   const EncodeTiledFn encode = encode_tiled_fn();
   if (encode == nullptr) return kStatusTensorMap;
+  if (swizzle_bytes != 0 && box_cols * static_cast<int>(sizeof(T)) != swizzle_bytes) {
+    return kStatusTensorMap;
+  }
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(rows),
                               static_cast<cuuint64_t>(slabs)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(D) * 2,
-                                 static_cast<cuuint64_t>(rows) * D * 2};
-  const cuuint32_t box[3] = {static_cast<cuuint32_t>(atom), static_cast<cuuint32_t>(box_rows),
-                             1};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(D) * sizeof(T),
+                                 static_cast<cuuint64_t>(rows) * D * sizeof(T)};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(box_cols),
+                             static_cast<cuuint32_t>(box_rows), 1};
   const cuuint32_t step[3] = {1, 1, 1};
-  const CUtensorMapSwizzle swizzle = atom == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
-                                     : atom == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
-                                                  : CU_TENSOR_MAP_SWIZZLE_32B;
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
-                            dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+  const CUtensorMapSwizzle swizzle = swizzle_bytes == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+                                     : swizzle_bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                     : swizzle_bytes == 32 ? CU_TENSOR_MAP_SWIZZLE_32B
+                                                           : CU_TENSOR_MAP_SWIZZLE_NONE;
+  const CUtensorMapDataType type =
+      sizeof(T) == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  const CUresult r = encode(map, type, 3, const_cast<void*>(base), dims, strides, box, step,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : kStatusTensorMap;

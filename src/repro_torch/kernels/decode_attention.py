@@ -1,11 +1,12 @@
 """Binding of `csrc/decode_attention.cu`: one-token attention over a KV
 cache with a per-sequence valid length and an optional window
 (`repro.kernels.decode_attention` counterpart; the plain versions are
-`ref.decode_attention` and, split the way the kernel splits the cache,
-`ref.decode_attention_split`)."""
+`ref.decode_attention` and, cut over a cluster's ranks the way the kernel
+cuts the valid slots, `ref.decode_attention_cluster`)."""
 from __future__ import annotations
 
-from typing import NamedTuple
+import functools
+from typing import Callable, NamedTuple
 
 import torch
 
@@ -15,51 +16,132 @@ from repro_torch.kernels.flash_attention import DTYPES
 # head dimensions compiled into csrc/decode_attention.cu: its own list, not
 # the flash kernels' (MLA decodes in the absorbed form, with no kernel)
 HEAD_DIMS = (16, 32, 64, 80, 128)
-MAX_SPLITS = 64   # csrc kDecodeMaxSplits: splits of the cache axis at most
-HEAD_CHUNK = 32   # csrc kDecodeHeads: query heads a block at most
-MIN_COLS = 16     # output columns a block at least
+HEAD_CHUNK = 8          # csrc kDecodeHeads: query heads a block at most
+MIN_COLS = 16           # output columns a block at least
+CLUSTERS = (1, 2, 4, 8, 16)  # cluster sizes the rule weighs
+PORTABLE_CLUSTER = 8    # larger clusters need the non-portable opt-in
+MAX_STAGES = 8          # csrc kDecodeMaxStages: a block's ring at most
+THREADS = 256           # csrc kDecodeThreads
+# dynamic shared memory a block where two share an SM (the SM's 228 KB
+# less 1 KB reserved a block, halved): a cluster then finds room beside
+# another, and the card holds every cluster of a wave at once
+SMEM_TWO = 115712
+# csrc kDecodeRx: a block's receive buffer for its share of the ranks'
+# partials (16 bytes an item of 4 columns) and their m and l
+RX_BYTES = 16 * (HEAD_CHUNK * 32 + 16) + 2 * 4 * HEAD_CHUNK * 16
+# a cluster's merge costs about what a few tiles do: a full cache of at
+# most this many tiles is not cut over a cluster
+MIN_SPLIT_TILES = 4
 
 
 class Plan(NamedTuple):
-    """How a launch cuts the work: the cache axis into ``splits`` spans of
-    ``span`` slots, the G query heads of a kv head into chunks of ``hc``,
-    and the output columns into ``slices``; grid (splits x slices, KV x
-    head chunks, B)."""
-    span: int
-    splits: int
-    hc: int
+    """How a launch cuts the work: ``cluster`` blocks of one thread block
+    cluster share the valid tiles of a (batch, kv head, head chunk,
+    column slice), the G query heads of a kv head go in chunks of ``hc``,
+    the output columns into ``slices``, and a block's ring holds
+    ``stages`` tiles; grid (cluster x slices, KV x head chunks, B)."""
+    cluster: int
     slices: int
+    hc: int
+    stages: int
+
+
+def tile_keys(itemsize: int) -> int:
+    """Keys of one tile: 128 bytes a column (csrc `decode_tile_keys`)."""
+    return 128 // itemsize
 
 
 def column_slices(D: int, itemsize: int) -> list[int]:
     """The column slice counts the kernel takes at head dimension ``D``,
-    fewest first: slices of at least ``MIN_COLS`` columns and whole
-    16-byte copies."""
-    vec = 16 // itemsize
+    fewest first: slices of at least ``MIN_COLS`` columns, in chunks of
+    16 in bf16 (two n-tiles of 8, a swizzled row of 32 bytes or more) and
+    of 8 in float32 (a P.V thread's columns)."""
+    unit = 16 if itemsize == 2 else 8
     return [c for c in range(1, max(1, D // MIN_COLS) + 1)
-            if D % c == 0 and (D // c) % vec == 0]
+            if D % c == 0 and (D // c) % unit == 0]
 
 
-def split_plan(B: int, KV: int, G: int, S: int, D: int, sms: int,
-               itemsize: int = 2) -> Plan:
-    """The launch plan for these shapes on ``sms`` SMs: spans of one
-    staged tile (csrc `decode_tile_keys`: 128 bytes a column, 64 bf16 or 32
-    float32 keys; longer where that would pass ``MAX_SPLITS``), and the most
-    column slices that keep the grid within one wave.  Shapes only: the
-    lengths lie on the device."""
+def smem_bytes(D: int, itemsize: int, slices: int, stages: int) -> int:
+    """Dynamic shared memory of one block (csrc `decode_layout`): the ring
+    (or, if larger, the warps' accumulators after it, 32 floats a thread),
+    each warp's scores for 16 keys of 4 heads, the warps' and the block's
+    stats, what the ranks push (``RX_BYTES``), a full and an empty barrier
+    a stage, and 1024 bytes to align the ring."""
+    tk, dc = tile_keys(itemsize), D // slices
+    ring = max(stages * tk * (D + dc) * itemsize, 4 * 32 * THREADS)
+    return (1024 + ring + 4 * 8 * 16 * 4 + 4 * 2 * 8 * HEAD_CHUNK
+            + 4 * 2 * HEAD_CHUNK + RX_BYTES + 16 * stages)
+
+
+def decode_plans(B: int, KV: int, G: int, S: int, D: int, sms: int,
+                 itemsize: int = 2,
+                 max_clusters: Callable[[Plan], int] | None = None
+                 ) -> list[Plan]:
+    """Every plan the rule weighs for these shapes on ``sms`` SMs, the
+    chosen one first.  Shapes and the card only: the lengths lie on the
+    device.
+
+    For each cluster size C of ``CLUSTERS`` up to the tiles that cover the
+    cache (so that every block holds a tile of a full cache), while the
+    slabs x C blocks stay within one wave of the SMs, and only where a
+    full cache has more than ``MIN_SPLIT_TILES`` tiles (C = 1 always): the
+    most column slices that keep the grid within the wave, and a ring as
+    deep as a block's share of a full cache, at most ``MAX_STAGES`` and
+    what the shared memory of two blocks an SM holds.
+    C = 16 is weighed only where ``max_clusters(plan)`` (the card's
+    `cudaOccupancyMaxActiveClusters`) holds all its clusters at once.  The
+    chosen plan is the largest C weighed: the valid slots spread over the
+    most SMs, the column slices re-read K only to fill the rest."""
     nchunk = -(-G // HEAD_CHUNK)
     hc = -(-G // nchunk)
-    span = max(128 // itemsize, -(-S // MAX_SPLITS))
-    splits = -(-S // span)
-    blocks = splits * B * KV * nchunk
-    fit = [c for c in column_slices(D, itemsize) if blocks * c <= sms]
-    return Plan(span, splits, hc, fit[-1] if fit else 1)
+    tiles = -(-S // tile_keys(itemsize))
+    slabs = B * KV * nchunk
+    plans = []
+    for C in CLUSTERS:
+        if C > 1 and (C > tiles or tiles <= MIN_SPLIT_TILES or
+                      slabs * C > sms):
+            break
+        fit = [c for c in column_slices(D, itemsize) if slabs * C * c <= sms]
+        plan = _with_ring(C, fit[-1] if fit else 1, hc, tiles, D, itemsize)
+        if C > PORTABLE_CLUSTER and (
+                max_clusters is None or
+                max_clusters(plan) < slabs * plan.slices):
+            continue
+        plans.append(plan)
+    return plans[::-1]
 
 
-def partial_floats(hc: int, D: int) -> int:
-    """Floats of one split's partial in the workspace: m and l of each
-    head padded to 16 bytes, then the (hc, D) accumulator."""
-    return -(-2 * hc // 4) * 4 + hc * D
+def _with_ring(C: int, slices: int, hc: int, tiles: int, D: int,
+               itemsize: int) -> Plan:
+    stages = min(MAX_STAGES, max(1, -(-tiles // C)))
+    while stages > 1 and smem_bytes(D, itemsize, slices, stages) > SMEM_TWO:
+        stages -= 1
+    return Plan(C, slices, hc, stages)
+
+
+def decode_plan(B: int, KV: int, G: int, S: int, D: int, sms: int,
+                itemsize: int = 2,
+                max_clusters: Callable[[Plan], int] | None = None) -> Plan:
+    """The plan the wrapper launches: the first of `decode_plans`."""
+    return decode_plans(B, KV, G, S, D, sms, itemsize, max_clusters)[0]
+
+
+@functools.lru_cache(maxsize=None)
+def max_clusters(index: int, D: int, G: int, dtype: torch.dtype,
+                 plan: Plan) -> int:
+    """Clusters of ``plan`` card ``index`` holds at once, by
+    `cudaOccupancyMaxActiveClusters`."""
+    with torch.cuda.device(index):
+        return _build.extension().decode_max_clusters(
+            D, G, plan.cluster, plan.slices, plan.hc, plan.stages,
+            DTYPES[dtype])
+
+
+@functools.lru_cache(maxsize=None)
+def _plan_for(index: int, B: int, KV: int, G: int, S: int, D: int,
+              dtype: torch.dtype, itemsize: int) -> Plan:
+    return decode_plan(B, KV, G, S, D, _build.sm_count(index), itemsize,
+                       lambda p: max_clusters(index, D, G, dtype, p))
 
 
 def check_operands(q, k_cache, v_cache, cache_len) -> None:
@@ -88,15 +170,13 @@ def decode_attention(q, k_cache, v_cache, cache_len, *, window: int = 0):
     Any cache length ``S`` and any number of query heads per kv head."""
     _build.check_cuda("decode_attention", q, k_cache, v_cache, cache_len)
     check_operands(q, k_cache, v_cache, cache_len)
+    _build.check_aligned("decode_attention", q, k_cache, v_cache)
     B, H, D = q.shape
     KV, S = k_cache.shape[1], k_cache.shape[2]
-    if any(t.data_ptr() % 16 for t in (q, k_cache, v_cache)):
-        raise ValueError("decode_attention: q and the caches must start on "
-                         "16-byte boundaries (the kernel copies 16 bytes)")
     if q.numel() == 0 or S == 0:
         return torch.zeros_like(q)
-    plan = split_plan(B, KV, H // KV, S, D, _build.sm_count(q.device.index),
-                      itemsize=q.element_size())
+    plan = _plan_for(q.device.index, B, KV, H // KV, S, D, q.dtype,
+                     q.element_size())
     return _launch(q, k_cache, v_cache, cache_len, window, plan)
 
 
@@ -105,20 +185,10 @@ def _launch(q, k_cache, v_cache, cache_len, window: int, plan: Plan):
     B, H, D = q.shape
     KV, S = k_cache.shape[1], k_cache.shape[2]
     out = torch.empty_like(q)
-    groups = B * KV * -(-(H // KV) // plan.hc) * plan.slices
-    if plan.splits > 1:
-        ws = torch.empty(groups * plan.splits *
-                         partial_floats(plan.hc, D // plan.slices),
-                         dtype=torch.float32, device=q.device)
-        ws_ptr = ws.data_ptr()
-        cnt_ptr = _build.counters("decode_attention", q.device,
-                                   groups).data_ptr()
-    else:
-        ws_ptr = cnt_ptr = 0
     _build.extension().decode_attention(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-        cache_len.data_ptr(), out.data_ptr(), ws_ptr, cnt_ptr, B, H, KV, S, D,
-        plan.span, plan.splits, plan.slices, plan.hc, D ** -0.5, int(window),
+        cache_len.data_ptr(), out.data_ptr(), B, H, KV, S, D, plan.cluster,
+        plan.slices, plan.hc, plan.stages, D ** -0.5, int(window),
         DTYPES[q.dtype], _build.stream_of(q))
     _build.count_launch("decode_attention")
     return out

@@ -224,47 +224,62 @@ def decode_attention(q, k_cache, v_cache, cache_len, *, window: int = 0,
     return out.reshape(B, H, D).to(q.dtype)
 
 
-def decode_attention_split(q, k_cache, v_cache, cache_len, *, window: int = 0,
-                           split: int, scale: float | None = None):
-    """`decode_attention` computed the way `csrc/decode_attention.cu` does:
-    the cache axis is cut into spans of ``split`` slots, each span keeps a
-    partial (m, l, acc) over its valid slots in float32 (an empty span m =
-    NEG_INF, l = 0), and the partials merge by their log-sum-exp weights,
-    an empty span with weight exactly 0.  A sequence with no valid slot
-    gives 0.  The probabilities stay float32, as in the kernel.  (The
-    kernel also cuts the output columns into slices, each merged on its
-    own with the same weights: the arithmetic of a column is unchanged.)"""
+def decode_attention_cluster(q, k_cache, v_cache, cache_len, *,
+                             window: int = 0, cluster: int,
+                             tile: int | None = None,
+                             scale: float | None = None):
+    """`decode_attention` computed the way `csrc/decode_attention.cu`
+    does.  Sequence b's valid slots ``[start, L)`` (``start = max(0, L -
+    window)`` with a window, else 0) are covered by T tiles of ``tile``
+    slots counted from ``start`` (default: the kernel's, 128 bytes a
+    column: 64 bf16 or 32 float32 keys); rank r of the ``cluster`` owns
+    tiles ``[r T // C, (r + 1) T // C)``.  Each rank keeps a partial (m, l,
+    acc) over its slots in float32 (an empty rank m = NEG_INF, l = 0), and
+    the partials merge by their log-sum-exp weights, summed over ranks 0..
+    in rank order, an empty rank with weight exactly 0 and its accumulators
+    never multiplied.  A sequence with no valid slot gives 0.  In bf16
+    the probabilities enter P.V as the kernel's tensor cores take them,
+    a bf16 rounding plus the bf16 rounding of its remainder (about 16
+    bits); float32 stays float32.  (The kernel also splits
+    a rank's keys over its warps, each with its own running max, merged
+    the same way, and cuts the output columns into slices and the merge's
+    items into a share a rank: the arithmetic of a column is unchanged
+    up to float32 rounding.)"""
     B, H, D = q.shape
     KV, S = k_cache.shape[1], k_cache.shape[2]
     G = H // KV
     scale = scale if scale is not None else D ** -0.5
-    n = -(-S // split)
-    pad = n * split - S
-
-    def spans(c):
-        c = c.float()
-        if pad:
-            c = torch.cat([c, c.new_zeros(B, KV, pad, D)], dim=2)
-        return c.reshape(B, KV, n, split, D)
-
-    kf, vf = spans(k_cache), spans(v_cache)
+    tile = tile or 128 // q.element_size()
     qg = q.reshape(B, KV, G, D).float()
-    logits = torch.einsum("bkgd,bknsd->bkgns", qg, kf) * scale
+    kf, vf = k_cache.float(), v_cache.float()
+    logits = torch.einsum("bkgd,bkTd->bkgT", qg, kf) * scale     # (B,KV,G,S)
     lens = torch.as_tensor(cache_len, device=q.device).reshape(-1).expand(B)
-    pos = torch.arange(n * split, device=q.device).reshape(n, split)
-    valid = pos[None] < lens[:, None, None]
-    if window > 0:
-        valid &= pos[None] >= (lens[:, None, None] - window)
-    valid = valid[:, None, None]                                # (B,1,1,n,s)
-    m = torch.where(valid, logits, NEG_INF).amax(dim=-1)         # (B,KV,G,n)
-    p = torch.where(valid, torch.exp(logits - m[..., None]), 0.0)
+    L = lens.clamp(0, S).long()
+    start = (L - window).clamp(min=0) if window > 0 else torch.zeros_like(L)
+    T = (L - start + tile - 1) // tile
+    r = torch.arange(cluster, device=q.device)
+    lo = start[:, None] + (T[:, None] * r // cluster) * tile       # (B,C)
+    hi = torch.minimum(start[:, None] + (T[:, None] * (r + 1) // cluster)
+                       * tile, L[:, None])
+    pos = torch.arange(S, device=q.device)
+    valid = (pos >= lo[..., None]) & (pos < hi[..., None])         # (B,C,S)
+    valid = valid[:, None, None]                                  # (B,1,1,C,S)
+    s = logits[:, :, :, None, :]
+    m = torch.where(valid, s, NEG_INF).amax(dim=-1)               # (B,KV,G,C)
+    p = torch.where(valid, torch.exp(s - m[..., None]), 0.0)
     l = p.sum(dim=-1)
-    acc = torch.einsum("bkgns,bknsd->bkgnd", p, vf)
+    if v_cache.dtype == torch.bfloat16:
+        p_hi = p.to(torch.bfloat16).float()
+        p = p_hi + (p - p_hi).to(torch.bfloat16).float()
+    acc = torch.einsum("bkgcs,bksd->bkgcd", p, vf)
     full = l > 0
     big = torch.where(full, m, NEG_INF).amax(dim=-1, keepdim=True)
     w = torch.where(full, torch.exp(m - big), 0.0)
     total = (w * l).sum(dim=-1)
-    out = torch.einsum("bkgn,bkgnd->bkgd", w, acc)
+    out = torch.zeros(B, KV, G, D, device=q.device)
+    for rank in range(cluster):
+        wr = w[..., rank, None]
+        out = out + torch.where(wr != 0, wr * acc[..., rank, :], 0.0)
     out = out / torch.where(total == 0, 1.0, total)[..., None]
     return out.reshape(B, H, D).to(q.dtype)
 
