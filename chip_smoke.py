@@ -36,17 +36,21 @@ Phases (any failure exits non-zero and prints no result):
                log-sum-exp (held against `ref.attention_fwd`, and at
                every served and training shape, each launch plan
                `fwd_plans` weighs, against `ref.attention_fwd_tiled`
-               within FLASH_TILED_TOL and timed), against
+               within FLASH_TILED_TOL (float32: F32_TOL, the kernel's
+               split TF32 products) and timed), against
                `ref.attention_bwd`, every case called twice and equal bit
                for bit, beside SDPA's backward, every launch plan its rule
                weighs checked and timed, and its parts (prep, dq, dkdv)
                timed alone at `BWD_PARTS`, with the
-               forward's training form timed at each bf16 one (Whisper's
-               encoder and cross attention non-causal, Sq != Sk); the
-               attention kernels also at the zoo's head dims 16 and 32 in
-               float32 (decode timed at the zoo's cache too) and at MLA's
-               96 (v padded from 64); the SSD scan also timed at its
-               training form (2048 steps, no final state); a gradient
+               forward's training form timed at each bf16 one, at
+               train-100m's and at MLA's float32 one (Whisper's encoder
+               and cross attention non-causal, Sq != Sk); the attention
+               kernels also at the zoo's head dims 16 and 32 in float32
+               (the forward timed at the zoo's training and serving
+               shapes, `ZOO_FLASH`, decode at the zoo's cache) and at
+               MLA's 96 (v padded from 64); every float32 forward also
+               against `ref.attention_fwd_tiled`; the SSD scan also timed
+               at its training form (2048 steps, no final state); a gradient
                through each autograd `Function` of
                `kernels.ops` is held against autograd through the plain
                version (`check_autograd`);
@@ -273,6 +277,12 @@ ATTN_SHAPES = {"yi-9b": (32, 4, 128, 0), "zamba2-2.7b": (32, 32, 80, 4096),
 MLA_ATTN = ("minicpm3-4b", 40, 96, 64)
 # the zoo's attention (repro's ladder: head dims 16, 16, 32; float32)
 ZOO_ATTN = {"zoo-s": (2, 2, 16), "zoo-m": (4, 4, 16), "zoo-l": (4, 4, 32)}
+# the zoo's float32 flash forwards, each checked and timed: its training
+# form (a batch of 16 sequences of 32 tokens, with the log-sum-exp) and a
+# served prefill (one 16-token prompt): (label, B, H, S, D, lse)
+ZOO_FLASH = tuple((f"{a} train", 16, H, 32, D, True)
+                  for a, (H, _, D) in ZOO_ATTN.items()) + tuple(
+    (f"{a} serve", 1, H, 16, D, False) for a, (H, _, D) in ZOO_ATTN.items())
 # the zoo's decode as the end-to-end example's loop makes it: one
 # request, a 16-token prompt in a cache of 16 + 64 slots, timed at the
 # 4th of its 8 steps
@@ -742,8 +752,6 @@ def check_trie_plan(rec):
 
 
 def _fwd_plan_str(p) -> str:
-    if p.kernel == "flash_kernel":
-        return f"{p.kernel}: {p.rows} rows x {p.keys} keys, grid {p.grid}"
     return (f"{p.kernel}: {p.consumers} consumer warpgroup(s), {p.rows} "
             f"rows x {p.keys} keys, {p.stages} stages, {p.swizzle} B "
             f"swizzle, grid {p.grid}, {p.smem} shared bytes")
@@ -758,6 +766,30 @@ def _fwd_plan_of(q, k, causal: bool = True) -> str:
     return _fwd_plan_str(fwd_plan(B, H, k.shape[1], Sq, k.shape[2], D,
                                   causal, q.element_size(),
                                   _build.sm_count(q.device.index)))
+
+
+def _check_f32_tiled(label, q, k, v, out, lse=None, causal: bool = True,
+                     window: int = 0) -> float:
+    """A float32 forward's output (and log-sum-exp, where given) against
+    `ref.attention_fwd_tiled` at the key tile `fwd_plan` picks: the
+    kernel's split TF32 products, within F32_TOL; -> the max abs error."""
+    from repro_torch.kernels import _build, ref
+    from repro_torch.kernels.flash_attention import fwd_plan
+
+    B, H, Sq, D = q.shape
+    plan = fwd_plan(B, H, k.shape[1], Sq, k.shape[2], D, causal, 4,
+                    _build.sm_count(q.device.index))
+    want_o, want_lse = ref.attention_fwd_tiled(
+        q, k, v, causal=causal, window=window, keys=plan.keys)
+    err = check_close(f"flash_attention {label} against "
+                      f"attention_fwd_tiled", out, want_o, F32_TOL)
+    msg = f"o {err_str(out, want_o, F32_TOL)}"
+    if lse is not None:
+        check_close(f"flash_attention lse {label} against "
+                    f"attention_fwd_tiled", lse, want_lse, F32_TOL)
+        msg += f"; lse {err_str(lse, want_lse, F32_TOL)}"
+    log(f"    against attention_fwd_tiled ({plan.keys} keys a tile): {msg}")
+    return err
 
 
 def _time_flash(rec, label, q, k, v, lse: bool = False,
@@ -869,6 +901,9 @@ def check_flash(rec):
             log(f"  flash_attention {arch} {str(dt)[6:]} (1,{H},{S},{D}) kv "
                 f"{KV} window={window} ({_fwd_plan_of(q, k)}): "
                 f"{err_str(out, want, tol)}")
+            if dt == torch.float32:
+                err = max(err, _check_f32_tiled(arch, q, k, v, out,
+                                                window=window))
             if dt != torch.bfloat16 or S != PROMPT or window:
                 continue
             case = _time_flash(rec, f"{arch} (1,{H},{S},{D}) kv {KV}", q, k, v)
@@ -894,6 +929,8 @@ def check_flash(rec):
         log(f"  flash_attention {arch} MLA {str(dt)[6:]} (1,{H},{S},{D}) kv "
             f"{H}, v padded {dv} -> {D} ({_fwd_plan_of(q, k)}): "
             f"{err_str(out, want, tol)}")
+        if dt == torch.float32:
+            err = max(err, _check_f32_tiled(f"{arch} MLA", q, k, v, out))
         if dt == torch.bfloat16 and S == PROMPT:
             _time_flash(rec, f"{arch} MLA (1,{H},{S},{D}) kv {H}", q, k, v)
     # the serve-media phase's shapes: llava's image prefill, whisper's
@@ -928,6 +965,9 @@ def check_flash(rec):
             err = max(err, check_close("flash_attention", out, want, tol))
             log(f"  flash_attention non-causal {str(dt)[6:]} ({B},{H},{Sq},"
                 f"{D}) kv {KV} Sk={Sk}: {err_str(out, want, tol)}")
+            if dt == torch.float32:
+                err = max(err, _check_f32_tiled("non-causal", q, k, v, out,
+                                                causal=False))
     # the zoo's head dims, float32 (the zoo's dtype) and bf16, ragged too
     for arch, (H, KV, D) in ZOO_ATTN.items():
         for dt, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
@@ -941,6 +981,22 @@ def check_flash(rec):
                 err = max(err, check_close("flash_attention", out, want, tol))
                 log(f"  flash_attention {arch} {str(dt)[6:]} (2,{H},{S},{D})"
                     f" kv {KV}: {err_str(out, want, tol)}")
+                if dt == torch.float32:
+                    err = max(err, _check_f32_tiled(arch, q, k, v, out))
+    # the zoo's float32 forwards as its training and serving paths make
+    # them, checked and timed (every key tile the rule weighs)
+    for label, B, H, S, D, lse in ZOO_FLASH:
+        q, k, v = (torch.randn(B, H, S, D, generator=g, device="cuda")
+                   for _ in range(3))
+        out, lv = flash_attention(q, k, v, causal=True, return_lse=True)
+        torch.cuda.synchronize()
+        want, want_lse = ref.attention_fwd(q, k, v, causal=True)
+        err = max(err, check_close("flash_attention", out, want, F32_TOL))
+        check_close("flash_attention lse", lv, want_lse, F32_TOL)
+        log(f"  flash_attention {label} float32 ({B},{H},{S},{D}) "
+            f"({_fwd_plan_of(q, k)}): {err_str(out, want, F32_TOL)}; lse "
+            f"{err_str(lv, want_lse, F32_TOL)}")
+        _time_flash(rec, f"{label} ({B},{H},{S},{D})", q, k, v, lse=lse)
     rec["kernels"]["flash_attention"]["max_abs_err"] = err
     log(f"flash_attention: ok, max abs err {err:.3g}")
 
@@ -1045,6 +1101,7 @@ def check_flash_bwd(rec):
         check_close("flash_attention lse", lse, want_lse, F32_TOL)
         if dt == torch.float32:  # float32 forwards: the output as well
             err = max(err, check_close("flash_attention", o, want_o, tol))
+            err = max(err, _check_f32_tiled(label, q, k, v, o, lse, **mask))
         del want_o
         got = flash_attention_bwd(q, k, v, o, lse, do, **mask)
         again = flash_attention_bwd(q, k, v, o, lse, do, **mask)
@@ -1073,7 +1130,7 @@ def check_flash_bwd(rec):
         del want
         if label.startswith("small"):
             continue
-        if dt == torch.bfloat16 or label == "train-100m":
+        if not label.startswith("zoo"):  # check_flash times the zoo's
             # the training form of the forward, too
             _time_flash(rec, f"{label} {shape}", q, k, v, lse=True,
                         causal=causal)
@@ -1721,7 +1778,7 @@ def _flash_parts(rec):
                     ext.flash_attention(
                         q.data_ptr(), k.data_ptr(), v.data_ptr(),
                         o.data_ptr(), 0, B, H, KV, S, S, D, D ** -0.5, 1, 0,
-                        fmod.DTYPES[torch.bfloat16], plan.rows,
+                        fmod.DTYPES[torch.bfloat16], plan.rows, plan.keys,
                         torch.cuda.current_stream().cuda_stream)
 
                 us = 1e3 * graph_ms(call)

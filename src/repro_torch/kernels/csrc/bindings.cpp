@@ -18,7 +18,7 @@ int repro_trie_plan(const void*, const void*, const void*, const void*,
                     int, int, int, void*, void*, void*, void*, void*);
 int repro_flash_attention(const void*, const void*, const void*, void*, void*,
                           int, int, int, int, int, int, float, int, int, int,
-                          int, void*);
+                          int, int, void*);
 double repro_flash_encode_ns(const void*, const void*, const void*, int, int,
                              int, int, int, int, int, int);
 int repro_flash_attention_bwd(const void*, const void*, const void*,
@@ -76,11 +76,11 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("flash_attention",
         [](ptr q, ptr k, ptr v, ptr o, ptr lse, int B, int H, int KV, int Sq,
            int Sk, int D, float scale, int causal, int window, int dtype,
-           int rows, ptr stream) {
+           int rows, int keys, ptr stream) {
           check(repro_flash_attention(P(q), P(k), P(v), P(o),
                                       lse ? P(lse) : nullptr, B, H, KV, Sq,
                                       Sk, D, scale, causal, window, dtype,
-                                      rows, P(stream)),
+                                      rows, keys, P(stream)),
                 "flash_attention");
         });
   m.def("flash_encode_ns",

@@ -12,18 +12,20 @@
 //                   the kernel as a __grid_constant__ parameter;
 //   wgmma           the fence, commit and wait of the asynchronous
 //                   warpgroup products, the shared-memory matrix
-//                   descriptor, and m64nNk16 bf16 -> float32 in two forms:
-//                   A and B from shared memory (SS) and A from registers
-//                   (RS), at N = 16, 32, 64, 80, 96 and 128;
+//                   descriptor, m64nNk16 bf16 -> float32 and m64nNk8 tf32
+//                   -> float32, each in two forms: A and B from shared
+//                   memory (SS) and A from registers (RS), at N = 16, 32,
+//                   64, 80, 96 and 128;
 //   setmaxnreg      moving registers from a producer warpgroup to the
 //                   consumer warpgroups.
 //
 // Only sm_90a has wgmma and setmaxnreg; TMA and mbarriers work on sm_90.
 // The shared-memory layouts are the swizzled ones that TMA writes and
 // wgmma reads: a tile of R rows is stored as column blocks of ``atom``
-// elements (16, 32 or 64 bf16: 32, 64 or 128 bytes a row, the swizzle
-// span), each block R rows of atom elements, 16-byte chunks of a row
-// XOR-permuted by the row's position in its group of 8.  Both sides agree
+// elements (16, 32 or 64 bf16, 16 or 32 float32: 32, 64 or 128 bytes a
+// row, the swizzle span), each block R rows of atom elements, 16-byte
+// chunks of a row XOR-permuted by the row's position in its group of 8
+// (chunk c of row r at chunk c ^ (r % 8) of 128-byte rows).  Both sides agree
 // on the permutation when the swizzle mode of the map and of the
 // descriptor match and every tile starts on a 1024-byte boundary.
 #pragma once
@@ -185,7 +187,7 @@ __device__ __forceinline__ void fence_regs(uint32_t (&d)[R]) {
   for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
-// Swizzle span in bytes of a row of ``atom`` bf16 elements, and the
+// Swizzle span in bytes of a row of ``atom`` elements, and the
 // descriptor's layout code for it (1: 128 B, 2: 64 B, 3: 32 B).
 __host__ __device__ constexpr int layout_code(int span_bytes) {
   return span_bytes == 128 ? 1 : span_bytes == 64 ? 2 : 3;
@@ -273,6 +275,51 @@ REPRO_WGMMA(96, 48, 48, 49, 50, 51, 52, 48, 49, 50, 51, 52, 53, 54)
 REPRO_WGMMA(128, 64, 64, 65, 66, 67, 68, 64, 65, 66, 67, 68, 69, 70)
 
 #undef REPRO_WGMMA
+
+// wgmma.mma_async m64nNk8, tf32 operands (float32 registers or shared
+// words whose low 13 mantissa bits are zero), float32 accumulators d in
+// the layout of Wgmma<N>.  Both operands K-major only (the transpose
+// immediates are the 16-bit types'): a row of A or B holds 8 consecutive
+// k of one m or n, 32 bytes, as a k16 step of bf16 does.
+//   ss: A (64 x 8) and B (N x 8) from shared memory by descriptors;
+//   rs: A from registers, a[4] of warp w: rows 16 w + lane / 4 (a0, a2)
+//       and + 8 (a1, a3), k = lane % 4 (a0, a1) and + 4 (a2, a3).
+template <int N>
+struct WgmmaTf32;
+
+#define REPRO_WGMMA_TF32(N, R, A, B, S, RA0, RA1, RA2, RA3, RB, RS)                         \
+  template <>                                                                              \
+  struct WgmmaTf32<N> {                                                                    \
+    static __device__ __forceinline__ void ss(float (&d)[R], uint64_t a, uint64_t b,       \
+                                              int scale_d) {                               \
+      asm volatile(                                                                        \
+          "{\n.reg .pred p;\nsetp.ne.b32 p, %" #S ", 0;\n"                                 \
+          "wgmma.mma_async.sync.aligned.m64n" #N "k8.f32.tf32.tf32 {" REPRO_WG_S##R        \
+          "}, %" #A ", %" #B ", p, 1, 1;\n}\n"                                              \
+          : REPRO_WG_F##R(d)                                                               \
+          : "l"(a), "l"(b), "r"(scale_d));                                                 \
+    }                                                                                      \
+    static __device__ __forceinline__ void rs(float (&d)[R], const uint32_t (&a)[4],       \
+                                              uint64_t b, int scale_d) {                   \
+      asm volatile(                                                                        \
+          "{\n.reg .pred p;\nsetp.ne.b32 p, %" #RS ", 0;\n"                                \
+          "wgmma.mma_async.sync.aligned.m64n" #N "k8.f32.tf32.tf32 {" REPRO_WG_S##R        \
+          "}, {%" #RA0 ", %" #RA1 ", %" #RA2 ", %" #RA3 "}, %" #RB ", p, 1, 1;\n}\n"        \
+          : REPRO_WG_F##R(d)                                                               \
+          : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));             \
+    }                                                                                      \
+  };
+
+// (N, registers, then the operand numbers that follow the R outputs:
+// ss: a, b, scale_d; rs: a0..a3, b, scale_d)
+REPRO_WGMMA_TF32(16, 8, 8, 9, 10, 8, 9, 10, 11, 12, 13)
+REPRO_WGMMA_TF32(32, 16, 16, 17, 18, 16, 17, 18, 19, 20, 21)
+REPRO_WGMMA_TF32(64, 32, 32, 33, 34, 32, 33, 34, 35, 36, 37)
+REPRO_WGMMA_TF32(80, 40, 40, 41, 42, 40, 41, 42, 43, 44, 45)
+REPRO_WGMMA_TF32(96, 48, 48, 49, 50, 48, 49, 50, 51, 52, 53)
+REPRO_WGMMA_TF32(128, 64, 64, 65, 66, 64, 65, 66, 67, 68, 69)
+
+#undef REPRO_WGMMA_TF32
 
 }  // namespace sm90
 

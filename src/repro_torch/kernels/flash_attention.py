@@ -41,16 +41,23 @@ FWD_LAUNCH_REGS = {2: 168, 1: 128}
 FWD_MAX_STAGES = 4
 # query rows from which the bf16 forward takes two consumer warpgroups
 FWD_LONG = 1024
-FWD_F32_ROWS, FWD_F32_KEYS = 16, 32  # csrc kFlashBlockQ, kTileKeys
+# the float32 forward's tiles (csrc Tf32Tiles<D, BK>): 64 query rows a
+# block, key tiles of 32 or 64; Q's hi and lo beside a ring of stages of
+# five tiles (K with its hi in place, K's lo, V, V^T's hi and lo), as
+# many as fit one block an SM up to FWD_MAX_STAGES, two at least
+FWD_F32_ROWS = 64
+FWD_F32_KEYS = (32, 64)
+FWD_F32_BUDGET = 232448
 
 
 class FwdPlan(NamedTuple):
     """How a forward launch cuts the work.  ``kernel`` is
-    ``flash_kernel_wgmma`` (bf16) or ``flash_kernel`` (float32, the CUDA
-    cores); a block owns ``rows`` query rows of one (batch, head) and walks
-    its keys ``keys`` at a time through a ring of ``stages`` K/V stages
-    stored with a ``swizzle``-byte swizzle, with ``consumers`` warpgroups
-    of 64 rows behind one producer warpgroup; grid ``grid`` = (B H, query
+    ``flash_kernel_wgmma`` (bf16) or ``flash_kernel_tf32`` (float32); a
+    block owns ``rows`` query rows of one (batch, head) and walks its keys
+    ``keys`` at a time through a ring of ``stages`` K/V stages (Q and K
+    stored with a ``swizzle``-byte swizzle), with ``consumers`` warpgroups
+    of 64 rows behind a producer (bf16: a warpgroup; float32: one thread
+    of the warpgroup that splits each tile); grid ``grid`` = (B H, query
     tiles), the last query tile dispatched first.  ``smem``: dynamic
     shared bytes of a block; ``regs``: registers of its threads after
     setmaxnreg (0 for the float32 kernel, which sets none)."""
@@ -79,6 +86,28 @@ def fwd_tiles(D: int, consumers: int):
     return atom, stages, 1024 + q_bytes + stages * 2 * tile + 128
 
 
+def fwd_f32_tiles(D: int, keys: int):
+    """(atom, stages, smem) of the float32 forward at head dim ``D`` and
+    ``keys``-key tiles: the floats of a swizzled row of Q and K (32 where
+    they divide D, else 16), the ring's stages (up to `FWD_MAX_STAGES`
+    that fit `FWD_F32_BUDGET`; the kernel takes two at least), and the
+    dynamic shared bytes with 1024 to align the tiles and 128 for the
+    mbarriers, as `csrc/flash_attention.cu` tf32_stages and Tf32Tiles
+    compute them."""
+    atom = 32 if D % 32 == 0 else 16
+    q_bytes = 2 * FWD_F32_ROWS * D * 4
+    stage = 5 * keys * D * 4
+    stages = min(FWD_MAX_STAGES,
+                 (FWD_F32_BUDGET - 1024 - 128 - q_bytes) // stage)
+    return atom, stages, 1024 + q_bytes + stages * stage + 128
+
+
+def fwd_f32_keys(D: int) -> tuple:
+    """The key tiles the float32 forward is compiled for at head dim
+    ``D``: those whose ring holds two stages."""
+    return tuple(n for n in FWD_F32_KEYS if fwd_f32_tiles(D, n)[1] >= 2)
+
+
 def fwd_plan(B: int, H: int, KV: int, Sq: int, Sk: int, D: int,
              causal: bool, itemsize: int, sms: int) -> FwdPlan:
     """The forward's launch plan for these shapes on ``sms`` SMs.
@@ -91,13 +120,17 @@ def fwd_plan(B: int, H: int, KV: int, Sq: int, Sk: int, D: int,
     (1, 32, 2048, 80) 0.0749 ms against 0.1211, LLaVA's 3328-row image
     prefill 0.3172 against 0.3929), below 1,024 rows 64 ran 1.05-1.33x
     faster (Qwen2's (1, 64, 448, 128) 0.0200 against 0.0233), save
-    Zamba2's (1, 32, 448, 80), 0.0131 against 0.0130.  float32: the
-    CUDA-core kernel, 16 rows and 32-key tiles.  Shapes only."""
+    Zamba2's (1, 32, 448, 80), 0.0131 against 0.0130.
+
+    float32 (``itemsize`` 4): `flash_kernel_tf32`, 64 rows a block and
+    32-key tiles.  The kernels phase times 64-key tiles too where two
+    stages of them fit (D <= 64): never faster (NVIDIA H100 80GB HBM3,
+    700 W: train-100m's (4, 8, 128, 64) 0.0092 ms against 0.0092; the
+    zoo's 0.0041-0.0055 against 0.0036-0.0047): the shapes on the float32
+    paths hold 16-128 keys, so a longer tile only adds masked keys or
+    halves the ring.  Shapes only."""
     if itemsize != 2:
-        smem = 4 * (FWD_F32_ROWS * D + FWD_F32_KEYS * (D + 1) +
-                    FWD_F32_KEYS * D)
-        return FwdPlan("flash_kernel", FWD_F32_ROWS, FWD_F32_KEYS, 1, 0, 0,
-                       (B * H, -(-Sq // FWD_F32_ROWS)), smem, 0)
+        return _tf32_plan(B * H, Sq, D, FWD_F32_KEYS[0])
     return _wgmma_plan(B * H, Sq, D, 2 if Sq >= FWD_LONG else 1)
 
 
@@ -110,13 +143,22 @@ def _wgmma_plan(slabs: int, Sq: int, D: int, nwg: int) -> FwdPlan:
                    smem, 128 * (producer + nwg * consumer))
 
 
+def _tf32_plan(slabs: int, Sq: int, D: int, keys: int) -> FwdPlan:
+    """The float32 kernel's plan with ``keys``-key tiles."""
+    atom, stages, smem = fwd_f32_tiles(D, keys)
+    return FwdPlan("flash_kernel_tf32", FWD_F32_ROWS, keys, stages,
+                   4 * atom, 1, (slabs, -(-Sq // FWD_F32_ROWS)), smem, 0)
+
+
 def fwd_plans(B: int, H: int, KV: int, Sq: int, Sk: int, D: int,
               causal: bool, itemsize: int, sms: int) -> list:
-    """The plan `fwd_plan` picks, then the one its rule passes over (bf16:
-    the other number of consumer warpgroups); float32 has one."""
+    """The plan `fwd_plan` picks, then the ones its rule passes over
+    (bf16: the other number of consumer warpgroups; float32: the other
+    key tile, where it is compiled)."""
     chosen = fwd_plan(B, H, KV, Sq, Sk, D, causal, itemsize, sms)
     if itemsize != 2:
-        return [chosen]
+        return [chosen] + [_tf32_plan(B * H, Sq, D, n)
+                           for n in fwd_f32_keys(D) if n != chosen.keys]
     return [chosen, _wgmma_plan(B * H, Sq, D, 3 - chosen.consumers)]
 
 
@@ -238,7 +280,7 @@ def _launch_fwd(q, k, v, out, lse, causal: bool, window: int,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         0 if lse is None else lse.data_ptr(), B, H, KV, Sq, Sk, D,
         D ** -0.5, int(causal), int(window), DTYPES[q.dtype], plan.rows,
-        _build.stream_of(q))
+        plan.keys, _build.stream_of(q))
     _build.count_launch("flash_attention")
 
 

@@ -73,42 +73,83 @@ def attention_fwd(q, k, v, *, causal: bool = True, window: int = 0):
     return attention(q, k, v, causal=causal, window=window), lse
 
 
+def tf32(x):
+    """Float32 ``x`` with its low 13 mantissa bits rounded away, to nearest
+    with ties away from zero (the bits plus 2^12, then the low 13 cleared):
+    the TF32 value `csrc/flash_attention.cu`'s float32 kernel feeds the
+    tensor cores (its ``tf32_round``), bit for bit."""
+    return ((x.contiguous().view(torch.int32) + 0x1000) & -0x2000).view(
+        torch.float32)
+
+
+def tf32_split(x):
+    """(hi, lo) = (tf32(x), tf32(x - hi)): hi + lo is x within 2^-21 of
+    |x| (x - hi is exact; lo keeps 11 of its bits)."""
+    hi = tf32(x)
+    return hi, tf32(x - hi)
+
+
+def _split_einsum(eq: str, a, b, products: int):
+    """``einsum(eq, a, b)`` of float32 operands as the float32 kernel
+    multiplies: both split (`tf32_split`), lo.hi + hi.lo + hi.hi with 3
+    ``products``, hi.hi alone with 1."""
+    ah, al = tf32_split(a)
+    bh, bl = tf32_split(b)
+    if products == 1:
+        return torch.einsum(eq, ah, bh)
+    if products != 3:
+        raise ValueError(f"products is 1 or 3, got {products}")
+    return (torch.einsum(eq, al, bh) + torch.einsum(eq, ah, bl)) + \
+        torch.einsum(eq, ah, bh)
+
+
 def attention_fwd_tiled(q, k, v, *, causal: bool = True, window: int = 0,
-                        keys: int):
-    """`attention_fwd` computed the way `csrc/flash_attention.cu`'s bf16
-    kernel computes it, walking the keys ``keys`` at a time
+                        keys: int, products: int = 3):
+    """`attention_fwd` computed the way `csrc/flash_attention.cu`'s kernels
+    compute it, walking the keys ``keys`` at a time
     (`flash_attention.fwd_plan`'s ``keys``): scores in float32 times the
     scale in log2 units (``D**-0.5`` times log2 e, a float32 product as the
     launcher forms it); per tile the running max ``m`` (from ``NEG_INF``),
     ``alpha = exp2(m_old - m)``, ``p = exp2(s - m)``; the row sum adds p in
-    float32 while the product with V takes p rounded to the operands'
-    dtype (bf16: the kernel's P fragment).  Masked scores are -inf (exp2
-    gives exactly 0); a tile's ragged tail holds no keys, as the kernel's
-    zero-filled rows are masked.  -> (o in q's dtype, lse float32 natural
-    log: ``(m + log2 l) ln 2``, ``NEG_INF`` for a row that sees no key)."""
+    float32.  bf16 operands: exact products, and P rounded to bf16 where it
+    meets V (the kernel's P fragment).  float32 operands: every product of
+    Q.K^T and of P.V split into TF32 parts as the float32 kernel's
+    tensor-core products are (`_split_einsum`, ``products`` 3; 1 gives one
+    TF32 product, which misses the float32 tolerance).  Masked scores are
+    -inf (exp2 gives exactly 0); a tile's ragged tail holds no keys, as
+    the kernel's zero-filled rows are masked.  -> (o in q's dtype, lse
+    float32 natural log: ``(m + log2 l) ln 2``, ``NEG_INF`` for a row that
+    sees no key)."""
     B, H, Sq, D = q.shape
     KV, Sk = k.shape[1], k.shape[2]
     G = H // KV
-    low = v.dtype if v.dtype == torch.bfloat16 else torch.float32
+    bf16 = v.dtype == torch.bfloat16
     scale_log2 = (torch.tensor(D ** -0.5, dtype=torch.float32) *
                   torch.tensor(1.4426950408889634, dtype=torch.float32))
     qg = q.reshape(B, KV, G, Sq, D).float()
     kf, vf = k.float(), v.float()
+
+    def product(eq, a, b):
+        if bf16:
+            return torch.einsum(eq, a, b)
+        return _split_einsum(eq, a, b, products)
+
     mask = _attn_mask(Sq, Sk, causal, window, q.device)
     m = torch.full((B, KV, G, Sq), NEG_INF, device=q.device)
     l = torch.zeros(B, KV, G, Sq, device=q.device)
     acc = torch.zeros(B, KV, G, Sq, D, device=q.device)
     for k0 in range(0, Sk, keys):
         t = slice(k0, k0 + keys)
-        s = torch.einsum("bkgqd,bkTd->bkgqT", qg, kf[:, :, t]) * scale_log2
+        s = product("bkgqd,bkTd->bkgqT", qg, kf[:, :, t]) * scale_log2
         if mask is not None:
             s = torch.where(mask[:, t], s, float("-inf"))
         mx = torch.maximum(m, s.amax(-1))
         alpha = torch.exp2(m - mx)
         p = torch.exp2(s - mx[..., None])
         l = l * alpha + p.sum(-1)
-        acc = acc * alpha[..., None] + torch.einsum(
-            "bkgqT,bkTd->bkgqd", p.to(low).float(), vf[:, :, t])
+        pv = p.to(torch.bfloat16).float() if bf16 else p
+        acc = acc * alpha[..., None] + product("bkgqT,bkTd->bkgqd", pv,
+                                               vf[:, :, t])
         m = mx
     empty = l == 0
     o = acc / torch.where(empty, 1.0, l)[..., None]

@@ -31,10 +31,11 @@ import torch
 
 from repro.kernels.flash_attention import flash_attention as pallas_flash
 from repro_torch.kernels import _build, ref
-from repro_torch.kernels.flash_attention import (FWD_BUDGET, FWD_KEYS,
-                                                 FWD_LAUNCH_REGS, FWD_LONG,
-                                                 FWD_REGS, FWD_ROWS,
-                                                 HEAD_DIMS,
+from repro_torch.kernels.flash_attention import (FWD_BUDGET, FWD_F32_ROWS,
+                                                 FWD_KEYS, FWD_LAUNCH_REGS,
+                                                 FWD_LONG, FWD_REGS,
+                                                 FWD_ROWS, HEAD_DIMS,
+                                                 fwd_f32_keys, fwd_f32_tiles,
                                                  fwd_plan, fwd_plans,
                                                  fwd_tiles)
 
@@ -170,7 +171,9 @@ def _timed_shapes():
     out += [(label, B, H, KV, Sq, Sk, D, causal,
              2 if dt == "bfloat16" else 4)
             for label, dt, B, H, KV, Sq, Sk, D, causal in cs.BWD_SHAPES
-            if dt == "bfloat16" or label == "train-100m"]
+            if not label.startswith("zoo")]
+    out += [(label, B, H, H, S, S, D, True, 4)
+            for label, B, H, S, D, _ in cs.ZOO_FLASH]
     return out
 
 
@@ -196,8 +199,13 @@ def test_fwd_plan_at_every_timed_shape(shape):
     plan = fwd_plan(B, H, KV, Sq, Sk, D, causal, itemsize, SMS)
     assert plan.grid == (B * H, -(-Sq // plan.rows))
     if itemsize == 4:
-        assert plan.kernel == "flash_kernel" and plan.regs == 0
-        assert plan.smem <= 48 * 1024  # static shared memory
+        assert plan.kernel == "flash_kernel_tf32" and plan.regs == 0
+        assert (plan.rows, plan.consumers) == (FWD_F32_ROWS, 1)
+        assert plan.keys in fwd_f32_keys(D)
+        atom, stages, smem = fwd_f32_tiles(D, plan.keys)
+        assert (plan.swizzle, plan.stages, plan.smem) == (4 * atom, stages,
+                                                          smem)
+        assert 2 <= plan.stages <= 4 and plan.smem <= 232448
         return
     assert plan.kernel == "flash_kernel_wgmma"
     nwg = plan.consumers
@@ -221,13 +229,17 @@ def test_fwd_plan_at_every_timed_shape(shape):
 
 def test_fwd_plans_weigh_both_warpgroup_counts():
     """`fwd_plans` lists the chosen plan first, then the other number of
-    consumer warpgroups at the same shape (bf16), and one plan in float32."""
+    consumer warpgroups at the same shape (bf16), and in float32 the
+    other key tile where two stages of it fit."""
     for Sq, first in ((448, 1), (2048, 2)):
         plans = fwd_plans(1, 32, 4, Sq, Sq, 128, True, 2, SMS)
         assert [p.consumers for p in plans] == [first, 3 - first]
         assert plans[0] == fwd_plan(1, 32, 4, Sq, Sq, 128, True, 2, SMS)
         assert plans[1].grid == (32, -(-Sq // plans[1].rows))
-    assert len(fwd_plans(4, 8, 8, 128, 128, 64, True, 4, SMS)) == 1
+    assert [p.keys for p in fwd_plans(4, 8, 8, 128, 128, 64, True, 4,
+                                      SMS)] == [32, 64]
+    assert [p.keys for p in fwd_plans(2, 4, 4, 100, 100, 96, True, 4,
+                                      SMS)] == [32]
 
 
 def _source(name):
