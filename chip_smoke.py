@@ -1035,31 +1035,12 @@ BWD_SMALL = ((8, 2, 100, 100, 64, True, 0), (8, 2, 100, 100, 64, True, 48),
 BWD_PARTS = ("yi-9b train", "zamba2-2.7b train", "train-100m")
 
 
-def _bwd_plans(fmod, B, H, KV, Sq, Sk, D, causal, itemsize, sms):
-    """The plan `bwd_plan` picks, then the plans its rule passes over: in
-    bf16 every dkdv step of query rows compiled at D; in float32 every
-    tile (dq rows and dkdv keys alike)."""
-    chosen = fmod.bwd_plan(B, H, KV, Sq, Sk, D, causal, itemsize, sms)
-    plans = [chosen]
-    if itemsize == 2:
-        for rows in fmod.BWD_MMA_ROWS:
-            if rows != chosen.kv_rows and (
-                    rows == 32 or D in fmod.BWD_MMA_ROWS64_DIMS):
-                plans.append(chosen._replace(kv_rows=rows))
-    else:
-        for t in fmod.BWD_F32_TILES:
-            p = chosen._replace(dq_rows=t, kv_keys=t,
-                                dq_grid=(B * H, -(-Sq // t)),
-                                kv_grid=(B * KV, -(-Sk // t)))
-            if p not in plans:
-                plans.append(p)
-    return plans
-
-
 def _bwd_plan_str(p) -> str:
     return (f"dq {p.dq_rows} rows x {p.dq_keys} keys, grid {p.dq_grid}; "
-            f"dkdv {p.kv_keys} keys x {p.kv_rows} rows, {p.heads} heads a "
-            f"block, cluster {p.cluster}, grid {p.kv_grid}")
+            f"dkdv {p.kv_keys} keys x {p.kv_rows} rows"
+            + (f", {p.stages} stages" if p.stages else "")
+            + f", {p.heads} heads a block, cluster {p.cluster}, grid "
+            f"{p.kv_grid}")
 
 
 def check_flash_bwd(rec):
@@ -1119,6 +1100,13 @@ def check_flash_bwd(rec):
                                                   else "")
         plan = fmod.bwd_plan(B, H, KV, Sq, Sk, D, causal, q.element_size(),
                              sms)
+        if plan.cluster > 1:  # bf16: what the card holds of its clusters
+            held = fmod.bwd_max_clusters(0, D, plan)
+            rec.setdefault("bwd_max_clusters", {})[
+                f"D {D}, {_bwd_plan_str(plan)}"] = held
+            log(f"  flash_attention_bwd dkdv clusters of {plan.cluster} "
+                f"at D {D}, {plan.kv_keys} keys, {plan.stages} stages: "
+                f"{held} at once (cudaOccupancyMaxActiveClusters)")
         log(f"  flash_attention_bwd {label} {dts} {shape} causal={causal} "
             f"({_bwd_plan_str(plan)}): lse "
             f"{err_str(lse, want_lse, F32_TOL)}; "
@@ -1166,7 +1154,7 @@ def check_flash_bwd(rec):
 
 def _time_bwd_plans(rec, fmod, label, shape, q, k, v, o, lse, do, want,
                     tol, sms, causal, parts):
-    """At a training shape: every launch plan `_bwd_plans` lists, held
+    """At a training shape: every launch plan `bwd_plans` lists, held
     against ``want`` and timed whole, then with ``parts`` the chosen
     plan's parts alone (prep; dq and dkdv from the prep's D), each by
     `graph_ms`."""
@@ -1174,8 +1162,8 @@ def _time_bwd_plans(rec, fmod, label, shape, q, k, v, o, lse, do, want,
 
     B, H, Sq, D = q.shape
     KV, Sk = k.shape[1], k.shape[2]
-    plans = _bwd_plans(fmod, B, H, KV, Sq, Sk, D, causal, q.element_size(),
-                       sms)
+    plans = fmod.bwd_plans(B, H, KV, Sq, Sk, D, causal, q.element_size(),
+                           sms)
     times = {}
     for i, plan in enumerate(plans):
         out = fmod._launch_bwd(q, k, v, o, lse, do, causal, 0, plan)

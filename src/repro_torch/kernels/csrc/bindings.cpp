@@ -25,7 +25,8 @@ int repro_flash_attention_bwd(const void*, const void*, const void*,
                               const void*, const void*, const void*, void*,
                               void*, void*, void*, int, int, int, int, int,
                               int, float, int, int, int, int, int, int, int,
-                              int, int, void*);
+                              int, int, int, void*);
+int repro_flash_bwd_max_clusters(int, int, int, int, int, int*);
 int repro_decode_attention(const void*, const void*, const void*, const void*,
                            void*, int, int, int, int, int, int, int, int, int,
                            float, int, int, void*);
@@ -93,15 +94,23 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
         [](ptr q, ptr k, ptr v, ptr o, ptr lse, ptr dout, ptr delta, ptr dq,
            ptr dk, ptr dv, int B, int H, int KV, int Sq, int Sk, int D,
            float scale, int causal, int window, int dtype, int dq_rows,
-           int kv_keys, int kv_rows, int heads, int cluster, int parts,
-           ptr stream) {
+           int kv_keys, int kv_rows, int heads, int cluster, int stages,
+           int parts, ptr stream) {
           check(repro_flash_attention_bwd(P(q), P(k), P(v), P(o), P(lse),
                                           P(dout), P(delta), P(dq), P(dk),
                                           P(dv), B, H, KV, Sq, Sk, D, scale,
                                           causal, window, dtype, dq_rows,
                                           kv_keys, kv_rows, heads, cluster,
-                                          parts, P(stream)),
+                                          stages, parts, P(stream)),
                 "flash_attention_bwd");
+        });
+  m.def("flash_bwd_max_clusters",
+        [](int D, int keys, int rows, int stages, int cluster) {
+          int n = 0;
+          check(repro_flash_bwd_max_clusters(D, keys, rows, stages, cluster,
+                                             &n),
+                "flash_bwd_max_clusters");
+          return n;
         });
   m.def("decode_attention",
         [](ptr q, ptr kc, ptr vc, ptr lens, ptr o, int B, int H, int KV,

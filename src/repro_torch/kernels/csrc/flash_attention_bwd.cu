@@ -24,13 +24,13 @@
 //   head (one, for every G <= 8) and the G / heads blocks of one (key tile,
 //   kv head) form a thread block cluster: each puts its float32 partials
 //   in its own shared memory, and after cluster.sync() rank r sums a
-//   1 / cluster share of the rows over ranks 0.. in rank order through
+//   1 / cluster share of the keys over ranks 0.. in rank order through
 //   distributed shared memory and writes them.  In float32 a block sums
 //   all G heads of its kv head itself, in head order.
 //
 // S and dP are recomputed in both kernels (seven products, not five): the
 // five-product form sums dQ across the dkdv blocks, which takes atomics
-// (not deterministic) or ordered semaphores, left to the wgmma design.
+// (not deterministic) or ordered semaphores, left to a later design.
 //
 // The masks are the forward's (causal, and a window that keeps keys
 // qpos - window < kpos <= qpos); rows and keys past the ends of ragged
@@ -40,8 +40,44 @@
 // kv heads, causal, five products over 2,098,176 causal pairs are
 // 10 x pairs x 128 x 32 x 2 = 172 GFLOP, 0.174 ms at the bf16 tensor cores'
 // 989 TFLOP/s, against ~151 MB of q, o, dO, dQ, k, v, dK and dV, 0.045 ms
-// at 3.35 TB/s: operations, so bf16 runs on the tensor cores.  What held
-// the previous design back, and what this one does about it:
+// at 3.35 TB/s: operations, so bf16 runs on the tensor cores.  dkdv does
+// four of the seven products (S^T, dP^T, dV, dK: 137.5 GFLOP at Yi-9B,
+// 0.139 ms at that rate), so it is the part the design has to feed.  On
+// an NVIDIA H100 80GB HBM3 at 700 W dkdv now reads 0.43-0.44 ms there,
+// 0.32 of that rate, and the whole backward 0.85 ms (PERF.md §6): the
+// products still wait on each other within a warpgroup (no next step's
+// scores are issued during this step's dV and dK), and dq (0.39-0.40 ms,
+// mma.sync) is as large a part now.
+//
+// bf16 dkdv (flash_bwd_dkdv_wgmma, on Hopper's units, sm90.cuh):
+//  - warp specialisation, as the bf16 forward: warpgroup 0 is the
+//    producer, brought down to 24 registers (setmaxnreg); its thread 0
+//    issues every copy by TMA (K and V of the block's key tile once, then
+//    q and dO of each query step into a ring of 2-4 stages with "full" and
+//    "empty" mbarriers), its warp 1 stores each step's lse and D rows
+//    beside them; one or two consumer warpgroups own 64 keys each (a
+//    64- or 128-key tile) and take the registers it gave up;
+//  - a step of QR (32 or 64) query rows in a consumer: S^T = K q^T and
+//    dP^T = V dO^T on wgmma m64n{QR}k16, both operands K-major from their
+//    swizzled tiles, issued together; P^T = 2^(S^T scale log2 e -
+//    lse log2 e) while dP^T runs, rounded to bf16 into the A fragment of
+//    dV += P^T dO (the S^T accumulator's layout is that fragment, as the
+//    forward's P); dS^T = P^T (dP^T - D) while dV runs, then dK += dS^T q,
+//    both on wgmma m64n{D}k16 with A from registers and dO, q read
+//    MN-major; the stage goes back to the producer once both are done.
+//    The 64-row step at D = 128 computes P^T and dS^T after both scores,
+//    which needs fewer registers (kTogether), and is built with two
+//    consumers only: with one, its 232 registers a thread spill;
+//  - dK and dV stay in registers across the walk (D / 2 floats each a
+//    thread); with G > 1 the cluster's sum goes through the freed ring.
+// The old design (mma.sync m16n8k16 fed by ldmatrix, four warps of 16
+// keys, two-stage cp.async) held 128 float32 accumulators a thread at D =
+// 128 (241 registers, two blocks an SM) and issued 80 ldmatrix.x4 for 128
+// mma a warp step: its 64-row step needed more than 255 registers there.
+// wgmma reads B straight from shared memory and spreads each 64-key
+// accumulator over a warpgroup.
+//
+// What held the previous designs back, and what this one does about it:
 // 1. dK/dV of GQA ran one block per kv head, its G heads in series (256
 //    blocks at Yi-9B, 40 at LLaVA's (1, 56, 320, 128) kv 8).  Here one
 //    block per (key tile, query head) and a cluster sum: G times the
@@ -50,18 +86,9 @@
 //    slow grid axis, heaviest first: key tile 0 first in dkdv, the last
 //    query tile first in dq (causal), so every head's heaviest tile starts
 //    before any head's next one and the tail is one light block long.
-// 3. dkdv warps held 16 keys x 32 query rows a step.  A causal plan takes
-//    64 rows at D = 64-96, which halves the K and V fragment reads and the
-//    barriers a row; at D = 128 that step needs more than 255 registers
-//    a thread and spills, so there it stays 32.  Each warp step still
-//    reads 80 ldmatrix.x4 for 128 mma (D = 128), and 241 registers a
-//    thread leave two blocks, eight warps, an SM: mma.sync from
-//    ldmatrix-fed registers is what bounds the bf16 path now, which the
-//    wgmma design (B read from shared memory, accumulators spread over a
-//    warpgroup) is for.
-// 4. D was computed inside dq, a warp a row with 2-byte loads, so dkdv had
+// 3. D was computed inside dq, a warp a row with 2-byte loads, so dkdv had
 //    to wait for dq.  Here the prep pass.
-// 5. float32 ran 64 x 64 tiles, 64 blocks at train-100m's (4, 8, 128, 64)
+// 4. float32 ran 64 x 64 tiles, 64 blocks at train-100m's (4, 8, 128, 64)
 //    on 132 SMs, staging 4 bytes at a time and reading shared memory a
 //    word per two FMAs.  Here the plan picks 16-, 32- or 64-row (key)
 //    tiles so that a grid comes near two blocks an SM, tiles arrive by
@@ -70,15 +97,11 @@
 //    word); exact float32 FMAs on the CUDA cores stay (TF32 would miss
 //    the 2e-5 float32 tolerance).
 //
-// bf16 (flash_bwd_dq_mma, flash_bwd_dkdv_mma): mma.sync m16n8k16 with the
-// forward's fragment code, four warps a block.  In dq a warp owns 16 query
-// rows, q in registers, dO, K and V read as fragments from shared memory
-// (K and V tiles of 64 keys double buffered by cp.async); in dkdv a warp
-// owns 16 keys, K and V resident in shared memory, the query tiles (q, dO,
-// their lse and D) double buffered.  S^T = K q^T puts the keys on the rows,
-// so P^T and dS^T come out of the accumulators in the A layout of
-// dV += P^T dO and dK += dS^T q, with no transpose through shared memory;
-// P and dS are rounded to bf16 where they enter a product, as the forward
+// bf16 dq (flash_bwd_dq_mma): mma.sync m16n8k16 with the forward's
+// fragment code, four warps a block, a warp owning 16 query rows, q in
+// registers, dO, K and V read as fragments from shared memory (K and V
+// tiles of 64 keys double buffered by cp.async).  P and dS are rounded to
+// bf16 where they enter a product, in dq and dkdv alike, as the forward
 // rounds P.
 //
 // float32 (flash_bwd_dq_f32, flash_bwd_dkdv_f32; the zoo's and train-100m's
@@ -95,7 +118,7 @@
 
 #include <type_traits>
 
-#include "common.cuh"
+#include "sm90.cuh"
 
 namespace repro {
 
@@ -504,16 +527,10 @@ flash_bwd_dkdv_f32(const float* __restrict__ q, const float* __restrict__ k,
 // bf16 tiles in shared memory or registers, P and dS rounded to bf16
 // where they enter a product.
 // ---------------------------------------------------------------------
-constexpr int kMmaBwdThreads = 128;  // four warps
-constexpr int kMmaBwdTile = 64;      // dq: query rows a block, keys a step;
-                                     // dkdv: keys a block (16 a warp)
+constexpr int kMmaBwdThreads = 128;  // dq: four warps
+constexpr int kMmaBwdTile = 64;      // dq: query rows a block, keys a step
 constexpr int kMmaBwdPad = 8;        // bf16 padding of a shared row (16 bytes)
 constexpr int kPartPad = 4;          // float padding of a partial's row
-// Head dims with a dkdv step of 64 query rows (ptxas, sm_90a: at 128 it
-// needs more than 255 registers a thread and spills, at 32 it leaves a
-// stack frame, and no training shape has 16); elsewhere the step is 32.
-template <int D>
-constexpr bool kMmaRows64 = D >= 64 && D <= 96;
 
 // A fragment (16 x 16): rows m0.., columns k0.. of a [m][k] tile.
 __device__ __forceinline__ void lds_a(uint32_t (&a)[4], const bf16* t, int P, int m0, int k0,
@@ -544,14 +561,6 @@ __device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&c0)[4],
 template <int D>
 constexpr size_t bwd_dq_mma_smem_bytes() {
   return (6ull * kMmaBwdTile) * (D + kMmaBwdPad) * sizeof(bf16);
-}
-
-template <int D, int QT>
-constexpr size_t bwd_dkdv_mma_smem_bytes() {
-  constexpr size_t ring = (2ull * kMmaBwdTile + 4 * QT) * (D + kMmaBwdPad) * sizeof(bf16) +
-                          4 * QT * sizeof(float);
-  constexpr size_t parts = 2ull * kMmaBwdTile * (D + kPartPad) * sizeof(float);
-  return ring > parts ? ring : parts;
 }
 
 // dQ of 64 query rows of one (batch, head): four warps of 16 rows, q in
@@ -712,155 +721,349 @@ flash_bwd_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-// dK and dV of 64 keys of one (batch, kv head) over `heads` of its query
-// heads: four warps of 16 keys, k and v resident in shared memory, the
-// query tiles (QT rows of q and dO, their lse and D) double buffered by
-// cp.async.  With cluster > 1 the block is rank blockIdx.x % cluster of the
-// cluster that shares its key tile and kv head; rank r takes query heads
-// r heads .. (r + 1) heads - 1, and the cluster sums its partials in rank
-// order before one rank a share of the rows writes them.
-template <int D, int QT>
-__global__ void __launch_bounds__(kMmaBwdThreads)
-flash_bwd_dkdv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                   const bf16* __restrict__ v, const float* __restrict__ lse,
-                   const bf16* __restrict__ dout, const float* __restrict__ delta,
-                   bf16* __restrict__ dk, bf16* __restrict__ dv, int H, int KV, int Sq, int Sk,
-                   float scale, int causal, int window, int heads, int cluster) {
-  constexpr int P = D + kMmaBwdPad, KSTEPS = D / 16, NT = D / 8, CH = D / 8;
-  constexpr int T = kMmaBwdTile, NQ = QT / 8, KQ = QT / 16;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* ks = reinterpret_cast<bf16*>(smem_raw);  // [64][P]
-  bf16* vs = ks + T * P;                         // [64][P]
-  bf16* qs = vs + T * P;                         // [2][QT][P]
-  bf16* dos = qs + 2 * QT * P;                   // [2][QT][P]
-  float* rowf = reinterpret_cast<float*>(dos + 2 * QT * P);  // [2][lse QT, D QT]
+// ---------------------------------------------------------------------
+// bf16 dK/dV on Hopper's units: wgmma, TMA, a producer warpgroup
+// ---------------------------------------------------------------------
+// The tiles of flash_bwd_dkdv_wgmma<D, NC, QR>: NC consumer warpgroups of
+// 64 keys each (a key tile of 64 NC keys) behind one producer warpgroup,
+// walking QR query rows a step.  A tile of R rows is stored as D / kAtom
+// column blocks of R x kAtom bf16, swizzled (sm90.cuh; kAtom the widest of
+// 64, 32, 16 dividing D, as FwdTiles).  Shared memory, from a 1024-byte
+// boundary: K and V of the key tile, once; a ring of `stages` steps, each
+// q and dO of QR rows (TMA) and their lse (log2 units) and D (QR floats
+// each, stored by the producer's second warp); after the walk, the
+// float32 partials of dK and dV ([keys][D + 4] each) over the ring for
+// the cluster's sum; the mbarriers past both.  One block an SM with two
+// consumers (kBudget: all 227 KB), two with one.
+template <int D, int NC, int QR>
+struct BwdTiles {
+  static constexpr int kAtom = D % 64 == 0 ? 64 : D % 32 == 0 ? 32 : 16;
+  static constexpr int kSpan = 2 * kAtom;  // bytes of a swizzled row
+  static constexpr int kColBlocks = D / kAtom;
+  static constexpr int kKeys = 64 * NC;
+  static constexpr int kThreads = 128 * (NC + 1);
+  static constexpr int kKVBytes = 2 * kKeys * D * 2;  // K and V
+  static constexpr int kStepBytes = 2 * QR * D * 2;   // q and dO of a step
+  static constexpr int kRowBytes = 2 * QR * 4;        // lse and D of a step
+  static constexpr int kPartBytes = 2 * kKeys * (D + kPartPad) * 4;
+  static constexpr int kBudget = NC == 2 ? 232448 : 115712;
+  static constexpr int kBarBytes = 128;
+  static constexpr int kFit = (kBudget - 1024 - kBarBytes - kKVBytes) / (kStepBytes + kRowBytes);
+  static constexpr int kMaxStages = kFit < 4 ? kFit : 4;
+  // registers a thread after setmaxnreg: producer, consumers (the
+  // launch's 168 or 128 a thread, moved from the producer)
+  static constexpr int kProducerRegs = 24;
+  static constexpr int kConsumerRegs = NC == 2 ? 240 : 232;
+  __host__ __device__ static constexpr int ring_bytes(int stages) {
+    return kKVBytes + stages * (kStepBytes + kRowBytes);
+  }
+  __host__ __device__ static constexpr int bar_offset(int stages) {
+    return ring_bytes(stages) > kPartBytes ? ring_bytes(stages) : kPartBytes;
+  }
+  __host__ __device__ static constexpr int smem(int stages) {
+    return 1024 + bar_offset(stages) + kBarBytes;
+  }
+  static_assert(QR == 32 || QR == 64, "32 or 64 query rows a step");
+  static_assert(kMaxStages >= 2 && smem(kMaxStages) <= kBudget, "the q / dO ring does not fit");
+  static_assert(kProducerRegs * 128 + kConsumerRegs * 128 * NC <=
+                    (NC == 2 ? 168 * 384 : 128 * 256),
+                "the warpgroups' registers exceed the launch's");
+};
+
+// Whether no pair of query rows [q0, q0 + nq) and keys [k0, k0 + nk) is
+// visible: past an end, wholly above the diagonal, or wholly past the
+// window.
+__device__ __forceinline__ bool tile_hidden(int q0, int nq, int k0, int nk, int Sq, int Sk,
+                                            int causal, int window) {
+  if (q0 >= Sq || k0 >= Sk) return true;
+  if (!causal) return false;
+  return q0 + nq - 1 < k0 || (window > 0 && q0 >= k0 + nk - 1 + window);
+}
+
+// A consumer's order of a step.  By default P^T is computed while dP^T
+// runs and dS^T while dV runs.  "Together" waits for both scores, then
+// computes P^T and dS^T column by column and issues dV and dK at once:
+// each column's S^T and dP^T registers free as its bf16 pairs fill, about
+// 16 fewer live at the peak, but the exponentials overlap no product of
+// this warpgroup (2-12% slower at D = 64-96, NVIDIA H100 80GB HBM3, 700 W;
+// tools/flash_bwd_times.py).  The 64-row step at D = 128 takes it: the
+// default spills there (ptxas).  A timing copy built with
+// -DDKDV_TOGETHER=1 takes it everywhere.
+#ifndef DKDV_TOGETHER
+#define DKDV_TOGETHER 0
+#endif
+
+// dK and dV of 64 NC keys of one (batch, kv head) over `heads` of its
+// query heads, in head order, QR query rows a step.  With cluster > 1 the
+// block is rank blockIdx.x % cluster of the cluster that shares its key
+// tile and kv head; rank r takes query heads r heads .. (r + 1) heads - 1,
+// and the cluster sums its partials in rank order before one rank a
+// share of the keys writes them.
+//  - producer (warpgroup 0, down to kProducerRegs): thread 0 issues every
+//    TMA copy (K and V once, then q and dO of each step into the ring
+//    once its "empty" barrier says the consumers have read the stage);
+//    warp 1 stores each step's lse and D rows beside them (rows past Sq
+//    0, as their q and dO rows, which TMA reads as zeros); the stage's
+//    "full" barrier completes on the copy's bytes and 33 arrivals;
+//  - consumer warpgroup w (keys 64 w.. of the tile, 16 a warp), a step:
+//    S^T = K q^T and dP^T = V dO^T on wgmma m64n{QR}k16, both operands
+//    K-major from their tiles, issued together; P^T = 2^(S^T scale log2 e
+//    - lse log2 e) (0 where hidden) while dP^T runs, rounded to bf16 into
+//    the A fragment (the S^T accumulator's layout) of dV += P^T dO on
+//    m64n{D}k16, dO read MN-major; dS^T = P^T (dP^T - D) while dV runs,
+//    rounded the same way, then dK += dS^T q (the 64-row step at D = 128
+//    computes both after the two scores: kTogether above); the stage is
+//    released once both products are done.  A step none of whose pairs
+//    this warpgroup's keys see is skipped.
+
+template <int D, int NC, int QR>
+__global__ void __launch_bounds__(BwdTiles<D, NC, QR>::kThreads, NC == 1 ? 2 : 1)
+flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tm_q,
+                     const __grid_constant__ CUtensorMap tm_k,
+                     const __grid_constant__ CUtensorMap tm_v,
+                     const __grid_constant__ CUtensorMap tm_do, const float* __restrict__ lse,
+                     const float* __restrict__ delta, bf16* __restrict__ dk,
+                     bf16* __restrict__ dv, int H, int KV, int Sq, int Sk, float scale,
+                     float scale_log2, int causal, int window, int heads, int cluster,
+                     int stages) {
+  using T = BwdTiles<D, NC, QR>;
+  using namespace sm90;
+  constexpr int A = T::kAtom, KT = T::kKeys, SP = T::kSpan;
+  constexpr bool kTogether = DKDV_TOGETHER != 0 || (D == 128 && QR == 64);
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  bf16* ks = reinterpret_cast<bf16*>(base);  // [col block][KT][A]
+  bf16* vs = ks + KT * D;                     // [col block][KT][A]
+  bf16* ring = vs + KT * D;                   // [stage][q, dO][col block][QR][A]
+  float* rowf = reinterpret_cast<float*>(base + T::kKVBytes + stages * T::kStepBytes);
+  uint64_t* kvbar = reinterpret_cast<uint64_t*>(base + T::bar_offset(stages));
+  uint64_t* full = kvbar + 1;
+  uint64_t* empty = full + T::kMaxStages;
 
   const int G = H / KV, bk = blockIdx.x / cluster, rank = blockIdx.x % cluster;
   const int b = bk / KV, kvh = bk % KV;
-  const int k0 = blockIdx.y * T;  // causal: the first keys have the most rows
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int gr = lane >> 2, t4 = lane & 3;
-  const size_t koff = static_cast<size_t>(bk) * Sk * D;
-
-  for (int i = tid; i < T * CH; i += kMmaBwdThreads) {
-    const int r = i / CH, c = i - r * CH, kj = k0 + r;
-    const size_t src = koff + static_cast<size_t>(min(kj, Sk - 1)) * D + c * 8;
-    cp_async16(ks + r * P + c * 8, k + src, kj < Sk);
-    cp_async16(vs + r * P + c * 8, v + src, kj < Sk);
-  }
-  cp_async_commit();
-
-  // the query rows that can see some key of this block, in tiles of QT
+  const int k0 = blockIdx.y * KT;  // causal: the first keys have the most rows
   int q_begin, q_end;
-  rows_seeing(k0, T, Sq, causal, window, q_begin, q_end);
-  const int t_begin = q_begin / QT;
-  const int per_head = max(0, (q_end + QT - 1) / QT - t_begin);
+  rows_seeing(k0, KT, Sq, causal, window, q_begin, q_end);
+  const int t_begin = q_begin / QR;
+  const int per_head = max(0, (q_end + QR - 1) / QR - t_begin);
   const int total = heads * per_head;
-  const int g0 = rank * heads;
-  auto load_q = [&](int idx, int st) {
-    const int g = g0 + idx / per_head, q0 = (t_begin + idx % per_head) * QT;
-    const size_t bh = static_cast<size_t>(b) * H + kvh * G + g;
-    const size_t qoff = bh * Sq * D;
-    bf16* qd = qs + st * QT * P;
-    bf16* dd = dos + st * QT * P;
-    for (int i = tid; i < QT * CH; i += kMmaBwdThreads) {
-      const int r = i / CH, c = i - r * CH, qi = q0 + r;
-      const size_t src = qoff + static_cast<size_t>(min(qi, Sq - 1)) * D + c * 8;
-      cp_async16(qd + r * P + c * 8, q + src, qi < Sq);
-      cp_async16(dd + r * P + c * 8, dout + src, qi < Sq);
-    }
-    cp_async_commit();
-    for (int r = tid; r < QT; r += kMmaBwdThreads) {
-      const int qi = q0 + r;
-      rowf[st * 2 * QT + r] = qi < Sq ? lse[bh * Sq + qi] * kLog2e : 0.f;
-      rowf[st * 2 * QT + QT + r] = qi < Sq ? delta[bh * Sq + qi] : 0.f;
-    }
-  };
+  const int h0 = b * H + kvh * G + rank * heads;  // (batch, head) of step 0
+  const int wg = threadIdx.x / 128;
 
-  const float scale_log2 = scale * kLog2e;
-  const int key0 = k0 + warp * 16 + gr;  // this thread's keys: key0, key0 + 8
-  float adk[NT][4], adv[NT][4];
-#pragma unroll
-  for (int j = 0; j < NT; ++j) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) adk[j][e] = adv[j][e] = 0.f;
+  if (threadIdx.x == 0) {
+    mbar_init(kvbar, 1);
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(full + s, 33);      // the copy's thread and warp 1's lanes
+      mbar_init(empty + s, 4 * NC);  // lane 0 of every consumer warp
+    }
+    mbar_init_fence();
   }
-  if (total > 0) load_q(0, 0);
-  for (int it = 0; it < total; ++it) {
-    const int st = it & 1, q0 = (t_begin + it % per_head) * QT;
-    if (it + 1 < total) {
-      load_q(it + 1, st ^ 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const bf16* qt = qs + st * QT * P;
-    const bf16* dt = dos + st * QT * P;
-    const float* lf = rowf + st * 2 * QT;
+  __syncthreads();
+  cg::cluster_group cl = cg::this_cluster();
 
-    // S^T = k q^T and dP^T = v dO^T: 16 keys x QT rows a warp
-    float sT[NQ][4], dpT[NQ][4];
+  if (wg == 0) {
+    regs_dec<T::kProducerRegs>();
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    if (warp == 0 && lane == 0) {
+      tma_prefetch_map(&tm_q);
+      tma_prefetch_map(&tm_k);
+      tma_prefetch_map(&tm_v);
+      tma_prefetch_map(&tm_do);
+      mbar_arrive_expect_tx(kvbar, T::kKVBytes);
 #pragma unroll
-    for (int j = 0; j < NQ; ++j) {
+      for (int c = 0; c < T::kColBlocks; ++c) {
+        tma_load_3d(ks + c * KT * A, &tm_k, kvbar, c * A, k0, bk);
+        tma_load_3d(vs + c * KT * A, &tm_v, kvbar, c * A, k0, bk);
+      }
+      for (int it = 0, s = 0, ph = 0; it < total; ++it) {
+        mbar_wait(empty + s, ph ^ 1);
+        mbar_arrive_expect_tx(full + s, T::kStepBytes);
+        bf16* qd = ring + s * 2 * QR * D;
+        bf16* dd = qd + QR * D;
+        const int bh = h0 + it / per_head, q0 = (t_begin + it % per_head) * QR;
 #pragma unroll
-      for (int e = 0; e < 4; ++e) sT[j][e] = dpT[j][e] = 0.f;
-    }
-#pragma unroll
-    for (int kk = 0; kk < KSTEPS; ++kk) {
-      uint32_t ka[4], va[4];
-      lds_a(ka, ks, P, warp * 16, kk * 16, lane);
-      lds_a(va, vs, P, warp * 16, kk * 16, lane);
-#pragma unroll
-      for (int np = 0; np < KQ; ++np) {
-        uint32_t qb[4], ob[4];
-        lds_b_nk(qb, qt, P, np * 16, kk * 16, lane);
-        mma_bf16(sT[2 * np], ka, qb[0], qb[1]);
-        mma_bf16(sT[2 * np + 1], ka, qb[2], qb[3]);
-        lds_b_nk(ob, dt, P, np * 16, kk * 16, lane);
-        mma_bf16(dpT[2 * np], va, ob[0], ob[1]);
-        mma_bf16(dpT[2 * np + 1], va, ob[2], ob[3]);
+        for (int c = 0; c < T::kColBlocks; ++c) {
+          tma_load_3d(qd + c * QR * A, &tm_q, full + s, c * A, q0, bh);
+          tma_load_3d(dd + c * QR * A, &tm_do, full + s, c * A, q0, bh);
+        }
+        if (++s == stages) s = 0, ph ^= 1;
+      }
+    } else if (warp == 1) {
+      for (int it = 0, s = 0, ph = 0; it < total; ++it) {
+        const size_t at = static_cast<size_t>(h0 + it / per_head) * Sq;
+        const int q0 = (t_begin + it % per_head) * QR;
+        mbar_wait(empty + s, ph ^ 1);
+        float* rf = rowf + s * 2 * QR;
+        for (int r = lane; r < QR; r += 32) {
+          const bool in = q0 + r < Sq;
+          rf[r] = in ? lse[at + q0 + r] * kLog2e : 0.f;
+          rf[QR + r] = in ? delta[at + q0 + r] : 0.f;
+        }
+        mbar_arrive(full + s);
+        if (++s == stages) s = 0, ph ^= 1;
       }
     }
-    // P^T and dS^T = P^T (dP^T - D) on the visible pairs
-    const bool need_mask = !tile_visible(q0, QT, k0, T, Sq, Sk, causal, window);
-#pragma unroll
-    for (int j = 0; j < NQ; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = key0 + (e >> 1) * 8;
-        const int r = j * 8 + 2 * t4 + (e & 1);
-        const float p = !need_mask || bwd_visible(q0 + r, key, Sq, Sk, causal, window)
-                            ? exp2f(sT[j][e] * scale_log2 - lf[r])
-                            : 0.f;
-        sT[j][e] = p;
-        dpT[j][e] = p * (dpT[j][e] - lf[QT + r]);
-      }
+    if (cluster > 1) {  // the consumers' two cluster barriers
+      __syncwarp();
+      cl.sync();
+      cl.sync();
     }
-    // dV += P^T dO and dK += dS^T q: the tile's rows are the k-steps
-#pragma unroll
-    for (int kk = 0; kk < KQ; ++kk) {
-      uint32_t pa[4], sa[4];
-      acc_to_a(pa, sT[2 * kk], sT[2 * kk + 1]);
-      acc_to_a(sa, dpT[2 * kk], dpT[2 * kk + 1]);
-#pragma unroll
-      for (int dp2 = 0; dp2 < D / 16; ++dp2) {
-        uint32_t ob[4], qb[4];
-        lds_b_kn(ob, dt, P, kk * 16, dp2 * 16, lane);
-        mma_bf16(adv[2 * dp2], pa, ob[0], ob[1]);
-        mma_bf16(adv[2 * dp2 + 1], pa, ob[2], ob[3]);
-        lds_b_kn(qb, qt, P, kk * 16, dp2 * 16, lane);
-        mma_bf16(adk[2 * dp2], sa, qb[0], qb[1]);
-        mma_bf16(adk[2 * dp2 + 1], sa, qb[2], qb[3]);
-      }
-    }
-    __syncthreads();  // this stage is free for the tile after next
+    return;
   }
-  if (total == 0) cp_async_wait<0>();
 
+  regs_inc<T::kConsumerRegs>();
+  const int wgi = wg - 1, t = threadIdx.x - 128 * wg;
+  const int warp = t / 32, lane = t % 32;
+  const int gr = lane >> 2, t4 = lane & 3;  // fragment row group, column pair
+  const int kw0 = k0 + 64 * wgi;            // this warpgroup's keys
+  const int key0 = kw0 + warp * 16 + gr;    // this thread's: key0, key0 + 8
+  const bf16* kw = ks + wgi * 64 * A;
+  const bf16* vw = vs + wgi * 64 * A;
+  // K's and V's descriptors; each step adds a k-step's offset to its own
+  // copy, so that ptxas does not hold the 2 D / 16 loop-invariant
+  // descriptors (64 bits each) in registers across the walk
+  const uint64_t kdesc = smem_desc(kw, 16, 8 * SP, SP), vdesc = smem_desc(vw, 16, 8 * SP, SP);
+
+  float adk[D / 2], adv[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) adk[i] = adv[i] = 0.f;
+  float sT[QR / 2], dpT[QR / 2];     // S^T then P^T; dP^T then dS^T
+  uint32_t pa[QR / 16][4], sa[QR / 16][4];  // P^T, dS^T: A operands of QR / 16 steps
+
+  mbar_wait(kvbar, 0);
+  for (int it = 0, s = 0, ph = 0, tq = 0; it < total; ++it) {
+    const int q0 = (t_begin + tq) * QR;
+    if (++tq == per_head) tq = 0;
+    mbar_wait(full + s, ph);
+    if (!tile_hidden(q0, QR, kw0, 64, Sq, Sk, causal, window)) {
+      const bf16* qt = ring + s * 2 * QR * D;
+      const bf16* dt = qt + QR * D;
+      const float* lf = rowf + s * 2 * QR;
+      uint64_t kd = kdesc, vd = vdesc;
+      asm volatile("" : "+l"(kd), "+l"(vd));
+      const uint64_t qd = smem_desc(qt, 16, 8 * SP, SP), od = smem_desc(dt, 16, 8 * SP, SP);
+      // The first k-step overwrites S^T and dP^T: the previous step's values
+      // end at their last use, so that their registers can hold P^T and
+      // dS^T meanwhile (the products' "+f" operands would keep them alive).
+#pragma unroll
+      for (int i = 0; i < QR / 2; ++i) asm volatile("" : "=f"(sT[i]), "=f"(dpT[i]));
+      // S^T = K q^T, then dP^T = V dO^T: D / 16 steps each, issued together
+      // (descriptor offsets in 16-byte units)
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const int c = kk * 16 / A, off = kk * 16 % A;
+        Wgmma<QR>::template ss<0, 0>(sT, kd + (c * KT * A + off) / 8, qd + (c * QR * A + off) / 8,
+                                     kk > 0);
+      }
+      wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const int c = kk * 16 / A, off = kk * 16 % A;
+        Wgmma<QR>::template ss<0, 0>(dpT, vd + (c * KT * A + off) / 8,
+                                     od + (c * QR * A + off) / 8, kk > 0);
+      }
+      wgmma_commit();
+      // P^T where visible (only tiles that cross the diagonal, an end or the
+      // window's edge check each pair), and dS^T = P^T (dP^T - D), of the
+      // accumulator columns 8 j.. (query rows), each pair rounded to bf16
+      // into the A fragments
+      const bool need_mask = !tile_visible(q0, QR, kw0, 64, Sq, Sk, causal, window);
+      auto p_of = [&](int j) {
+        const float2 l2 = *reinterpret_cast<const float2*>(lf + 8 * j + 2 * t4);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = 8 * j + 2 * t4 + (e & 1);
+          const bool ok =
+              !need_mask || bwd_visible(q0 + r, key0 + 8 * (e >> 1), Sq, Sk, causal, window);
+          sT[4 * j + e] =
+              ok ? ex2_approx(fmaf(sT[4 * j + e], scale_log2, (e & 1) ? -l2.y : -l2.x)) : 0.f;
+        }
+        pa[j / 2][(j & 1) * 2] = pack_bf16(sT[4 * j], sT[4 * j + 1]);
+        pa[j / 2][(j & 1) * 2 + 1] = pack_bf16(sT[4 * j + 2], sT[4 * j + 3]);
+      };
+      auto ds_of = [&](int j) {
+        const float2 d2 = *reinterpret_cast<const float2*>(lf + QR + 8 * j + 2 * t4);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          dpT[4 * j + e] = sT[4 * j + e] * (dpT[4 * j + e] - ((e & 1) ? d2.y : d2.x));
+        }
+        sa[j / 2][(j & 1) * 2] = pack_bf16(dpT[4 * j], dpT[4 * j + 1]);
+        sa[j / 2][(j & 1) * 2 + 1] = pack_bf16(dpT[4 * j + 2], dpT[4 * j + 3]);
+      };
+      // dV += P^T dO and dK += dS^T q: QR / 16 steps each, A from
+      // registers, dO and q read MN-major (their rows are the k)
+      auto issue_dv = [&]() {
+        fence_regs(adv);
+#pragma unroll
+        for (int kk = 0; kk < QR / 16; ++kk) fence_regs(pa[kk]);
+        const uint64_t omn = smem_desc(dt, QR * SP, 8 * SP, SP);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < QR / 16; ++kk) {
+          Wgmma<D>::template rs<1>(adv, pa[kk], omn + 2 * kk * A, 1);
+        }
+      };
+      auto issue_dk = [&]() {
+        fence_regs(adk);
+#pragma unroll
+        for (int kk = 0; kk < QR / 16; ++kk) fence_regs(sa[kk]);
+        const uint64_t qmn = smem_desc(qt, QR * SP, 8 * SP, SP);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < QR / 16; ++kk) {
+          Wgmma<D>::template rs<1>(adk, sa[kk], qmn + 2 * kk * A, 1);
+        }
+      };
+      if constexpr (kTogether) {
+        // both scores first, then P^T and dS^T column by column (each
+        // column's S^T and dP^T registers free as its A pairs fill), then
+        // both products
+        wgmma_wait<0>();
+        fence_regs(sT);
+        fence_regs(dpT);
+#pragma unroll
+        for (int j = 0; j < QR / 8; ++j) {
+          p_of(j);
+          ds_of(j);
+        }
+        issue_dv();
+        issue_dk();
+        wgmma_commit();
+      } else {
+        // P^T while dP^T runs, dS^T while dV runs
+        wgmma_wait<1>();
+        fence_regs(sT);
+#pragma unroll
+        for (int j = 0; j < QR / 8; ++j) p_of(j);
+        issue_dv();
+        wgmma_commit();
+        wgmma_wait<1>();  // dP^T is done; dV runs on
+        fence_regs(dpT);
+#pragma unroll
+        for (int j = 0; j < QR / 8; ++j) ds_of(j);
+        issue_dk();
+        wgmma_commit();
+      }
+      wgmma_wait<0>();
+      fence_regs(adv);
+      fence_regs(adk);
+#pragma unroll
+      for (int kk = 0; kk < QR / 16; ++kk) {  // read by the products until here
+        fence_regs(pa[kk]);
+        fence_regs(sa[kk]);
+      }
+    }
+    if (lane == 0) mbar_arrive(empty + s);  // the stage is free
+    if (++s == stages) s = 0, ph ^= 1;
+  }
+
+  const size_t koff = static_cast<size_t>(bk) * Sk * D;
   if (cluster == 1) {
 #pragma unroll
-    for (int j = 0; j < NT; ++j) {
+    for (int j = 0; j < D / 8; ++j) {
       const int col = j * 8 + 2 * t4;
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
@@ -868,38 +1071,38 @@ flash_bwd_dkdv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
         if (kj >= Sk) continue;
         const size_t at = koff + static_cast<size_t>(kj) * D + col;
         *reinterpret_cast<uint32_t*>(dk + at) =
-            pack_bf16(adk[j][2 * half] * scale, adk[j][2 * half + 1] * scale);
-        *reinterpret_cast<uint32_t*>(dv + at) = pack_bf16(adv[j][2 * half], adv[j][2 * half + 1]);
+            pack_bf16(adk[4 * j + 2 * half] * scale, adk[4 * j + 2 * half + 1] * scale);
+        *reinterpret_cast<uint32_t*>(dv + at) =
+            pack_bf16(adv[4 * j + 2 * half], adv[4 * j + 2 * half + 1]);
       }
     }
     return;
   }
 
   // The cluster's sum.  Each block's float32 partials go over its ring
-  // ([64][D + 4] of dK, then of dV); rank r then sums rows
-  // [64 r / cluster, 64 (r + 1) / cluster) of both over ranks 0.. in rank
+  // ([KT][D + 4] of dK, then of dV); rank r then sums keys
+  // [KT r / cluster, KT (r + 1) / cluster) of both over ranks 0.. in rank
   // order, reading its peers' shared memory, and writes them.
   constexpr int PD = D + kPartPad;
-  float* pk = reinterpret_cast<float*>(smem_raw);
-  float* pv = pk + T * PD;
-  __syncthreads();  // every warp is done with the ring (total == 0 included)
+  float* pk = reinterpret_cast<float*>(base);
+  float* pv = pk + KT * PD;
+  named_sync(1, 128 * NC);  // every consumer warp is done with the ring
 #pragma unroll
-  for (int j = 0; j < NT; ++j) {
+  for (int j = 0; j < D / 8; ++j) {
     const int col = j * 8 + 2 * t4;
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
-      const int r = warp * 16 + gr + 8 * half;
+      const int r = 64 * wgi + warp * 16 + gr + 8 * half;
       *reinterpret_cast<float2*>(pk + r * PD + col) =
-          make_float2(adk[j][2 * half], adk[j][2 * half + 1]);
+          make_float2(adk[4 * j + 2 * half], adk[4 * j + 2 * half + 1]);
       *reinterpret_cast<float2*>(pv + r * PD + col) =
-          make_float2(adv[j][2 * half], adv[j][2 * half + 1]);
+          make_float2(adv[4 * j + 2 * half], adv[4 * j + 2 * half + 1]);
     }
   }
-  cg::cluster_group cl = cg::this_cluster();
   cl.sync();  // every rank's partials are in place
-  const int r_begin = T * rank / cluster, r_end = T * (rank + 1) / cluster;
+  const int r_begin = KT * rank / cluster, r_end = KT * (rank + 1) / cluster;
   constexpr int C4 = D / 4;
-  for (int i = tid; i < (r_end - r_begin) * C4; i += kMmaBwdThreads) {
+  for (int i = threadIdx.x - 128; i < (r_end - r_begin) * C4; i += 128 * NC) {
     const int r = r_begin + i / C4, c = (i % C4) * 4;
     float4 sk = make_float4(0.f, 0.f, 0.f, 0.f), sv = sk;
     for (int s = 0; s < cluster; ++s) {
@@ -936,7 +1139,7 @@ struct BwdArgs {
   int B, H, KV, Sq, Sk;
   float scale;
   int causal, window;
-  int dq_rows, kv_keys, kv_rows, heads, cluster, parts;
+  int dq_rows, kv_keys, kv_rows, heads, cluster, stages, parts;
   cudaStream_t s;
 };
 
@@ -950,50 +1153,90 @@ int launch_prep(const BwdArgs& a) {
   return launch_status();
 }
 
-template <int D, int QT>
-int launch_dkdv_mma(const BwdArgs& a) {
-  constexpr size_t smem = bwd_dkdv_mma_smem_bytes<D, QT>();
-  auto kernel = flash_bwd_dkdv_mma<D, QT>;
-  int st = allow_smem(kernel, smem);
-  if (st) return st;
-  const dim3 grid(a.B * a.KV * a.cluster, (a.Sk + kMmaBwdTile - 1) / kMmaBwdTile);
-  const bf16* q = static_cast<const bf16*>(a.q);
-  const bf16* k = static_cast<const bf16*>(a.k);
-  const bf16* v = static_cast<const bf16*>(a.v);
-  const bf16* dout = static_cast<const bf16*>(a.dout);
-  bf16* dk = static_cast<bf16*>(a.dk);
-  bf16* dv = static_cast<bf16*>(a.dv);
-  if (a.cluster == 1) {
-    kernel<<<grid, kMmaBwdThreads, smem, a.s>>>(q, k, v, a.lse, dout, a.delta, dk, dv, a.H,
-                                                a.KV, a.Sq, a.Sk, a.scale, a.causal, a.window,
-                                                a.heads, 1);
-    return launch_status();
+// A compiled flash_bwd_dkdv_wgmma<D, NC, QR>, as a type.
+template <int D, int NC, int QR>
+struct Dkdv {
+  using Tiles = BwdTiles<D, NC, QR>;
+  static constexpr int kD = D, kNC = NC, kQR = QR;
+};
+
+// Call f(Dkdv<D, NC, QR>{}) for the variant of ``keys`` keys a block and
+// ``rows`` query rows a step; kStatusBadArgs for any other.  One consumer
+// of 64-row steps at D = 128 is not built: its 232 registers a thread
+// spill in either order (ptxas, sm_90a).
+template <int D, typename F>
+int with_dkdv(int keys, int rows, F&& f) {
+  if (keys == 128 && rows == 64) return f(Dkdv<D, 2, 64>{});
+  if (keys == 128 && rows == 32) return f(Dkdv<D, 2, 32>{});
+  if constexpr (D != 128) {
+    if (keys == 64 && rows == 64) return f(Dkdv<D, 1, 64>{});
   }
+  if (keys == 64 && rows == 32) return f(Dkdv<D, 1, 32>{});
+  return kStatusBadArgs;
+}
+
+template <typename V>
+int prepare_dkdv(int stages, int cluster) {
+  using T = typename V::Tiles;
+  if (stages < 2 || stages > T::kMaxStages || cluster < 1 || cluster > kMaxCluster) {
+    return kStatusBadArgs;
+  }
+  return allow_smem(flash_bwd_dkdv_wgmma<V::kD, V::kNC, V::kQR>, T::smem(stages));
+}
+
+template <typename V>
+cudaLaunchConfig_t dkdv_config(dim3 grid, int stages, cudaStream_t s, cudaLaunchAttribute* attr,
+                               int cluster) {
+  using T = typename V::Tiles;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = grid;
-  cfg.blockDim = dim3(kMmaBwdThreads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = a.s;
-  cudaLaunchAttribute attr[1];
+  cfg.blockDim = dim3(T::kThreads);
+  cfg.dynamicSmemBytes = T::smem(stages);
+  cfg.stream = s;
   attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = a.cluster;
+  attr[0].val.clusterDim.x = cluster;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  st = static_cast<int>(cudaLaunchKernelEx(&cfg, kernel, q, k, v, a.lse, dout,
-                                           static_cast<const float*>(a.delta), dk, dv, a.H,
-                                           a.KV, a.Sq, a.Sk, a.scale, a.causal, a.window,
-                                           a.heads, a.cluster));
+  return cfg;
+}
+
+template <int D, typename V>
+int launch_dkdv_wgmma(const BwdArgs& a) {
+  using T = typename V::Tiles;
+  CUtensorMap maps[4];  // q, k, v, dO
+  const int A = T::kAtom, SP = T::kSpan;
+  int st = encode_tile_map<bf16>(maps, a.q, a.B * a.H, a.Sq, D, a.kv_rows, A, SP);
+  if (!st) st = encode_tile_map<bf16>(maps + 1, a.k, a.B * a.KV, a.Sk, D, T::kKeys, A, SP);
+  if (!st) st = encode_tile_map<bf16>(maps + 2, a.v, a.B * a.KV, a.Sk, D, T::kKeys, A, SP);
+  if (!st) st = encode_tile_map<bf16>(maps + 3, a.dout, a.B * a.H, a.Sq, D, a.kv_rows, A, SP);
+  if (!st) st = prepare_dkdv<V>(a.stages, a.cluster);
+  if (st) return st;
+  auto kernel = flash_bwd_dkdv_wgmma<D, V::kNC, V::kQR>;
+  const dim3 grid(a.B * a.KV * a.cluster, (a.Sk + T::kKeys - 1) / T::kKeys);
+  bf16* dk = static_cast<bf16*>(a.dk);
+  bf16* dv = static_cast<bf16*>(a.dv);
+  if (a.cluster == 1) {
+    kernel<<<grid, T::kThreads, T::smem(a.stages), a.s>>>(
+        maps[0], maps[1], maps[2], maps[3], a.lse, a.delta, dk, dv, a.H, a.KV, a.Sq, a.Sk,
+        a.scale, a.scale * kLog2e, a.causal, a.window, a.heads, 1, a.stages);
+    return launch_status();
+  }
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = dkdv_config<V>(grid, a.stages, a.s, attr, a.cluster);
+  st = static_cast<int>(cudaLaunchKernelEx(&cfg, kernel, maps[0], maps[1], maps[2], maps[3],
+                                           a.lse, static_cast<const float*>(a.delta), dk, dv,
+                                           a.H, a.KV, a.Sq, a.Sk, a.scale, a.scale * kLog2e,
+                                           a.causal, a.window, a.heads, a.cluster, a.stages));
   return st ? st : launch_status();
 }
 
 template <int D>
 int launch_flash_bwd_mma(const BwdArgs& a) {
   const int G = a.H / a.KV;
-  const bool rows_ok = a.kv_rows == 32 || (a.kv_rows == 64 && kMmaRows64<D>);
-  if (a.dq_rows != kMmaBwdTile || a.kv_keys != kMmaBwdTile || !rows_ok || a.cluster < 1 ||
-      a.cluster > kMaxCluster || a.heads * a.cluster != G) {
+  if (a.dq_rows != kMmaBwdTile || a.cluster < 1 || a.cluster > kMaxCluster ||
+      a.heads * a.cluster != G) {
     return kStatusBadArgs;
   }
   int st = 0;
@@ -1014,12 +1257,25 @@ int launch_flash_bwd_mma(const BwdArgs& a) {
     if (st) return st;
   }
   if (a.parts & kPartDkdv) {
-    if constexpr (kMmaRows64<D>) {
-      if (a.kv_rows == 64) return launch_dkdv_mma<D, 64>(a);
-    }
-    return launch_dkdv_mma<D, 32>(a);
+    return with_dkdv<D>(a.kv_keys, a.kv_rows,
+                        [&](auto v) { return launch_dkdv_wgmma<D, decltype(v)>(a); });
   }
   return 0;
+}
+
+// How many clusters of ``cluster`` dkdv blocks of this variant the card
+// holds at once (cudaOccupancyMaxActiveClusters), into *out.
+template <int D>
+int dkdv_max_clusters(int keys, int rows, int stages, int cluster, int* out) {
+  return with_dkdv<D>(keys, rows, [&](auto v) {
+    using V = decltype(v);
+    int st = prepare_dkdv<V>(stages, cluster);
+    if (st) return st;
+    cudaLaunchAttribute attr[1];
+    const cudaLaunchConfig_t cfg = dkdv_config<V>(dim3(cluster), stages, 0, attr, cluster);
+    return static_cast<int>(
+        cudaOccupancyMaxActiveClusters(out, flash_bwd_dkdv_wgmma<D, V::kNC, V::kQR>, &cfg));
+  });
 }
 
 template <int D, int TQ>
@@ -1109,12 +1365,29 @@ extern "C" int repro_flash_attention_bwd(const void* q, const void* k, const voi
                                          int H, int KV, int Sq, int Sk, int D, float scale,
                                          int causal, int window, int dtype, int dq_rows,
                                          int kv_keys, int kv_rows, int heads, int cluster,
-                                         int parts, void* stream) {
+                                         int stages, int parts, void* stream) {
   using namespace repro;
   if (KV <= 0 || H % KV != 0) return kStatusBadArgs;
   const BwdArgs a{q,  k,  v,  o,  static_cast<const float*>(lse), dout, static_cast<float*>(delta),
                   dq, dk, dv, B,  H, KV, Sq, Sk, scale, causal, window, dq_rows, kv_keys,
-                  kv_rows, heads, cluster, parts, static_cast<cudaStream_t>(stream)};
+                  kv_rows, heads, cluster, stages, parts, static_cast<cudaStream_t>(stream)};
   if (dtype == kDtypeBF16) return dispatch_flash_bwd<__nv_bfloat16>(D, a);
   return dispatch_flash_bwd<float>(D, a);
+}
+
+// Clusters of ``cluster`` bf16 dkdv blocks (``keys`` keys a block,
+// ``rows`` query rows a step, ``stages`` ring stages) the card holds at
+// once, into *out.
+extern "C" int repro_flash_bwd_max_clusters(int D, int keys, int rows, int stages, int cluster,
+                                            int* out) {
+  using namespace repro;
+  switch (D) {
+    case 16: return dkdv_max_clusters<16>(keys, rows, stages, cluster, out);
+    case 32: return dkdv_max_clusters<32>(keys, rows, stages, cluster, out);
+    case 64: return dkdv_max_clusters<64>(keys, rows, stages, cluster, out);
+    case 80: return dkdv_max_clusters<80>(keys, rows, stages, cluster, out);
+    case 96: return dkdv_max_clusters<96>(keys, rows, stages, cluster, out);
+    case 128: return dkdv_max_clusters<128>(keys, rows, stages, cluster, out);
+    default: return kStatusBadHeadDim;
+  }
 }

@@ -8,6 +8,7 @@ is `ref.attention_bwd` and, summed the way the kernels sum,
 `bwd_plan`."""
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -21,9 +22,7 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # the backward's tiles compiled into csrc/flash_attention_bwd.cu
 BWD_F32_TILES = (64, 32, 16)  # float32: dq query rows, dkdv keys a block
 BWD_F32_WALK = 64             # float32: dq keys, dkdv query rows a step
-BWD_MMA_TILE = 64             # bf16: dq query rows and keys a step, dkdv keys
-BWD_MMA_ROWS = (32, 64)       # bf16: dkdv query rows a step
-BWD_MMA_ROWS64_DIMS = (64, 80, 96)  # csrc kMmaRows64: head dims with 64
+BWD_MMA_TILE = 64             # bf16: dq query rows and keys a step
 MAX_CLUSTER = 8               # csrc kMaxCluster: blocks of a cluster at most
 PARTS = {"prep": 1, "dq": 2, "dkdv": 4}  # csrc kPart*: kernels of a call
 
@@ -41,6 +40,21 @@ FWD_LAUNCH_REGS = {2: 168, 1: 128}
 FWD_MAX_STAGES = 4
 # query rows from which the bf16 forward takes two consumer warpgroups
 FWD_LONG = 1024
+# the bf16 dK/dV kernel's tiles (csrc BwdTiles<D, NC, QR>), by its
+# consumer warpgroups of 64 keys: keys a block, query rows a step (every
+# pair compiled at every head dim but `BWD_SPILLS`), the shared bytes and
+# registers as the forward's (one block an SM with two consumers, two
+# with one)
+BWD_KEYS = {2: 128, 1: 64}
+BWD_ROWS = (64, 32)
+BWD_REGS = {2: (24, 240), 1: (24, 232)}
+BWD_MAX_STAGES = 4
+# (D, consumers, rows) not compiled: its registers spill (ptxas)
+BWD_SPILLS = {(128, 1, 64)}
+# keys from which a bf16 dkdv block takes two consumer warpgroups, and
+# the ring stages the rule takes
+BWD_LONG = 1024
+BWD_STAGES = 2
 # the float32 forward's tiles (csrc Tf32Tiles<D, BK>): 64 query rows a
 # block, key tiles of 32 or 64; Q's hi and lo beside a ring of stages of
 # five tiles (K with its hi in place, K's lo, V, V^T's hi and lo), as
@@ -169,7 +183,10 @@ class BwdPlan(NamedTuple):
     walking ``kv_rows`` query rows a step of ``heads`` query heads, summed
     in head order; the ``cluster`` blocks of one (key tile, kv head) sum
     their partials in rank order, grid ``kv_grid`` = (B KV cluster, key
-    tiles).  The tile is the slow grid axis: dkdv dispatches key tile 0
+    tiles).  In bf16 the dkdv block is ``flash_bwd_dkdv_wgmma``:
+    ``kv_keys`` / 64 consumer warpgroups behind a producer, q and dO
+    through a ring of ``stages`` stages (0 in float32, which has no
+    ring).  The tile is the slow grid axis: dkdv dispatches key tile 0
     first, a causal dq the last query tile first, every head's heaviest
     tile before any head's next."""
     dq_rows: int
@@ -178,8 +195,29 @@ class BwdPlan(NamedTuple):
     kv_rows: int
     heads: int
     cluster: int
+    stages: int
     dq_grid: tuple
     kv_grid: tuple
+
+
+def bwd_tiles(D: int, consumers: int, rows: int, stages: int = 0):
+    """(atom, stages, smem) of the bf16 dK/dV kernel at head dim ``D``
+    with ``consumers`` warpgroups of 64 keys and ``rows`` query rows a
+    step: the swizzled row's elements (as `fwd_tiles`), the ring's stages
+    (``stages``, or the most up to `BWD_MAX_STAGES` that fit
+    `FWD_BUDGET`), and the dynamic shared bytes: 1024 to align the tiles,
+    K and V of the key tile, a stage's q and dO tiles and lse and D rows,
+    or the float32 partials of dK and dV ([keys][D + 4] each) where they
+    are larger, and 128 for the mbarriers, as `csrc/flash_attention_bwd.cu`
+    BwdTiles computes them."""
+    atom = 64 if D % 64 == 0 else 32 if D % 32 == 0 else 16
+    keys = BWD_KEYS[consumers]
+    kv, step, row = 2 * keys * D * 2, 2 * rows * D * 2, 2 * rows * 4
+    fit = min(BWD_MAX_STAGES,
+              (FWD_BUDGET[consumers] - 1024 - 128 - kv) // (step + row))
+    stages = stages or fit
+    parts = 2 * keys * (D + 4) * 4
+    return atom, stages, 1024 + max(kv + stages * (step + row), parts) + 128
 
 
 def cluster_heads(G: int) -> int:
@@ -196,36 +234,87 @@ def _fill_tile(slabs: int, S: int, sms: int) -> int:
                 BWD_F32_TILES[-1])
 
 
+def bwd_variants(D: int) -> tuple:
+    """The (consumers, rows a step) the bf16 dK/dV kernel is compiled for
+    at head dim ``D``: every pair but `BWD_SPILLS`'."""
+    return tuple((nc, rows) for nc in sorted(BWD_KEYS, reverse=True)
+                 for rows in BWD_ROWS if (D, nc, rows) not in BWD_SPILLS)
+
+
 def bwd_plan(B: int, H: int, KV: int, Sq: int, Sk: int, D: int,
              causal: bool, itemsize: int, sms: int) -> BwdPlan:
     """The backward's launch plan for these shapes on ``sms`` SMs.
 
-    bf16 (``itemsize`` 2): tiles of 64; one query head a dkdv block and a
-    cluster of G blocks (`cluster_heads` past G = 8); a causal dkdv walks
-    64 query rows a step where the kernel has that step
-    (`BWD_MMA_ROWS64_DIMS`), else 32.  The 64-row step takes more
-    registers (two blocks an SM where 32 rows fit three at D = 64), which
-    costs a non-causal grid of equal blocks a partial wave, while a causal
-    grid dispatched heaviest first hides it (NVIDIA H100 80GB HBM3, 700 W:
-    Zamba2's causal (1, 32, 2048, 80) 0.3749 ms at 64 rows against 0.4319
-    at 32, Whisper's non-causal encoder (2, 8, 1500, 64) 0.2166 against
-    0.1742).  float32: 16-, 32- or 64-row dq tiles and key dkdv tiles,
-    the largest that give each grid two blocks an SM (`_fill_tile`), the
-    G heads of a kv head in one block.  Shapes only."""
+    bf16 (``itemsize`` 2): dq tiles of 64; dkdv blocks of two consumer
+    warpgroups (128 keys) from `BWD_LONG` keys on, else one (64 keys);
+    64 query rows a step where that variant is compiled (not one consumer
+    at D = 128, `BWD_SPILLS`), else 32; `BWD_STAGES` ring stages; one
+    query head a dkdv block and a cluster of G blocks (`cluster_heads`
+    past G = 8).  `tools/flash_bwd_times.py --plans` times every variant
+    at the bf16 training shapes (NVIDIA H100 80GB HBM3, 700 W; PERF.md
+    §6): 64 rows took 10-17% less dkdv time than 32 wherever
+    both are built; 128 keys 1% less than 64 at Zamba2's and MiniCPM3's
+    2,048 keys, 2-4% more at Granite's and Whisper's 1,500-2,048, and
+    18-56% more below 1,024 keys (Whisper's decoder, LLaVA's 192); 2
+    stages within 3.5% of 4 either way.  float32: 16-, 32- or 64-row dq
+    tiles and key dkdv tiles, the largest that give each grid two blocks
+    an SM (`_fill_tile`), the G heads of a kv head in one block.  Shapes
+    only."""
     G = H // KV
     if itemsize == 2:
-        rows = 64 if causal and D in BWD_MMA_ROWS64_DIMS else 32
-        heads = cluster_heads(G)
-        dq_rows = dq_keys = kv_keys = BWD_MMA_TILE
-        cluster = G // heads
+        nc = 2 if Sk >= BWD_LONG else 1
+        rows = next(r for n, r in bwd_variants(D) if n == nc)
+        return _wgmma_bwd_plan(B, H, KV, Sq, Sk, D, nc, rows, BWD_STAGES)
+    dq_rows, kv_keys = _fill_tile(B * H, Sq, sms), _fill_tile(B * KV, Sk, sms)
+    return BwdPlan(dq_rows, BWD_F32_WALK, kv_keys, BWD_F32_WALK, G, 1, 0,
+                   (B * H, -(-Sq // dq_rows)), (B * KV, -(-Sk // kv_keys)))
+
+
+def _wgmma_bwd_plan(B: int, H: int, KV: int, Sq: int, Sk: int, D: int,
+                    consumers: int, rows: int, stages: int = 0) -> BwdPlan:
+    """The bf16 plan with ``consumers`` dkdv warpgroups, ``rows`` query
+    rows a step and ``stages`` ring stages (0: the most that fit)."""
+    heads = cluster_heads(H // KV)
+    cluster = H // KV // heads
+    keys = BWD_KEYS[consumers]
+    stages = bwd_tiles(D, consumers, rows, stages)[1]
+    return BwdPlan(BWD_MMA_TILE, BWD_MMA_TILE, keys, rows, heads, cluster,
+                   stages, (B * H, -(-Sq // BWD_MMA_TILE)),
+                   (B * KV * cluster, -(-Sk // keys)))
+
+
+def bwd_plans(B: int, H: int, KV: int, Sq: int, Sk: int, D: int,
+              causal: bool, itemsize: int, sms: int) -> list:
+    """The plan `bwd_plan` picks, then the ones its rule passes over
+    (bf16: every other compiled number of consumers and query rows a
+    step (`bwd_variants`) at `BWD_STAGES`, and the chosen one at the
+    ring's most stages; float32: every other tile, dq rows and dkdv keys
+    alike)."""
+    chosen = bwd_plan(B, H, KV, Sq, Sk, D, causal, itemsize, sms)
+    plans = [chosen]
+    if itemsize == 2:
+        alts = [_wgmma_bwd_plan(B, H, KV, Sq, Sk, D, nc, rows, BWD_STAGES)
+                for nc, rows in bwd_variants(D)]
+        alts.append(_wgmma_bwd_plan(B, H, KV, Sq, Sk, D,
+                                    chosen.kv_keys // 64, chosen.kv_rows))
     else:
-        dq_rows, kv_keys = _fill_tile(B * H, Sq, sms), _fill_tile(B * KV, Sk,
-                                                                 sms)
-        dq_keys = rows = BWD_F32_WALK
-        heads, cluster = G, 1
-    return BwdPlan(dq_rows, dq_keys, kv_keys, rows, heads, cluster,
-                   (B * H, -(-Sq // dq_rows)),
-                   (B * KV * cluster, -(-Sk // kv_keys)))
+        alts = [chosen._replace(dq_rows=t, kv_keys=t,
+                                dq_grid=(B * H, -(-Sq // t)),
+                                kv_grid=(B * KV, -(-Sk // t)))
+                for t in BWD_F32_TILES]
+    for p in alts:
+        if p not in plans:
+            plans.append(p)
+    return plans
+
+
+@functools.lru_cache(maxsize=None)
+def bwd_max_clusters(index: int, D: int, plan: BwdPlan) -> int:
+    """Clusters of ``plan``'s bf16 dkdv blocks card ``index`` holds at
+    once, by `cudaOccupancyMaxActiveClusters`."""
+    with torch.cuda.device(index):
+        return _build.extension().flash_bwd_max_clusters(
+            D, plan.kv_keys, plan.kv_rows, plan.stages, plan.cluster)
 
 
 def _check(name, q, k, v):
@@ -313,22 +402,24 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
 
 
 def _launch_bwd(q, k, v, o, lse, do, causal: bool, window: int,
-                plan: BwdPlan, parts: int = 7, delta=None):
+                plan: BwdPlan, parts: int = 7, delta=None, ext=None):
     """Launch the backward's kernels named by ``parts`` (`PARTS` bits; 7:
     all three) on checked operands with ``plan``; -> (dq, dk, dv, delta).
     A part left out leaves its outputs unwritten; without the prep pass dq
-    and dkdv read ``delta`` (float32 (B,H,Sq), from an earlier call)."""
+    and dkdv read ``delta`` (float32 (B,H,Sq), from an earlier call).
+    ``ext``: a timing copy of the kernels (`_build.extension(defines=)`)
+    to launch instead of the build the wrapper uses."""
     B, H, Sq, D = q.shape
     KV, Sk = k.shape[1], k.shape[2]
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if delta is None:
         delta = torch.empty(B, H, Sq, dtype=torch.float32, device=q.device)
-    _build.extension().flash_attention_bwd(
+    (ext or _build.extension()).flash_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         lse.data_ptr(), do.data_ptr(), delta.data_ptr(), dq.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), B, H, KV, Sq, Sk, D, D ** -0.5,
         int(causal), int(window), DTYPES[q.dtype], plan.dq_rows,
-        plan.kv_keys, plan.kv_rows, plan.heads, plan.cluster, parts,
-        _build.stream_of(q))
+        plan.kv_keys, plan.kv_rows, plan.heads, plan.cluster, plan.stages,
+        parts, _build.stream_of(q))
     _build.count_launch("flash_attention_bwd")
     return dq, dk, dv, delta

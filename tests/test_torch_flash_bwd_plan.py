@@ -20,6 +20,8 @@ float32 grids filling 132 SMs.  The block mapping below mirrors the
 kernels' (`flash_bwd_dq_*`, `flash_bwd_dkdv_*`).
 """
 import collections
+import pathlib
+import re
 
 import jax
 import jax.numpy as jnp
@@ -28,9 +30,15 @@ import pytest
 import torch
 
 from repro.kernels.xla_flash import flash_attention_xla
-from repro_torch.kernels import ref
-from repro_torch.kernels.flash_attention import (MAX_CLUSTER, bwd_plan,
-                                                 cluster_heads)
+from repro_torch.kernels import _build, ref
+from repro_torch.kernels.flash_attention import (BWD_KEYS, BWD_LONG,
+                                                 BWD_MAX_STAGES, BWD_REGS,
+                                                 BWD_ROWS, BWD_SPILLS,
+                                                 BWD_STAGES, FWD_BUDGET,
+                                                 FWD_LAUNCH_REGS, HEAD_DIMS,
+                                                 MAX_CLUSTER, bwd_plan,
+                                                 bwd_plans, bwd_tiles,
+                                                 bwd_variants, cluster_heads)
 
 SMS = 132  # the H100's SMs
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
@@ -244,10 +252,157 @@ def test_float32_grids_fill_the_card(shape, blocks, tile):
         assert grid[0] * grid[1] >= blocks
 
 
-@pytest.mark.parametrize("D, causal, rows", [
-    (64, True, 64), (80, True, 64), (96, True, 64), (128, True, 32),
-    (16, True, 32), (32, True, 32), (64, False, 32), (80, False, 32)])
-def test_bf16_dkdv_step(D, causal, rows):
-    """A causal bf16 dkdv walks 64 query rows a step where the kernel has
-    that step, a non-causal one 32."""
-    assert bwd_plan(1, 8, 8, 512, 512, D, causal, 2, SMS).kv_rows == rows
+# (B, H, KV, Sq, Sk, D, causal) -> the bf16 dkdv's (keys a block, query
+# rows a step, ring stages)
+DKDV_RULE = [
+    ((2, 32, 4, 2048, 2048, 128, True), (128, 64, 2)),   # Yi-9B
+    ((1, 32, 32, 2048, 2048, 80, True), (128, 64, 2)),   # Zamba2
+    ((1, 40, 40, 2048, 2048, 96, True), (128, 64, 2)),   # MiniCPM3
+    ((1, 16, 8, 2048, 2048, 64, True), (128, 64, 2)),    # Granite
+    ((2, 8, 8, 1500, 1500, 64, False), (128, 64, 2)),    # Whisper encoder
+    ((1, 56, 8, 192, 192, 128, True), (64, 32, 2)),      # LLaVA's copy
+    ((2, 8, 8, 448, 1500, 64, False), (128, 64, 2)),     # Whisper cross
+    ((2, 8, 8, 448, 448, 64, True), (64, 64, 2)),        # Whisper decoder
+    ((2, 8, 1, 100, 100, 16, True), (64, 64, 2)),        # G = 8, D = 16
+    ((2, 4, 2, 33, 33, 32, True), (64, 64, 2)),          # D = 32
+]
+
+
+@pytest.mark.parametrize("shape, want", DKDV_RULE, ids=str)
+def test_bf16_dkdv_step(shape, want):
+    """The bf16 dkdv takes two consumer warpgroups (128-key blocks) from
+    `BWD_LONG` keys on, else one (64 keys), 64 query rows a step where
+    that variant is compiled (else 32) and `BWD_STAGES` ring stages; its
+    grid covers the keys in tiles of its block, G / heads blocks of one
+    key tile and kv head a cluster; `bwd_plans` weighs every compiled
+    variant and the ring's most stages."""
+    B, H, KV, Sq, Sk, D, causal = shape
+    plan = bwd_plan(B, H, KV, Sq, Sk, D, causal, 2, SMS)
+    assert (plan.kv_keys, plan.kv_rows, plan.stages) == want
+    nc = plan.kv_keys // 64
+    assert plan.kv_keys == BWD_KEYS[2 if Sk >= BWD_LONG else 1]
+    assert (nc, plan.kv_rows) in bwd_variants(D)
+    assert plan.kv_rows == 64 or (D, nc, 64) in BWD_SPILLS
+    assert plan.stages == BWD_STAGES
+    assert plan.kv_grid == (B * KV * plan.cluster, -(-Sk // plan.kv_keys))
+    plans = bwd_plans(B, H, KV, Sq, Sk, D, causal, 2, SMS)
+    assert plans[0] == plan and len(set(plans)) == len(plans)
+    assert {(p.kv_keys // 64, p.kv_rows) for p in plans} == \
+        set(bwd_variants(D))
+    assert {p.stages for p in plans if p[:4] == plan[:4]} == {
+        BWD_STAGES, bwd_tiles(D, nc, plan.kv_rows)[1]}
+
+
+# ----------------------------------------------------------------------
+# the bf16 dK/dV kernel's tiles and source
+# ----------------------------------------------------------------------
+SM_SHARED = 233472  # bytes of shared memory an SM, 1024 of it reserved a block
+
+
+def _source(name):
+    return (pathlib.Path(_build.CSRC) / name).read_text()
+
+
+@pytest.mark.parametrize("D, consumers, rows", [
+    (D, nc, rows) for D in HEAD_DIMS for nc, rows in bwd_variants(D)])
+def test_bwd_tiles_fit_the_card(D, consumers, rows):
+    """Every compiled dkdv variant at every bf16 head dim: two to
+    `BWD_MAX_STAGES` ring stages, each within the block's share of the
+    SM's shared memory (one block an SM with two consumers, two with
+    one), the float32 partials of the cluster's sum included; the
+    warpgroups' registers within the launch's, the consumer's
+    accumulators (dK and dV, S^T and dP^T, P^T and dS^T in bf16) within
+    its; and at every cluster size each key of the tile summed by one
+    rank."""
+    atom, most, smem = bwd_tiles(D, consumers, rows)
+    keys = BWD_KEYS[consumers]
+    assert D % atom == 0 and 2 * atom in (32, 64, 128)
+    assert 2 <= most <= BWD_MAX_STAGES
+    blocks = 3 - consumers
+    for stages in range(2, most + 1):
+        smem = bwd_tiles(D, consumers, rows, stages)[2]
+        assert smem <= FWD_BUDGET[consumers] <= 232448
+        assert blocks * (smem + 1024) <= SM_SHARED
+        assert smem - 1024 - 128 >= 2 * keys * (D + 4) * 4  # the partials
+    if most < BWD_MAX_STAGES:  # one more stage would not fit
+        step = 2 * rows * D * 2 + 2 * rows * 4
+        assert smem + step > FWD_BUDGET[consumers]
+    producer, consumer = BWD_REGS[consumers]
+    regs = 128 * (producer + consumers * consumer)
+    assert regs <= FWD_LAUNCH_REGS[consumers] * 128 * (consumers + 1)
+    assert blocks * regs <= 65536
+    assert D + rows + rows // 2 <= consumer
+    for cluster in range(1, MAX_CLUSTER + 1):
+        cover = [r for rank in range(cluster)
+                 for r in range(keys * rank // cluster,
+                                keys * (rank + 1) // cluster)]
+        assert cover == list(range(keys))
+
+
+def test_bwd_tiles_mirror_the_kernel():
+    """`bwd_tiles`' constants are `csrc/flash_attention_bwd.cu`
+    BwdTiles'."""
+    text = _source("flash_attention_bwd.cu")
+    tiles = re.search(r"struct BwdTiles \{.*?\n\};", text, re.S).group(0)
+    assert "kKeys = 64 * NC;" in tiles
+    assert {nc: 64 * nc for nc in BWD_KEYS} == BWD_KEYS
+    assert (f"kBudget = NC == 2 ? {FWD_BUDGET[2]} : {FWD_BUDGET[1]};"
+            in tiles)
+    assert f"kProducerRegs = {BWD_REGS[2][0]};" in tiles
+    assert BWD_REGS[1][0] == BWD_REGS[2][0]
+    assert (f"kConsumerRegs = NC == 2 ? {BWD_REGS[2][1]} : "
+            f"{BWD_REGS[1][1]};") in tiles
+    assert (f"(NC == 2 ? {FWD_LAUNCH_REGS[2]} * 384 : "
+            f"{FWD_LAUNCH_REGS[1]} * 256)") in tiles
+    assert f"kMaxStages = kFit < {BWD_MAX_STAGES} ? kFit : " \
+        f"{BWD_MAX_STAGES};" in tiles
+    assert "kBarBytes = 128;" in tiles
+    assert "kPartBytes = 2 * kKeys * (D + kPartPad) * 4;" in tiles
+    assert "constexpr int kPartPad = 4;" in text
+    assert "QR == 32 || QR == 64" in tiles and set(BWD_ROWS) == {32, 64}
+
+
+def test_source_runs_the_wgmma_dkdv_for_every_bf16_head_dim():
+    """Every dispatched head dim's bf16 backward launches
+    flash_bwd_dkdv_wgmma in each compiled variant (consumers, query rows
+    a step); the mma.sync dkdv is gone; the dkdv kernel's products are
+    wgmma, its tiles TMA copies, it has no atomic, and it reads a peer's
+    shared memory only after a cluster barrier that follows its own
+    partials' stores, and leaves only after another."""
+    text = _source("flash_attention_bwd.cu")
+    for gone in ("flash_bwd_dkdv_mma", "kMmaRows64", "launch_dkdv_mma"):
+        assert gone not in text
+    body = re.search(r"int dispatch_flash_bwd\(.*?\n}", text, re.S).group(0)
+    dims = tuple(int(d) for d in re.findall(
+        r"case (\d+): return launch_flash_bwd<T, \1>", body))
+    assert dims == HEAD_DIMS
+    assert "return launch_flash_bwd_mma<D>(a);" in text
+    mma = re.search(r"int launch_flash_bwd_mma\(.*?\n}", text, re.S).group(0)
+    assert "with_dkdv<D>(a.kv_keys, a.kv_rows" in mma
+    assert "launch_dkdv_wgmma<D, decltype(v)>(a)" in mma
+    pick = re.search(r"int with_dkdv\(.*?\n}", text, re.S).group(0)
+    for nc, keys in BWD_KEYS.items():
+        for rows in BWD_ROWS:
+            assert (f"keys == {keys} && rows == {rows}) return "
+                    f"f(Dkdv<D, {nc}, {rows}>{{}});") in pick
+    assert BWD_SPILLS == {(128, 1, 64)}
+    guarded = pick[pick.index("if constexpr (D != 128) {"):]
+    assert guarded.index("f(Dkdv<D, 1, 64>{})") < guarded.index("}")
+    launch = re.search(r"int launch_dkdv_wgmma\(.*?\n}", text, re.S).group(0)
+    assert "flash_bwd_dkdv_wgmma<D, V::kNC, V::kQR>" in launch
+    assert launch.count("encode_tile_map<bf16>") == 4
+    kernel = re.search(r"flash_bwd_dkdv_wgmma\(const __grid_constant__.*?\n}",
+                       text, re.S).group(0)
+    assert "atom" not in kernel.replace("kAtom", "")
+    assert "Wgmma<QR>::template ss<0, 0>" in kernel
+    assert "Wgmma<D>::template rs<1>" in kernel
+    assert "tma_load_3d" in kernel and "regs_dec" in kernel
+    first_read = kernel.index("map_shared_rank")
+    last_store = kernel.rindex("pk + r * PD + col", 0, first_read)
+    assert "cl.sync();" in kernel[last_store:first_read]
+    assert "cl.sync();" in kernel[kernel.rindex("map_shared_rank"):]
+    hdr = _source("sm90.cuh")
+    forms = {int(n) for n in re.findall(r"^REPRO_WGMMA\((\d+),", hdr, re.M)}
+    assert set(HEAD_DIMS) | set(BWD_ROWS) <= forms
+    for ptx in ("wgmma.mma_async", "cp.async.bulk.tensor.3d"):
+        assert ptx in hdr
