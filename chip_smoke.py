@@ -32,16 +32,19 @@ Phases (any failure exits non-zero and prints no result):
                lane forms (`CLASS_SHAPES`).  The flash backward runs at the
                training shapes (`BWD_SHAPES`) and at small ragged,
                windowed and GQA cases (`BWD_SMALL`: G = 7 and 8 run
-               clusters of 7 and 8) from the forward's own output and
+               clusters of 7 and 8; `BWD_SMALL_BF16`: dq blocks with no
+               key tile) from the forward's own output and
                log-sum-exp (held against `ref.attention_fwd`, and at
                every served and training shape, each launch plan
                `fwd_plans` weighs, against `ref.attention_fwd_tiled`
                within FLASH_TILED_TOL (float32: F32_TOL, the kernel's
                split TF32 products) and timed), against
                `ref.attention_bwd`, every case called twice and equal bit
-               for bit, beside SDPA's backward, every launch plan its rule
-               weighs checked and timed, and its parts (prep, dq, dkdv)
-               timed alone at `BWD_PARTS`, with the
+               for bit, beside SDPA's backward (each bf16 small case also
+               under every dq variant `bwd_plans` weighs), every launch
+               plan its rule weighs checked and timed, and its parts
+               (prep, dq, dkdv) and each dq variant's dq timed alone at
+               `BWD_PARTS` (the dq blocks an SM holds logged), and the
                forward's training form timed at each bf16 one, at
                train-100m's and at MLA's float32 one (Whisper's encoder
                and cross attention non-causal, Sq != Sk); the attention
@@ -1031,6 +1034,13 @@ BWD_SMALL = ((8, 2, 100, 100, 64, True, 0), (8, 2, 100, 100, 64, True, 48),
              (7, 1, 70, 70, 64, True, 0), (14, 2, 90, 90, 128, True, 24),
              (7, 1, 130, 50, 96, False, 0), (8, 1, 100, 100, 80, True, 0),
              (16, 2, 75, 75, 64, True, 32), (8, 1, 50, 130, 32, False, 0))
+# and in bf16 alone: a causal window with Sq > Sk, whose dq blocks from
+# row 128 on see no key tile (a block with no step still waits for its q
+# and dO copies).  Rows from Sk + window - 1 on see no key: there the
+# plain `ref.attention` averages every value while the flash forward
+# writes 0, as `repro`'s `xla_flash` does, so float32's check of the
+# forward's output would hold the kernel to the plain version's average.
+BWD_SMALL_BF16 = ((4, 2, 300, 50, 64, True, 10),)
 # BWD_SHAPES rows whose parts (prep, dq, dkdv) and launch plans are timed
 BWD_PARTS = ("yi-9b train", "zamba2-2.7b train", "train-100m")
 
@@ -1050,7 +1060,8 @@ def check_flash_bwd(rec):
     held against `ref.attention_fwd` first; every case called twice and
     equal bit for bit; timed warm and cold beside its bound, the plain
     version and SDPA's backward, and at `BWD_PARTS` each part (prep, dq,
-    dkdv) alone and every launch plan the rule weighs."""
+    dkdv) alone and every launch plan the rule weighs; each bf16 small
+    case also under every dq variant (`_check_dq_variants`)."""
     import torch
 
     from repro_torch.kernels import cost, ref
@@ -1061,10 +1072,19 @@ def check_flash_bwd(rec):
     g = torch.Generator(device="cuda").manual_seed(SEED + 5)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     err = 0.0
+    held = {f"D {D}, {fmod.DQ_ROWS[nc]} rows, {fmod.bwd_dq_tiles(D, nc)[1]} "
+            f"stages": fmod.bwd_dq_blocks(0, D, fmod.DQ_ROWS[nc])
+            for D in fmod.HEAD_DIMS for nc in sorted(fmod.DQ_ROWS)}
+    rec["bwd_dq_blocks"] = held
+    log("  flash_attention_bwd dq blocks an SM "
+        "(cudaOccupancyMaxActiveBlocksPerMultiprocessor): "
+        + "; ".join(f"{k}: {n}" for k, n in held.items()))
     small = [(f"small G={H // KV} Sq={Sq} Sk={Sk} window={w}", dt, 2, H, KV,
               Sq, Sk, D, c, w)
              for dt in ("bfloat16", "float32")
-             for H, KV, Sq, Sk, D, c, w in BWD_SMALL]
+             for H, KV, Sq, Sk, D, c, w in BWD_SMALL] + [
+        (f"small G={H // KV} Sq={Sq} Sk={Sk} window={w}", "bfloat16", 2, H,
+         KV, Sq, Sk, D, c, w) for H, KV, Sq, Sk, D, c, w in BWD_SMALL_BF16]
     cases = [c + (0,) for c in BWD_SHAPES] + small
     for label, dts, B, H, KV, Sq, Sk, D, causal, window in cases:
         dt = getattr(torch, dts)
@@ -1096,6 +1116,9 @@ def check_flash_bwd(rec):
         for name, a, b in zip(("dq", "dk", "dv"), got, want):
             err = max(err, check_close(f"flash_attention_bwd {name}", a, b,
                                        tol))
+        if label.startswith("small") and dt == torch.bfloat16:
+            err = max(err, _check_dq_variants(fmod, label, q, k, v, o, lse,
+                                              do, want, mask, sms))
         shape = f"({B},{H},{Sq},{D}) kv {KV}" + (f" Sk {Sk}" if Sk != Sq
                                                   else "")
         plan = fmod.bwd_plan(B, H, KV, Sq, Sk, D, causal, q.element_size(),
@@ -1152,12 +1175,42 @@ def check_flash_bwd(rec):
     log(f"flash_attention_bwd: ok, max abs err {err:.3g}")
 
 
+def _check_dq_variants(fmod, label, q, k, v, o, lse, do, want, mask, sms):
+    """A small bf16 case under every plan `bwd_plans` weighs whose dq part
+    differs from the chosen one's (the other dq variants: one or two
+    consumer warpgroups), held against ``want`` within `BF16_TOL` and
+    called twice, equal bit for bit; -> the largest error."""
+    import torch
+
+    B, H, Sq, D = q.shape
+    KV, Sk = k.shape[1], k.shape[2]
+    plans = fmod.bwd_plans(B, H, KV, Sq, Sk, D, mask["causal"],
+                           q.element_size(), sms)
+    err = 0.0
+    for plan in plans[1:]:
+        if plan.dq_rows == plans[0].dq_rows:
+            continue
+        got = fmod._launch_bwd(q, k, v, o, lse, do, plan=plan, **mask)[:3]
+        again = fmod._launch_bwd(q, k, v, o, lse, do, plan=plan, **mask)[:3]
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"flash_attention_bwd {label} "
+                                 f"({_bwd_plan_str(plan)}): two calls "
+                                 f"differ")
+        for name, a, b in zip(("dq", "dk", "dv"), got, want):
+            err = max(err, check_close(f"flash_attention_bwd {name}", a, b,
+                                       BF16_TOL))
+        log(f"  flash_attention_bwd {label} dq {plan.dq_rows} rows: dq "
+            f"{err_str(got[0], want[0], BF16_TOL)}")
+    return err
+
+
 def _time_bwd_plans(rec, fmod, label, shape, q, k, v, o, lse, do, want,
                     tol, sms, causal, parts):
     """At a training shape: every launch plan `bwd_plans` lists, held
     against ``want`` and timed whole, then with ``parts`` the chosen
-    plan's parts alone (prep; dq and dkdv from the prep's D), each by
-    `graph_ms`."""
+    plan's parts alone (prep; dq and dkdv from the prep's D) and, in
+    bf16, each dq variant's dq part alone, each by `graph_ms`."""
     import torch
 
     B, H, Sq, D = q.shape
@@ -1188,6 +1241,18 @@ def _time_bwd_plans(rec, fmod, label, shape, q, k, v, o, lse, do, want,
         for name, bits in fmod.PARTS.items()}
     log(f"  flash_attention_bwd {label} {shape} parts: "
         + ", ".join(f"{n} {t:.4f} ms" for n, t in case["parts"].items()))
+    if q.element_size() != 2:  # float32: one dq kernel a tile, no variants
+        return
+    case["dq"] = {}
+    for p in plans:
+        name = f"{p.dq_rows} rows"
+        if name in case["dq"]:
+            continue
+        case["dq"][name] = graph_ms(lambda: fmod._launch_bwd(
+            q, k, v, o, lse, do, causal, 0, p, parts=fmod.PARTS["dq"],
+            delta=delta))
+        log(f"  flash_attention_bwd {label} {shape} dq {name}: "
+            f"{case['dq'][name]:.4f} ms")
 
 
 def _plan_str(p) -> str:

@@ -27,6 +27,7 @@ int repro_flash_attention_bwd(const void*, const void*, const void*,
                               int, float, int, int, int, int, int, int, int,
                               int, int, int, void*);
 int repro_flash_bwd_max_clusters(int, int, int, int, int, int*);
+int repro_flash_bwd_dq_blocks(int, int, int*);
 int repro_decode_attention(const void*, const void*, const void*, const void*,
                            void*, int, int, int, int, int, int, int, int, int,
                            float, int, int, void*);
@@ -104,6 +105,12 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
                                           stages, parts, P(stream)),
                 "flash_attention_bwd");
         });
+  m.def("flash_bwd_dq_blocks", [](int D, int rows) {
+    int n = 0;
+    check(repro_flash_bwd_dq_blocks(D, rows, &n),
+          "flash_bwd_dq_blocks");
+    return n;
+  });
   m.def("flash_bwd_max_clusters",
         [](int D, int keys, int rows, int stages, int cluster) {
           int n = 0;

@@ -42,12 +42,14 @@
 // 989 TFLOP/s, against ~151 MB of q, o, dO, dQ, k, v, dK and dV, 0.045 ms
 // at 3.35 TB/s: operations, so bf16 runs on the tensor cores.  dkdv does
 // four of the seven products (S^T, dP^T, dV, dK: 137.5 GFLOP at Yi-9B,
-// 0.139 ms at that rate), so it is the part the design has to feed.  On
-// an NVIDIA H100 80GB HBM3 at 700 W dkdv now reads 0.43-0.44 ms there,
-// 0.32 of that rate, and the whole backward 0.85 ms (PERF.md §6): the
-// products still wait on each other within a warpgroup (no next step's
-// scores are issued during this step's dV and dK), and dq (0.39-0.40 ms,
-// mma.sync) is as large a part now.
+// 0.139 ms at that rate), dq three (S, dP, dQ: 103.1 GFLOP, 0.104 ms; at
+// Zamba2's (1, 32, 2048, 80) 0.0326 ms), prep reads o and dO (0.0202 ms of
+// bytes at Yi-9B).  On an NVIDIA H100 80GB HBM3 at 700 W (PERF.md §6)
+// dq reads 0.231-0.234 ms at Yi-9B, 0.45 of the tensor cores'
+// rate (the mma.sync dq read 0.40), dkdv 0.43-0.44 (0.32), the whole
+// backward 0.69-0.70 ms against SDPA's 0.50; at Zamba2 dq 0.108 (0.30).  At D = 64 a step's latency bounds dq more than its products:
+// Whisper's non-causal encoder (2, 8, 1500, 64) reads 0.19 of the rate,
+// its 24-step blocks in 1.45 waves at one or two an SM.
 //
 // bf16 dkdv (flash_bwd_dkdv_wgmma, on Hopper's units, sm90.cuh):
 //  - warp specialisation, as the bf16 forward: warpgroup 0 is the
@@ -97,12 +99,39 @@
 //    word); exact float32 FMAs on the CUDA cores stay (TF32 would miss
 //    the 2e-5 float32 tolerance).
 //
-// bf16 dq (flash_bwd_dq_mma): mma.sync m16n8k16 with the forward's
-// fragment code, four warps a block, a warp owning 16 query rows, q in
-// registers, dO, K and V read as fragments from shared memory (K and V
-// tiles of 64 keys double buffered by cp.async).  P and dS are rounded to
-// bf16 where they enter a product, in dq and dkdv alike, as the forward
-// rounds P.
+// bf16 dq (flash_bwd_dq_wgmma, on the same units; a forward pass in shape:
+// S = q K^T as the forward's scores, dP = dO V^T the same form with V in
+// K's place, dQ += dS K the forward's P.V with K in V's place):
+//  - warpgroup 0 is the producer, down to 24 registers; its thread 0
+//    issues every copy by TMA: q and dO of the block's 64 NC query rows
+//    once, then K and V of each 64-key step into a ring of 2-4 stages
+//    (as many as the block's share of the SM holds) with "full" and
+//    "empty" mbarriers; one or two consumer warpgroups own 64 query rows
+//    each (one block an SM with two, two with one, three at D <= 64);
+//  - a consumer's step: S and dP on wgmma m64n64k16, both operands
+//    K-major from their swizzled tiles, issued together; P = 2^(S scale
+//    log2 e - lse log2 e) while dP runs (each thread's two rows' lse and D
+//    read once before the walk); dS = P (dP - D) rounded to bf16 into the
+//    A fragment (the S accumulator's layout, as the forward's P) of
+//    dQ += dS K on m64n{D}k16, K read MN-major.  Where the ring holds
+//    three stages, step i's scores are issued with step i - 1's dQ
+//    product, so that the exponentials and dS overlap it (the forward's
+//    order); at D = 128 with one consumer (two stages) and at three
+//    blocks an SM each step waits for its own product.  A thread holds
+//    dQ (D / 2 floats), S and dP (32 each) and dS's fragment (16
+//    registers): 144 at D = 128, inside the 232-240 setmaxnreg gives a
+//    consumer of one or two blocks an SM; in the serial order dS's
+//    fragment follows S and dP, 96 at D = 64, inside the 136 of three;
+//  - a warpgroup hands back unread the steps none of its rows see (the
+//    diagonal's far side, the window's near side, rows past Sq);
+//  - dQ is written once, scaled, by the warpgroup that owns its rows.
+// The old dq (mma.sync m16n8k16 fed by ldmatrix, four warps of 16 rows
+// that all copied K and V by cp.async into two stages, then multiplied,
+// then computed P and dS between two __syncthreads a step) read 0.39-0.40
+// ms at Yi-9B, 0.26 of the tensor cores' rate: every warp waited for the
+// copies and for the slowest warp each step, and its products and
+// exponentials never overlapped.  P and dS are rounded to bf16 where they
+// enter a product, in dq and dkdv alike, as the forward rounds P.
 //
 // float32 (flash_bwd_dq_f32, flash_bwd_dkdv_f32; the zoo's and train-100m's
 // models) on the CUDA cores: 4 T threads for a tile of T rows (keys), each
@@ -522,101 +551,160 @@ flash_bwd_dkdv_f32(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------
-// bf16 on the tensor cores (mma.sync m16n8k16, float32 accumulators, the
-// fragments of common.cuh): every product of the backward is an A.B of
-// bf16 tiles in shared memory or registers, P and dS rounded to bf16
-// where they enter a product.
+// bf16 on Hopper's units (wgmma, TMA, a producer warpgroup): every
+// product of the backward is an A.B of bf16 tiles in shared memory or
+// registers, P and dS rounded to bf16 where they enter a product.
 // ---------------------------------------------------------------------
-constexpr int kMmaBwdThreads = 128;  // dq: four warps
-constexpr int kMmaBwdTile = 64;      // dq: query rows a block, keys a step
-constexpr int kMmaBwdPad = 8;        // bf16 padding of a shared row (16 bytes)
-constexpr int kPartPad = 4;          // float padding of a partial's row
+constexpr int kPartPad = 4;  // float padding of a partial's row
 
-// A fragment (16 x 16): rows m0.., columns k0.. of a [m][k] tile.
-__device__ __forceinline__ void lds_a(uint32_t (&a)[4], const bf16* t, int P, int m0, int k0,
-                                      int lane) {
-  ldmatrix_x4(a, t + (m0 + (lane & 15)) * P + k0 + (lane >> 4) * 8);
-}
-// B fragments of the n-tiles n0.. and n0 + 8.. (regs 0-1, 2-3) over k0..
-// k0 + 15, from a [n][k] tile.
-__device__ __forceinline__ void lds_b_nk(uint32_t (&b)[4], const bf16* t, int P, int n0, int k0,
-                                         int lane) {
-  ldmatrix_x4(b, t + (n0 + (lane & 7) + ((lane >> 4) << 3)) * P + k0 + ((lane >> 3) & 1) * 8);
-}
-// The same from a [k][n] tile (read transposed).
-__device__ __forceinline__ void lds_b_kn(uint32_t (&b)[4], const bf16* t, int P, int k0, int n0,
-                                         int lane) {
-  ldmatrix_x4_trans(b, t + (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * P + n0 + (lane >> 4) * 8);
-}
+// The tiles of flash_bwd_dq_wgmma<D, NC>: NC consumer warpgroups of 64
+// query rows each (a block of 64 NC rows) behind one producer warpgroup,
+// walking 64 keys a step.  A tile is stored as BwdTiles' below: D / kAtom
+// column blocks of rows x kAtom bf16, swizzled.  Shared memory, from a
+// 1024-byte boundary: q and dO of the block's rows, once; a ring of
+// kStages steps (as many as fit, up to 4), each K and V of 64 keys (TMA);
+// the mbarriers past both.  One block an SM with two consumers (kBudget:
+// all 227 KB), two with one, three with one at D <= 64, where its serial
+// order fits the 136 registers a consumer then gets (kBlocks; the
+// launch's registers a thread, 168, 128 or 80, are moved from the
+// producer by setmaxnreg).
+template <int D, int NC>
+struct DqTiles {
+  static constexpr int kAtom = D % 64 == 0 ? 64 : D % 32 == 0 ? 32 : 16;
+  static constexpr int kSpan = 2 * kAtom;  // bytes of a swizzled row
+  static constexpr int kColBlocks = D / kAtom;
+  static constexpr int kRows = 64 * NC;
+  static constexpr int kKeys = 64;
+  static constexpr int kThreads = 128 * (NC + 1);
+  static constexpr int kQBytes = 2 * kRows * D * 2;     // q and dO
+  static constexpr int kStepBytes = 2 * kKeys * D * 2;  // K and V of a step
+  static constexpr int kBlocks = NC == 2 ? 1 : D <= 64 ? 3 : 2;
+  static constexpr int kBudget = 233472 / kBlocks - 1024;
+  static constexpr int kBarBytes = 128;
+  static constexpr int kFit = (kBudget - 1024 - kBarBytes - kQBytes) / kStepBytes;
+  static constexpr int kStages = kFit < 4 ? kFit : 4;
+  static constexpr int kSmem = 1024 + kQBytes + kStages * kStepBytes + kBarBytes;
+  // registers a thread: the launch's, then after setmaxnreg the producer's
+  // and the consumers' (multiples of 8)
+  static constexpr int kLaunchRegs = 65536 / (kThreads * kBlocks) / 8 * 8;
+  static constexpr int kProducerRegs = 24;
+  static constexpr int kConsumerRegs =
+      (kLaunchRegs * kThreads - kProducerRegs * 128) / (128 * NC) / 8 * 8;
+  static_assert(kStages >= 2 && kSmem <= kBudget, "the K/V ring does not fit");
+  static_assert(kProducerRegs * 128 + kConsumerRegs * 128 * NC <= kLaunchRegs * kThreads,
+                "the warpgroups' registers exceed the launch's");
+};
 
-// Accumulator n-tiles 2 kk and 2 kk + 1 as the A fragment of k-step kk.
-__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&c0)[4],
-                                         const float (&c1)[4]) {
-  a[0] = pack_bf16(c0[0], c0[1]);
-  a[1] = pack_bf16(c0[2], c0[3]);
-  a[2] = pack_bf16(c1[0], c1[1]);
-  a[3] = pack_bf16(c1[2], c1[3]);
-}
+// A dq consumer's order of a step.  Where the ring holds three stages or
+// more, step i's scores are issued together with step i - 1's dQ product
+// (the forward's order: S_i and P_{i-1} V), so that the exponentials and
+// dS overlap that product; a consumer then holds two stages at a time
+// and 16 more registers (dS's fragment beside the next S and dP).  With
+// two stages (D = 128, one consumer) or three blocks an SM (their
+// consumers' 136 registers) each step waits for its own dQ product: the
+// producer fills another stage, and the other blocks use the tensor
+// cores, meanwhile.
 
-template <int D>
-constexpr size_t bwd_dq_mma_smem_bytes() {
-  return (6ull * kMmaBwdTile) * (D + kMmaBwdPad) * sizeof(bf16);
-}
+// dQ of 64 NC query rows of one (batch, head), 64 keys a step.
+//  - producer (warpgroup 0, down to kProducerRegs): thread 0 issues every
+//    TMA copy: q and dO of the block's rows once, then K and V of each
+//    step into the ring once its "empty" barrier says the consumers have
+//    read the stage; keys past Sk and rows past Sq read as zeros.  Every
+//    consumer waits for q and dO, also in a block with no step (a causal
+//    window's rows past the last key tile), so that no copy into the
+//    block's shared memory is in flight when it exits;
+//  - consumer warpgroup w (rows 64 w.. of the block, 16 a warp), a step:
+//    S = q K^T and dP = dO V^T on wgmma m64n64k16, both operands K-major
+//    from their tiles, issued together; P = 2^(S scale log2 e - lse
+//    log2 e) (0 where hidden) while dP runs; dS = P (dP - D), rounded to
+//    bf16 into the A fragment (the S accumulator's layout) of dQ += dS K
+//    on m64n{D}k16, K read MN-major (its rows are the k); the stage goes
+//    back to the producer once that product is done.  The steps of the
+//    block's walk that no row of this warpgroup sees (its rows past Sq,
+//    the diagonal's far side, the window's near side) are handed back
+//    unread, each after its "full" barrier, so that no warpgroup's
+//    arrivals run a round ahead of the other's;
+//  - dQ stays in registers (D / 2 floats a thread) and is written once,
+//    scaled, by the warpgroup that owns its rows: no atomic.
+template <int D, int NC>
+__global__ void __launch_bounds__(DqTiles<D, NC>::kThreads, DqTiles<D, NC>::kBlocks)
+flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tm_q,
+                   const __grid_constant__ CUtensorMap tm_k,
+                   const __grid_constant__ CUtensorMap tm_v,
+                   const __grid_constant__ CUtensorMap tm_do, const float* __restrict__ lse,
+                   const float* __restrict__ delta, bf16* __restrict__ dq, int H, int KV,
+                   int Sq, int Sk, float scale, float scale_log2, int causal, int window) {
+  using T = DqTiles<D, NC>;
+  using namespace sm90;
+  constexpr int A = T::kAtom, R = T::kRows, KT = T::kKeys, SP = T::kSpan, NS = T::kStages;
+  constexpr bool kDefer = NS >= 3 && T::kBlocks < 3;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  bf16* qs = reinterpret_cast<bf16*>(base);  // [col block][R][A]
+  bf16* dos = qs + R * D;                     // [col block][R][A]
+  bf16* ring = dos + R * D;                   // [stage][K, V][col block][KT][A]
+  uint64_t* qbar = reinterpret_cast<uint64_t*>(base + T::kQBytes + NS * T::kStepBytes);
+  uint64_t* full = qbar + 1;
+  uint64_t* empty = full + NS;
 
-// dQ of 64 query rows of one (batch, head): four warps of 16 rows, q in
-// registers, dO from shared memory, K and V tiles of 64 keys double
-// buffered by cp.async.
-template <int D>
-__global__ void __launch_bounds__(kMmaBwdThreads)
-flash_bwd_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, const float* __restrict__ lse,
-                 const bf16* __restrict__ dout, const float* __restrict__ delta,
-                 bf16* __restrict__ dq, int H, int KV, int Sq, int Sk, float scale, int causal,
-                 int window) {
-  constexpr int P = D + kMmaBwdPad, KSTEPS = D / 16, NT = D / 8, CH = D / 8;
-  constexpr int T = kMmaBwdTile;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // [64][P]
-  bf16* dos = qs + T * P;                        // [64][P]
-  bf16* ks = dos + T * P;                        // [2][64][P]
-  bf16* vs = ks + 2 * T * P;                     // [2][64][P]
-
-  const int bh = blockIdx.x, b = bh / H, h = bh % H, kvh = h / (H / KV);
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
   const int tile = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;  // heaviest first
-  const int q0 = tile * T;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int gr = lane >> 2, t4 = lane & 3;
-  const size_t qoff = static_cast<size_t>(bh) * Sq * D;
-  const bf16* kg = k + static_cast<size_t>(b * KV + kvh) * Sk * D;
-  const bf16* vg = v + static_cast<size_t>(b * KV + kvh) * Sk * D;
-
-  for (int i = tid; i < T * CH; i += kMmaBwdThreads) {
-    const int r = i / CH, c = i - r * CH, qi = q0 + r;
-    const size_t src = qoff + static_cast<size_t>(min(qi, Sq - 1)) * D + c * 8;
-    cp_async16(qs + r * P + c * 8, q + src, qi < Sq);
-    cp_async16(dos + r * P + c * 8, dout + src, qi < Sq);
-  }
-  cp_async_commit();
-
+  const int q0 = tile * R;
   int k_begin, k_end;
-  keys_seen(q0, T, Sk, causal, window, k_begin, k_end);
-  const int t_begin = k_begin / T;
-  const int ntiles = max(0, (k_end + T - 1) / T - t_begin);
-  auto load_kv = [&](int tile_k, int st) {
-    const int k0 = tile_k * T;
-    bf16* kd = ks + st * T * P;
-    bf16* vd = vs + st * T * P;
-    for (int i = tid; i < T * CH; i += kMmaBwdThreads) {
-      const int r = i / CH, c = i - r * CH, kj = k0 + r;
-      const size_t src = static_cast<size_t>(min(kj, Sk - 1)) * D + c * 8;
-      cp_async16(kd + r * P + c * 8, kg + src, kj < Sk);
-      cp_async16(vd + r * P + c * 8, vg + src, kj < Sk);
-    }
-    cp_async_commit();
-  };
+  keys_seen(q0, R, Sk, causal, window, k_begin, k_end);
+  const int t_begin = k_begin / KT;
+  const int ntiles = max(0, (k_end + KT - 1) / KT - t_begin);
+  // warp-uniform as the compiler sees it (its warps' shuffles)
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
 
-  const float scale_log2 = scale * kLog2e;
-  const int row0 = q0 + warp * 16 + gr, row1 = row0 + 8;
+  if (threadIdx.x == 0) {
+    mbar_init(qbar, 1);
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, 4 * NC);  // lane 0 of every consumer warp
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    regs_dec<T::kProducerRegs>();
+    if (threadIdx.x == 0) {
+      tma_prefetch_map(&tm_q);
+      tma_prefetch_map(&tm_k);
+      tma_prefetch_map(&tm_v);
+      tma_prefetch_map(&tm_do);
+      mbar_arrive_expect_tx(qbar, T::kQBytes);
+#pragma unroll
+      for (int c = 0; c < T::kColBlocks; ++c) {
+        tma_load_3d(qs + c * R * A, &tm_q, qbar, c * A, q0, bh);
+        tma_load_3d(dos + c * R * A, &tm_do, qbar, c * A, q0, bh);
+      }
+      const int slab = b * KV + h / (H / KV);
+      for (int it = 0, s = 0, ph = 0; it < ntiles; ++it) {
+        mbar_wait(empty + s, ph ^ 1);
+        mbar_arrive_expect_tx(full + s, T::kStepBytes);
+        bf16* kd = ring + s * 2 * KT * D;
+        bf16* vd = kd + KT * D;
+        const int k0 = (t_begin + it) * KT;
+#pragma unroll
+        for (int c = 0; c < T::kColBlocks; ++c) {
+          tma_load_3d(kd + c * KT * A, &tm_k, full + s, c * A, k0, slab);
+          tma_load_3d(vd + c * KT * A, &tm_v, full + s, c * A, k0, slab);
+        }
+        if (++s == NS) s = 0, ph ^= 1;
+      }
+    }
+    return;
+  }
+
+  regs_inc<T::kConsumerRegs>();
+  const int wgi = wg - 1, t = threadIdx.x - 128 * wg;
+  const int warp = t / 32, lane = t % 32;
+  const int gr = lane >> 2, t4 = lane & 3;  // fragment row group, column pair
+  const int wq0 = q0 + 64 * wgi;            // this warpgroup's rows
+  const int row0 = wq0 + warp * 16 + gr, row1 = row0 + 8;  // this thread's
   // this thread's two rows' lse (log2 units) and D, straight from memory
   float lse_r[2], del_r[2];
 #pragma unroll
@@ -626,97 +714,182 @@ flash_bwd_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
     lse_r[e] = row < Sq ? lse[at] * kLog2e : 0.f;
     del_r[e] = row < Sq ? delta[at] : 0.f;
   }
-  if (ntiles > 0) {
-    load_kv(t_begin, 0);
-    cp_async_wait<1>();  // q and dO have landed
-  } else {
-    cp_async_wait<0>();
+  // the steps [w_begin, w_end) of the block's walk this warpgroup's rows see
+  int w_begin = 0, w_end = 0;
+  if (wq0 < Sq) {
+    int kb, ke;
+    keys_seen(wq0, min(64, Sq - wq0), Sk, causal, window, kb, ke);
+    w_begin = min(ntiles, max(0, kb / KT - t_begin));
+    w_end = max(w_begin, min(ntiles, (ke + KT - 1) / KT - t_begin));
   }
-  __syncthreads();
-  uint32_t qf[KSTEPS][4];
-#pragma unroll
-  for (int kk = 0; kk < KSTEPS; ++kk) lds_a(qf[kk], qs, P, warp * 16, kk * 16, lane);
-  float acc[NT][4];
-#pragma unroll
-  for (int j = 0; j < NT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  // q's and dO's descriptors; each step adds a k-step's offset to its own
+  // copy, so that ptxas does not hold the 2 D / 16 loop-invariant
+  // descriptors (64 bits each) in registers across the walk
+  const uint64_t qdesc = smem_desc(qs + 64 * wgi * A, 16, 8 * SP, SP);
+  const uint64_t odesc = smem_desc(dos + 64 * wgi * A, 16, 8 * SP, SP);
 
-  for (int it = 0; it < ntiles; ++it) {
-    const int st = it & 1, k0 = (t_begin + it) * T;
-    if (it + 1 < ntiles) {
-      load_kv(t_begin + it + 1, st ^ 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const bf16* kt = ks + st * T * P;
-    const bf16* vt = vs + st * T * P;
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  float sc[KT / 2], dp[KT / 2];  // S then P; dP then dS
+  uint32_t da[KT / 16][4];       // dS: the A operand of KT / 16 key steps
 
-    // S = q k^T and dP = dO v^T: 16 rows x 64 keys a warp
-    float sc[8][4], dp[8][4];
+  // S = q K^T, then dP = dO V^T: D / 16 steps each, issued as two groups
+  // (descriptor offsets in 16-byte units)
+  auto issue_scores = [&](const bf16* kt) {
+    uint64_t qd = qdesc, od = odesc;
+    asm volatile("" : "+l"(qd), "+l"(od));
+    const uint64_t kd = smem_desc(kt, 16, 8 * SP, SP), vd = smem_desc(kt + KT * D, 16, 8 * SP, SP);
+    // The first k-step overwrites S and dP: the previous step's values end
+    // at their last use (the products' "+f" operands would keep them alive).
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    for (int i = 0; i < KT / 2; ++i) asm volatile("" : "=f"(sc[i]), "=f"(dp[i]));
+    wgmma_fence();
 #pragma unroll
-      for (int e = 0; e < 4; ++e) sc[j][e] = dp[j][e] = 0.f;
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const int c = kk * 16 / A, off = kk * 16 % A;
+      Wgmma<KT>::template ss<0, 0>(sc, qd + (c * R * A + off) / 8, kd + (c * KT * A + off) / 8,
+                                   kk > 0);
     }
+    wgmma_commit();
 #pragma unroll
-    for (int kk = 0; kk < KSTEPS; ++kk) {
-      uint32_t da[4];
-      lds_a(da, dos, P, warp * 16, kk * 16, lane);
-#pragma unroll
-      for (int np = 0; np < 4; ++np) {
-        uint32_t kb[4], vb[4];
-        lds_b_nk(kb, kt, P, np * 16, kk * 16, lane);
-        mma_bf16(sc[2 * np], qf[kk], kb[0], kb[1]);
-        mma_bf16(sc[2 * np + 1], qf[kk], kb[2], kb[3]);
-        lds_b_nk(vb, vt, P, np * 16, kk * 16, lane);
-        mma_bf16(dp[2 * np], da, vb[0], vb[1]);
-        mma_bf16(dp[2 * np + 1], da, vb[2], vb[3]);
-      }
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const int c = kk * 16 / A, off = kk * 16 % A;
+      Wgmma<KT>::template ss<0, 0>(dp, od + (c * R * A + off) / 8, vd + (c * KT * A + off) / 8,
+                                   kk > 0);
     }
-    // dS = P (dP - D), P = exp2(S scale log2 e - lse log2 e) where visible;
-    // only tiles that cross the diagonal, an end or the window's edge check
-    // each pair (as the forward)
-    const bool need_mask = !tile_visible(q0, T, k0, T, Sq, Sk, causal, window);
+    wgmma_commit();
+  };
+  // dQ += dS K on the stage's K: KT / 16 steps, A from registers, K read
+  // MN-major (its rows are the k); issued as one group
+  auto issue_dq = [&](const bf16* kt) {
+    fence_regs(acc);
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    for (int kk = 0; kk < KT / 16; ++kk) fence_regs(da[kk]);
+    const uint64_t kmn = smem_desc(kt, KT * SP, 8 * SP, SP);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KT / 16; ++kk) Wgmma<D>::template rs<1>(acc, da[kk], kmn + 2 * kk * A, 1);
+    wgmma_commit();
+  };
+  // P where visible (only steps that cross the diagonal, an end or the
+  // window's edge check each pair; keys past Sk read as zero rows, whose
+  // P must be 0, not 2^-lse)
+  auto p_of = [&](int k0) {
+    const bool need_mask = !tile_visible(wq0, 64, k0, KT, Sq, Sk, causal, window);
+#pragma unroll
+    for (int j = 0; j < KT / 8; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int row = e < 2 ? row0 : row1;
-        const int col = k0 + j * 8 + 2 * t4 + (e & 1);
-        const float p = !need_mask || bwd_visible(row, col, Sq, Sk, causal, window)
-                            ? exp2f(sc[j][e] * scale_log2 - lse_r[e >> 1])
-                            : 0.f;
-        sc[j][e] = p * (dp[j][e] - del_r[e >> 1]);
+        const int col = k0 + 8 * j + 2 * t4 + (e & 1);
+        const bool ok = !need_mask || bwd_visible(row, col, Sq, Sk, causal, window);
+        sc[4 * j + e] = ok ? ex2_approx(fmaf(sc[4 * j + e], scale_log2, -lse_r[e >> 1])) : 0.f;
       }
     }
-    uint32_t sa[4][4];
+  };
+  auto ds_of = [&]() {
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) acc_to_a(sa[kk], sc[2 * kk], sc[2 * kk + 1]);
-    // dQ += dS k: k rows are keys, read transposed
+    for (int i = 0; i < KT / 2; ++i) dp[i] = sc[i] * (dp[i] - del_r[(i >> 1) & 1]);
+  };
+  // dS rounded to bf16 pairs into the A fragments: accumulator columns
+  // 8 j.. are key step j / 2's a0, a1 (j even) or a2, a3 (j odd)
+  auto pack_ds = [&]() {
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
+    for (int j = 0; j < KT / 8; ++j) {
+      da[j / 2][(j & 1) * 2] = pack_bf16(dp[4 * j], dp[4 * j + 1]);
+      da[j / 2][(j & 1) * 2 + 1] = pack_bf16(dp[4 * j + 2], dp[4 * j + 3]);
+    }
+  };
+  auto done_dq = [&]() {  // the dQ product in flight has completed
+    wgmma_wait<0>();
+    fence_regs(acc);
 #pragma unroll
-      for (int dp2 = 0; dp2 < D / 16; ++dp2) {
-        uint32_t kb[4];
-        lds_b_kn(kb, kt, P, kk * 16, dp2 * 16, lane);
-        mma_bf16(acc[2 * dp2], sa[kk], kb[0], kb[1]);
-        mma_bf16(acc[2 * dp2 + 1], sa[kk], kb[2], kb[3]);
+    for (int kk = 0; kk < KT / 16; ++kk) fence_regs(da[kk]);  // read until here
+  };
+  // once the scores are issued (and `pending` dQ products after them):
+  // P while dP runs, then dS in dp
+  auto finish_scores = [&](int k0, auto pending) {
+    constexpr int N = decltype(pending)::value;
+    wgmma_wait<N + 1>();  // S is done; dP (and the dQ product) run on
+    fence_regs(sc);
+    p_of(k0);
+    wgmma_wait<N>();
+    fence_regs(dp);
+    ds_of();
+  };
+  int s = 0, ph = 0;
+  auto stage = [&](int st) { return ring + st * 2 * KT * D; };
+  auto advance = [&]() {
+    if (++s == NS) s = 0, ph ^= 1;
+  };
+  auto release = [&](int st) {  // the stage is free
+    if (lane == 0) mbar_arrive(empty + st);
+  };
+  auto pass = [&](int n) {  // hand back n steps unread, each once it is full
+    for (int i = 0; i < n; ++i, advance()) {
+      mbar_wait(full + s, ph);
+      release(s);
+    }
+  };
+  constexpr std::integral_constant<int, 0> none{};
+  constexpr std::integral_constant<int, 1> one{};
+
+  pass(w_begin);
+  mbar_wait(qbar, 0);  // also with no step of its own: the copies end here
+  // The first step alone, then the steady state: no product is issued
+  // or waited for under a condition inside the loop (ptxas serialises
+  // wgmma whose waits it cannot match up along every path).
+  if (w_end > w_begin) {
+    int sp = s;  // deferred: the stage of the dQ product to issue next
+    mbar_wait(full + s, ph);
+    issue_scores(stage(s));
+    finish_scores((t_begin + w_begin) * KT, none);
+    pack_ds();
+    if constexpr (!kDefer) {
+      issue_dq(stage(s));
+      done_dq();
+      release(s);
+    }
+    advance();
+    for (int it = w_begin + 1; it < w_end; ++it, advance()) {
+      const int k0 = (t_begin + it) * KT;
+      mbar_wait(full + s, ph);
+      issue_scores(stage(s));
+      if constexpr (kDefer) {
+        issue_dq(stage(sp));
+        finish_scores(k0, one);
+        done_dq();
+        release(sp);
+        pack_ds();
+        sp = s;
+      } else {
+        finish_scores(k0, none);
+        pack_ds();
+        issue_dq(stage(s));
+        done_dq();
+        release(s);
       }
     }
-    __syncthreads();  // this stage is free for the tile after next
+    if constexpr (kDefer) {
+      issue_dq(stage(sp));
+      done_dq();
+      release(sp);
+    }
   }
-  bf16* dqg = dq + qoff;
+  pass(ntiles - w_end);
+
+  bf16* dqg = dq + static_cast<size_t>(bh) * Sq * D;
 #pragma unroll
-  for (int j = 0; j < NT; ++j) {
+  for (int j = 0; j < D / 8; ++j) {
     const int col = j * 8 + 2 * t4;
     if (row0 < Sq) {
       *reinterpret_cast<uint32_t*>(dqg + static_cast<size_t>(row0) * D + col) =
-          pack_bf16(acc[j][0] * scale, acc[j][1] * scale);
+          pack_bf16(acc[4 * j] * scale, acc[4 * j + 1] * scale);
     }
     if (row1 < Sq) {
       *reinterpret_cast<uint32_t*>(dqg + static_cast<size_t>(row1) * D + col) =
-          pack_bf16(acc[j][2] * scale, acc[j][3] * scale);
+          pack_bf16(acc[4 * j + 2] * scale, acc[4 * j + 3] * scale);
     }
   }
 }
@@ -1232,11 +1405,43 @@ int launch_dkdv_wgmma(const BwdArgs& a) {
   return st ? st : launch_status();
 }
 
+template <int D, int NC>
+int prepare_dq() {
+  return allow_smem(flash_bwd_dq_wgmma<D, NC>, DqTiles<D, NC>::kSmem);
+}
+
+template <int D, int NC>
+int launch_dq_wgmma(const BwdArgs& a) {
+  using T = DqTiles<D, NC>;
+  CUtensorMap maps[4];  // q, k, v, dO
+  const int A = T::kAtom, SP = T::kSpan;
+  int st = encode_tile_map<bf16>(maps, a.q, a.B * a.H, a.Sq, D, T::kRows, A, SP);
+  if (!st) st = encode_tile_map<bf16>(maps + 1, a.k, a.B * a.KV, a.Sk, D, T::kKeys, A, SP);
+  if (!st) st = encode_tile_map<bf16>(maps + 2, a.v, a.B * a.KV, a.Sk, D, T::kKeys, A, SP);
+  if (!st) st = encode_tile_map<bf16>(maps + 3, a.dout, a.B * a.H, a.Sq, D, T::kRows, A, SP);
+  if (!st) st = prepare_dq<D, NC>();
+  if (st) return st;
+  const dim3 grid(a.B * a.H, (a.Sq + T::kRows - 1) / T::kRows);
+  flash_bwd_dq_wgmma<D, NC><<<grid, T::kThreads, T::kSmem, a.s>>>(
+      maps[0], maps[1], maps[2], maps[3], a.lse, a.delta, static_cast<bf16*>(a.dq), a.H, a.KV,
+      a.Sq, a.Sk, a.scale, a.scale * kLog2e, a.causal, a.window);
+  return launch_status();
+}
+
+// Call f(std::integral_constant<int, NC>{}) for the dq variant of ``rows``
+// query rows a block (NC = rows / 64 consumers); kStatusBadArgs for any
+// other.
+template <typename F>
+int with_dq(int rows, F&& f) {
+  if (rows == 128) return f(std::integral_constant<int, 2>{});
+  if (rows == 64) return f(std::integral_constant<int, 1>{});
+  return kStatusBadArgs;
+}
+
 template <int D>
-int launch_flash_bwd_mma(const BwdArgs& a) {
+int launch_flash_bwd_bf16(const BwdArgs& a) {
   const int G = a.H / a.KV;
-  if (a.dq_rows != kMmaBwdTile || a.cluster < 1 || a.cluster > kMaxCluster ||
-      a.heads * a.cluster != G) {
+  if (a.cluster < 1 || a.cluster > kMaxCluster || a.heads * a.cluster != G) {
     return kStatusBadArgs;
   }
   int st = 0;
@@ -1245,15 +1450,10 @@ int launch_flash_bwd_mma(const BwdArgs& a) {
     if (st) return st;
   }
   if (a.parts & kPartDq) {
-    constexpr size_t smem = bwd_dq_mma_smem_bytes<D>();
-    st = allow_smem(flash_bwd_dq_mma<D>, smem);
-    if (st) return st;
-    const dim3 grid(a.B * a.H, (a.Sq + kMmaBwdTile - 1) / kMmaBwdTile);
-    flash_bwd_dq_mma<D><<<grid, kMmaBwdThreads, smem, a.s>>>(
-        static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
-        static_cast<const bf16*>(a.v), a.lse, static_cast<const bf16*>(a.dout), a.delta,
-        static_cast<bf16*>(a.dq), a.H, a.KV, a.Sq, a.Sk, a.scale, a.causal, a.window);
-    st = launch_status();
+    st = with_dq(a.dq_rows, [&](auto nc) {
+      constexpr int NC = decltype(nc)::value;
+      return launch_dq_wgmma<D, NC>(a);
+    });
     if (st) return st;
   }
   if (a.parts & kPartDkdv) {
@@ -1261,6 +1461,19 @@ int launch_flash_bwd_mma(const BwdArgs& a) {
                         [&](auto v) { return launch_dkdv_wgmma<D, decltype(v)>(a); });
   }
   return 0;
+}
+
+// How many dq blocks of ``rows`` query rows one SM holds at once
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), into *out.
+template <int D>
+int dq_max_blocks(int rows, int* out) {
+  return with_dq(rows, [&](auto nc) {
+    constexpr int NC = decltype(nc)::value;
+    int st = prepare_dq<D, NC>();
+    if (st) return st;
+    return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        out, flash_bwd_dq_wgmma<D, NC>, DqTiles<D, NC>::kThreads, DqTiles<D, NC>::kSmem));
+  });
 }
 
 // How many clusters of ``cluster`` dkdv blocks of this variant the card
@@ -1334,7 +1547,7 @@ int launch_flash_bwd_f32(const BwdArgs& a) {
 template <typename T, int D>
 int launch_flash_bwd(const BwdArgs& a) {
   if constexpr (std::is_same_v<T, bf16>) {
-    return launch_flash_bwd_mma<D>(a);
+    return launch_flash_bwd_bf16<D>(a);
   } else {
     return launch_flash_bwd_f32<D>(a);
   }
@@ -1370,7 +1583,8 @@ extern "C" int repro_flash_attention_bwd(const void* q, const void* k, const voi
   if (KV <= 0 || H % KV != 0) return kStatusBadArgs;
   const BwdArgs a{q,  k,  v,  o,  static_cast<const float*>(lse), dout, static_cast<float*>(delta),
                   dq, dk, dv, B,  H, KV, Sq, Sk, scale, causal, window, dq_rows, kv_keys,
-                  kv_rows, heads, cluster, stages, parts, static_cast<cudaStream_t>(stream)};
+                  kv_rows, heads, cluster, stages, parts,
+                  static_cast<cudaStream_t>(stream)};
   if (dtype == kDtypeBF16) return dispatch_flash_bwd<__nv_bfloat16>(D, a);
   return dispatch_flash_bwd<float>(D, a);
 }
@@ -1388,6 +1602,21 @@ extern "C" int repro_flash_bwd_max_clusters(int D, int keys, int rows, int stage
     case 80: return dkdv_max_clusters<80>(keys, rows, stages, cluster, out);
     case 96: return dkdv_max_clusters<96>(keys, rows, stages, cluster, out);
     case 128: return dkdv_max_clusters<128>(keys, rows, stages, cluster, out);
+    default: return kStatusBadHeadDim;
+  }
+}
+
+// bf16 dq blocks of ``rows`` query rows a block one SM holds at once, into
+// *out.
+extern "C" int repro_flash_bwd_dq_blocks(int D, int rows, int* out) {
+  using namespace repro;
+  switch (D) {
+    case 16: return dq_max_blocks<16>(rows, out);
+    case 32: return dq_max_blocks<32>(rows, out);
+    case 64: return dq_max_blocks<64>(rows, out);
+    case 80: return dq_max_blocks<80>(rows, out);
+    case 96: return dq_max_blocks<96>(rows, out);
+    case 128: return dq_max_blocks<128>(rows, out);
     default: return kStatusBadHeadDim;
   }
 }

@@ -22,7 +22,6 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # the backward's tiles compiled into csrc/flash_attention_bwd.cu
 BWD_F32_TILES = (64, 32, 16)  # float32: dq query rows, dkdv keys a block
 BWD_F32_WALK = 64             # float32: dq keys, dkdv query rows a step
-BWD_MMA_TILE = 64             # bf16: dq query rows and keys a step
 MAX_CLUSTER = 8               # csrc kMaxCluster: blocks of a cluster at most
 PARTS = {"prep": 1, "dq": 2, "dkdv": 4}  # csrc kPart*: kernels of a call
 
@@ -32,9 +31,10 @@ PARTS = {"prep": 1, "dq": 2, "dkdv": 4}  # csrc kPart*: kernels of a call
 # SM may use (one block an SM with two consumers, two with one), and the
 # registers a thread after setmaxnreg (producer, consumer) against the
 # launch's (__launch_bounds__: 384 threads at 1 block, 256 at 2 blocks)
+SM_SHARED = 233472  # bytes of shared memory an SM, 1024 of it reserved a block
 FWD_ROWS = {2: 128, 1: 64}
 FWD_KEYS = {2: 128, 1: 64}
-FWD_BUDGET = {2: 232448, 1: 115712}
+FWD_BUDGET = {2: SM_SHARED - 1024, 1: SM_SHARED // 2 - 1024}
 FWD_REGS = {2: (24, 240), 1: (24, 232)}
 FWD_LAUNCH_REGS = {2: 168, 1: 128}
 FWD_MAX_STAGES = 4
@@ -55,6 +55,17 @@ BWD_SPILLS = {(128, 1, 64)}
 # the ring stages the rule takes
 BWD_LONG = 1024
 BWD_STAGES = 2
+# the bf16 dQ kernel's tiles (csrc DqTiles<D, NC>), by its consumer
+# warpgroups of 64 query rows: query rows a block (both compiled at every
+# head dim), keys a step, the ring's K/V stages at most; blocks an SM
+# (`dq_blocks_per_sm`: one with two consumers, two with one, three with
+# one at D <= DQ_SMALL_D) share an SM's shared memory and registers
+DQ_ROWS = {2: 128, 1: 64}
+DQ_KEYS = 64
+DQ_MAX_STAGES = 4
+DQ_SMALL_D = 64
+# query rows from which a bf16 dq block takes two consumer warpgroups
+DQ_LONG = 1024
 # the float32 forward's tiles (csrc Tf32Tiles<D, BK>): 64 query rows a
 # block, key tiles of 32 or 64; Q's hi and lo beside a ring of stages of
 # five tiles (K with its hi in place, K's lo, V, V^T's hi and lo), as
@@ -186,9 +197,11 @@ class BwdPlan(NamedTuple):
     tiles).  In bf16 the dkdv block is ``flash_bwd_dkdv_wgmma``:
     ``kv_keys`` / 64 consumer warpgroups behind a producer, q and dO
     through a ring of ``stages`` stages (0 in float32, which has no
-    ring).  The tile is the slow grid axis: dkdv dispatches key tile 0
-    first, a causal dq the last query tile first, every head's heaviest
-    tile before any head's next."""
+    ring).  In bf16 the dq block is ``flash_bwd_dq_wgmma``: ``dq_rows`` /
+    64 consumer warpgroups behind a producer, K and V through a ring of
+    as many stages as fit (`bwd_dq_tiles`).  The tile is the slow grid axis:
+    dkdv dispatches key tile 0 first, a causal dq the last query tile
+    first, every head's heaviest tile before any head's next."""
     dq_rows: int
     dq_keys: int
     kv_keys: int
@@ -220,6 +233,26 @@ def bwd_tiles(D: int, consumers: int, rows: int, stages: int = 0):
     return atom, stages, 1024 + max(kv + stages * (step + row), parts) + 128
 
 
+def dq_blocks_per_sm(D: int, consumers: int) -> int:
+    """Blocks an SM the bf16 dQ kernel is built for (its launch bounds)."""
+    return 1 if consumers == 2 else 3 if D <= DQ_SMALL_D else 2
+
+
+def bwd_dq_tiles(D: int, consumers: int):
+    """(atom, stages, smem) of the bf16 dQ kernel at head dim ``D`` with
+    ``consumers`` warpgroups of 64 query rows: the swizzled row's elements
+    (as `fwd_tiles`), the ring's K/V stages (the most up to
+    `DQ_MAX_STAGES` that fit a block's share of the SM), and the dynamic
+    shared bytes: 1024 to align the tiles, q and dO of the block's rows,
+    the ring, and 128 for the mbarriers, as `csrc/flash_attention_bwd.cu`
+    DqTiles computes them."""
+    atom = 64 if D % 64 == 0 else 32 if D % 32 == 0 else 16
+    budget = SM_SHARED // dq_blocks_per_sm(D, consumers) - 1024
+    q, step = 2 * DQ_ROWS[consumers] * D * 2, 2 * DQ_KEYS * D * 2
+    stages = min(DQ_MAX_STAGES, (budget - 1024 - 128 - q) // step)
+    return atom, stages, 1024 + q + stages * step + 128
+
+
 def cluster_heads(G: int) -> int:
     """Query heads a bf16 dkdv block takes: the least divisor of ``G`` that
     leaves at most ``MAX_CLUSTER`` blocks to a kv head (1 for every G <= 8;
@@ -245,18 +278,30 @@ def bwd_plan(B: int, H: int, KV: int, Sq: int, Sk: int, D: int,
              causal: bool, itemsize: int, sms: int) -> BwdPlan:
     """The backward's launch plan for these shapes on ``sms`` SMs.
 
-    bf16 (``itemsize`` 2): dq tiles of 64; dkdv blocks of two consumer
-    warpgroups (128 keys) from `BWD_LONG` keys on, else one (64 keys);
-    64 query rows a step where that variant is compiled (not one consumer
-    at D = 128, `BWD_SPILLS`), else 32; `BWD_STAGES` ring stages; one
-    query head a dkdv block and a cluster of G blocks (`cluster_heads`
-    past G = 8).  `tools/flash_bwd_times.py --plans` times every variant
-    at the bf16 training shapes (NVIDIA H100 80GB HBM3, 700 W; PERF.md
-    §6): 64 rows took 10-17% less dkdv time than 32 wherever
-    both are built; 128 keys 1% less than 64 at Zamba2's and MiniCPM3's
-    2,048 keys, 2-4% more at Granite's and Whisper's 1,500-2,048, and
-    18-56% more below 1,024 keys (Whisper's decoder, LLaVA's 192); 2
-    stages within 3.5% of 4 either way.  float32: 16-, 32- or 64-row dq
+    bf16 (``itemsize`` 2): dq blocks of two consumer warpgroups (128 query
+    rows) from `DQ_LONG` query rows on at D > `DQ_SMALL_D`, else one (64
+    rows; three blocks an SM at D <= `DQ_SMALL_D`), each with the most
+    K/V stages its ring holds (`bwd_dq_tiles`); dkdv blocks of two
+    consumer warpgroups (128 keys) from `BWD_LONG` keys on, else one (64
+    keys); 64 query rows a step where that variant is compiled (not one
+    consumer at D = 128, `BWD_SPILLS`), else 32; `BWD_STAGES` ring
+    stages; one query head a dkdv block and a cluster of G blocks
+    (`cluster_heads` past G = 8).  `tools/flash_bwd_times.py --plans`
+    times every variant at the bf16 training shapes (NVIDIA H100 80GB
+    HBM3, 700 W; PERF.md §6): 64 rows took 10-17% less dkdv time than 32
+    wherever both are built; 128 keys 1% less than 64 at Zamba2's and
+    MiniCPM3's 2,048 keys, 2-4% more at Granite's and Whisper's
+    1,500-2,048, and 18-56% more below 1,024 keys (Whisper's decoder,
+    LLaVA's 192); 2 stages within 3.5% of 4 either way.  With two blocks
+    an SM for one dq consumer, two consumers took 2-15% less dq time than
+    one at 2,048 query rows and D = 80-128 (Yi-9B 0.2358 ms against
+    0.2468, Zamba2 0.1091 against 0.1290), were within 4% either way at
+    D = 64 (Granite's 2,048, Whisper's 1,500 and 448), and 2-5% slower
+    at LLaVA's 192 and Whisper's cross attention; there, at D = 64, a
+    step's latency bounded dq and Whisper's encoder's blocks filled 1.45
+    waves at either size, so at D <= 64 one consumer is built for three
+    blocks an SM (PERF.md §6 has both forms' times).  float32: 16-, 32-
+    or 64-row dq
     tiles and key dkdv tiles, the largest that give each grid two blocks
     an SM (`_fill_tile`), the G heads of a kv head in one block.  Shapes
     only."""
@@ -264,39 +309,49 @@ def bwd_plan(B: int, H: int, KV: int, Sq: int, Sk: int, D: int,
     if itemsize == 2:
         nc = 2 if Sk >= BWD_LONG else 1
         rows = next(r for n, r in bwd_variants(D) if n == nc)
-        return _wgmma_bwd_plan(B, H, KV, Sq, Sk, D, nc, rows, BWD_STAGES)
+        return _wgmma_bwd_plan(B, H, KV, Sq, Sk, D, nc, rows, BWD_STAGES,
+                               2 if Sq >= DQ_LONG and D > DQ_SMALL_D else 1)
     dq_rows, kv_keys = _fill_tile(B * H, Sq, sms), _fill_tile(B * KV, Sk, sms)
     return BwdPlan(dq_rows, BWD_F32_WALK, kv_keys, BWD_F32_WALK, G, 1, 0,
                    (B * H, -(-Sq // dq_rows)), (B * KV, -(-Sk // kv_keys)))
 
 
 def _wgmma_bwd_plan(B: int, H: int, KV: int, Sq: int, Sk: int, D: int,
-                    consumers: int, rows: int, stages: int = 0) -> BwdPlan:
+                    consumers: int, rows: int, stages: int = 0,
+                    dq_consumers: int = 1) -> BwdPlan:
     """The bf16 plan with ``consumers`` dkdv warpgroups, ``rows`` query
-    rows a step and ``stages`` ring stages (0: the most that fit)."""
+    rows a step and ``stages`` ring stages (0: the most that fit), and
+    ``dq_consumers`` dq warpgroups."""
     heads = cluster_heads(H // KV)
     cluster = H // KV // heads
     keys = BWD_KEYS[consumers]
     stages = bwd_tiles(D, consumers, rows, stages)[1]
-    return BwdPlan(BWD_MMA_TILE, BWD_MMA_TILE, keys, rows, heads, cluster,
-                   stages, (B * H, -(-Sq // BWD_MMA_TILE)),
+    dq_rows = DQ_ROWS[dq_consumers]
+    return BwdPlan(dq_rows, DQ_KEYS, keys, rows, heads, cluster, stages,
+                   (B * H, -(-Sq // dq_rows)),
                    (B * KV * cluster, -(-Sk // keys)))
 
 
 def bwd_plans(B: int, H: int, KV: int, Sq: int, Sk: int, D: int,
               causal: bool, itemsize: int, sms: int) -> list:
     """The plan `bwd_plan` picks, then the ones its rule passes over
-    (bf16: every other compiled number of consumers and query rows a
-    step (`bwd_variants`) at `BWD_STAGES`, and the chosen one at the
-    ring's most stages; float32: every other tile, dq rows and dkdv keys
-    alike)."""
+    (bf16: every other compiled dkdv variant, consumers and query rows a
+    step (`bwd_variants`), at `BWD_STAGES`, the chosen one at the ring's
+    most stages, and every other dq variant (`DQ_ROWS`), each beside the
+    chosen plan's other part; float32: every
+    other tile, dq rows and dkdv keys alike)."""
     chosen = bwd_plan(B, H, KV, Sq, Sk, D, causal, itemsize, sms)
     plans = [chosen]
     if itemsize == 2:
-        alts = [_wgmma_bwd_plan(B, H, KV, Sq, Sk, D, nc, rows, BWD_STAGES)
-                for nc, rows in bwd_variants(D)]
+        dq_nc = chosen.dq_rows // 64
+        alts = [_wgmma_bwd_plan(B, H, KV, Sq, Sk, D, nc, rows, BWD_STAGES,
+                                dq_nc) for nc, rows in bwd_variants(D)]
         alts.append(_wgmma_bwd_plan(B, H, KV, Sq, Sk, D,
-                                    chosen.kv_keys // 64, chosen.kv_rows))
+                                    chosen.kv_keys // 64, chosen.kv_rows, 0,
+                                    dq_nc))
+        alts += [_wgmma_bwd_plan(B, H, KV, Sq, Sk, D, chosen.kv_keys // 64,
+                                 chosen.kv_rows, chosen.stages, nc)
+                 for nc in sorted(DQ_ROWS, reverse=True)]
     else:
         alts = [chosen._replace(dq_rows=t, kv_keys=t,
                                 dq_grid=(B * H, -(-Sq // t)),
@@ -315,6 +370,14 @@ def bwd_max_clusters(index: int, D: int, plan: BwdPlan) -> int:
     with torch.cuda.device(index):
         return _build.extension().flash_bwd_max_clusters(
             D, plan.kv_keys, plan.kv_rows, plan.stages, plan.cluster)
+
+
+@functools.lru_cache(maxsize=None)
+def bwd_dq_blocks(index: int, D: int, rows: int) -> int:
+    """bf16 dq blocks of ``rows`` query rows one SM of card ``index``
+    holds at once, by `cudaOccupancyMaxActiveBlocksPerMultiprocessor`."""
+    with torch.cuda.device(index):
+        return _build.extension().flash_bwd_dq_blocks(D, rows)
 
 
 def _check(name, q, k, v):

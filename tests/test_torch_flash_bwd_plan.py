@@ -376,10 +376,10 @@ def test_source_runs_the_wgmma_dkdv_for_every_bf16_head_dim():
     dims = tuple(int(d) for d in re.findall(
         r"case (\d+): return launch_flash_bwd<T, \1>", body))
     assert dims == HEAD_DIMS
-    assert "return launch_flash_bwd_mma<D>(a);" in text
-    mma = re.search(r"int launch_flash_bwd_mma\(.*?\n}", text, re.S).group(0)
-    assert "with_dkdv<D>(a.kv_keys, a.kv_rows" in mma
-    assert "launch_dkdv_wgmma<D, decltype(v)>(a)" in mma
+    assert "return launch_flash_bwd_bf16<D>(a);" in text
+    bf16 = re.search(r"int launch_flash_bwd_bf16\(.*?\n}", text, re.S).group(0)
+    assert "with_dkdv<D>(a.kv_keys, a.kv_rows" in bf16
+    assert "launch_dkdv_wgmma<D, decltype(v)>(a)" in bf16
     pick = re.search(r"int with_dkdv\(.*?\n}", text, re.S).group(0)
     for nc, keys in BWD_KEYS.items():
         for rows in BWD_ROWS:

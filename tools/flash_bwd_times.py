@@ -18,7 +18,8 @@ bound, each as `chip_smoke.py` times and computes them, and the largest
 error against `ref.attention_bwd` (within `chip_smoke.BF16_TOL`, or the
 script fails).  With ``--plans`` (a checkout that has
 `flash_attention.bwd_plans`) also every plan the rule weighs, each
-checked and timed whole and its dkdv part alone.  With ``--define``
+checked and timed whole and its dq and dkdv parts alone (each dq
+variant of a checkout that has them: one or two consumer warpgroups).  With ``--define``
 (repeatable) everything runs on a timing copy of the kernels built with
 those macros (`_build.extension(defines=)`, e.g. ``DKDV_TOGETHER=1``).
 Needs a CUDA device.
@@ -107,7 +108,7 @@ def main() -> int:
             line["plans"] = [dict(
                 plan=p._asdict(), max_abs_err=checked(p),
                 ms=cs.graph_ms(lambda: run(p)),
-                dkdv_ms=parts_ms(p, ("dkdv",))["dkdv"])
+                **{f"{n}_ms": t for n, t in parts_ms(p, ("dq", "dkdv")).items()})
                 for p in fmod.bwd_plans(B, H, KV, Sq, Sk, D, causal, 2, sms)]
         print(json.dumps(line), flush=True)
         del q, k, v, do, o, lse, want
